@@ -1,0 +1,176 @@
+"""Collation: samples -> one static-shape device batch.
+
+The TPU counterpart of ``MMBatch.from_mm_data_list``
+(core/multimodal/data.py:179) + the runtime voxel bookkeeping the reference
+does *on device* during forward (torchsparse ``sphash`` reindex +
+``ImageMapping.select_points``, modules/multimodal/modules.py:101-236).
+Here all of it happens host-side, once per batch:
+
+  1. concatenate per-sample voxel arrays (coords already quantized);
+  2. build the multi-level UNet graph (kernel maps, parents) padded to the
+     bucket's per-level capacities;
+  3. concatenate per-sample mappings with point/image offsets, then derive
+     the per-branch-level mappings by merging through the parent chain;
+  4. pad images/views/pixels to bucket capacities.
+
+A ``Bucket`` pins every static dimension, so batches of one bucket family
+share every array shape (SURVEY.md §7 design move 1).
+:func:`batch_to_torch` moves a collated batch onto the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.csr import pad_to
+from ..ops import sparse_graph as sg
+from .mapping import MultiViewMapping, concatenate_mappings
+
+__all__ = ["Sample", "Bucket", "collate", "device_view", "batch_to_torch"]
+
+
+def device_view(batch: Dict) -> Dict:
+    """The device view of a collated batch: everything except ``meta``
+    (which holds host-only cloud keys / ragged origin ids)."""
+    return {k: v for k, v in batch.items() if k != "meta"}
+
+
+@dataclasses.dataclass
+class Sample:
+    """One training sample (a sphere / cylinder / room of voxelized points)."""
+
+    coords: np.ndarray                 # int32 [n, 3] quantized (level-0 units)
+    feats: np.ndarray                  # f32 [n, C]
+    labels: np.ndarray                 # int32 [n], -1 ignore
+    images: Optional[np.ndarray] = None      # f32 [m, W, H, 3]
+    mapping: Optional[MultiViewMapping] = None
+    # camera-family index per image (pinhole / fisheye ...): when set, the
+    # collate routes each image through its family's native-aspect bucket
+    # (ref SameSettingImageData settings groups, image.py:177,1208-1219)
+    image_family: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None   # f32 [n, 3] raw positions (trackers)
+    origin_id: Optional[np.ndarray] = None   # int64 [n] raw-cloud row ids
+    cloud: Optional[str] = None        # source cloud key (vote accumulation)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """Static capacities shared by every batch of one bucket family."""
+
+    level_caps: Sequence[int]          # voxel capacity per UNet level
+    num_batches: int                   # max samples per batch
+    view_cap: int = 0
+    pix_cap: int = 0
+    image_cap: int = 0
+    image_size: Optional[Sequence[int]] = None  # (W, H)
+    # crop-group families (CropImageGroups): when set, images are cropped to
+    # these ladder sizes and shipped per-bucket with split pixel tables
+    image_ladder: Optional[Sequence[Sequence[int]]] = None
+    ladder_image_caps: Optional[Sequence[int]] = None
+    ladder_pix_caps: Optional[Sequence[int]] = None
+
+
+def collate(
+    samples: List[Sample],
+    bucket: Bucket,
+    branch_levels: Sequence[int] = (),
+    conv0_kernel: int = 3,
+) -> Dict:
+    """Build the batch dict (everything numpy; :func:`batch_to_torch`
+    moves it to the device)."""
+    assert len(samples) <= bucket.num_batches
+    coords, feats, labels, batch_idx = [], [], [], []
+    for b, s in enumerate(samples):
+        c = np.concatenate(
+            [np.full((len(s.coords), 1), b, np.int32), s.coords.astype(np.int32)],
+            axis=1,
+        )
+        coords.append(c)
+        feats.append(np.asarray(s.feats, np.float32))
+        labels.append(np.asarray(s.labels, np.int32))
+    coords = np.concatenate(coords)
+    feats = np.concatenate(feats)
+    labels = np.concatenate(labels)
+    n_total = len(coords)
+    cap0 = bucket.level_caps[0]
+    if n_total > cap0:
+        raise ValueError(f"{n_total} voxels exceed bucket cap {cap0}")
+
+    graph = sg.build_unet_graph(
+        coords,
+        num_levels=len(bucket.level_caps),
+        num_batches=bucket.num_batches,
+        conv0_kernel=conv0_kernel,
+        capacities=list(bucket.level_caps),
+    )
+    dev_graph = sg.graph_to_device(graph)
+
+    batch = {
+        "feats": pad_to(feats, cap0),
+        "labels": pad_to(labels, cap0, fill=-1),
+        "graph": dev_graph,
+    }
+    if all(s.pos is not None for s in samples):
+        pos = np.concatenate([np.asarray(s.pos, np.float32) for s in samples])
+        batch["pos"] = pad_to(pos, cap0, fill=1e6)  # pads far away
+
+    if branch_levels:
+        offsets = np.cumsum([0] + [len(s.coords) for s in samples])[:-1]
+        merged0 = concatenate_mappings(
+            [s.mapping for s in samples], offsets, n_total
+        ).with_num_points(cap0)
+        imgs = np.concatenate([s.images for s in samples]).astype(np.float32)
+
+        if bucket.image_ladder is not None:
+            raise NotImplementedError(
+                "crop-ladder buckets (Bucket.image_ladder) are not ported yet"
+            )
+        mappings = {}
+        m = merged0
+        level = 0
+        for lvl in sorted(branch_levels):
+            while level < lvl:
+                parent = graph.levels[level].parent
+                m = m.merge_points(parent, bucket.level_caps[level + 1])
+                level += 1
+            mappings[lvl] = m.pad(bucket.view_cap,
+                                  bucket.pix_cap).to_device()
+        batch["mappings"] = mappings
+
+        if len(imgs) > bucket.image_cap:
+            raise ValueError(
+                f"{len(imgs)} images exceed cap {bucket.image_cap}"
+            )
+        batch["images"] = pad_to(imgs, bucket.image_cap)
+
+    # host-side metadata (never moved to the device)
+    batch["meta"] = {
+        "num_valid": n_total,
+        "num_samples": len(samples),
+        "sizes": [len(s.coords) for s in samples],
+        # voting support (SaveOriginalPosId semantics, SURVEY.md §A.9)
+        "clouds": [s.cloud for s in samples],
+        "origin_ids": [s.origin_id for s in samples],
+    }
+    return batch
+
+
+def batch_to_torch(batch: Dict, device="cuda") -> Dict:
+    """Move the numpy leaves of a collated batch onto ``device`` as tensors
+    (dtypes kept: int32 ids, bool masks, float32 values); ``meta`` and other
+    non-array leaves stay as they are."""
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: v if k == "meta" else move(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(move(v) for v in node)
+        if isinstance(node, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(node)).to(device)
+        return node
+
+    return move(batch)

@@ -1,0 +1,1 @@
+"""nn of the PyTorch port (see deepviewagg_tpu_torch/__init__.py)."""
