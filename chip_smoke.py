@@ -20,8 +20,26 @@ exit) on any fault:
   4. card vs CPU  one smaller request through the same weights on the card
               and on the CPU (plain versions): logits within 3e-2 relative,
               argmax agreement >= 99%
+  2b. backward kernels  replay every sorted-segment backward of one
+              flagship train step (cotangents, inputs and saved results
+              recorded from a real backward pass) through the CUDA backward
+              kernel and its plain version: bit-equal for sum and max; plus
+              empty, masked and all-masked segments with forced ties (every
+              max-attaining row gets the full cotangent); time the kernel,
+              the plain version, the library form (``index_select`` +
+              ``where`` on precomputed ids) and the byte bound
+  6. training the flagship model in training mode takes ten optimizer steps
+              (SGD + momentum 0.9, LR 0.1, weight decay 1e-4, clip 10) on
+              the benchmark request, two of them warm-up; the launch counts
+              are zeroed just before and read just after; loss and gradient
+              norm stay finite, the loss falls, every parameter and every
+              running mean moves; then the trained model serves one request
+              in eval mode
+  7. card vs CPU, one train step  from identical weights on the smaller
+              request: loss within 1e-2 relative, gradient norm within 3e-2
   5. trace    only with ``--trace``: device time by kernel family and the
-              device's idle share over three forwards (``torch.profiler``)
+              device's idle share over three forwards and three train steps
+              (``torch.profiler``)
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line ``{"kernels": [...]}`` before it holds each kernel's launches, error
@@ -44,8 +62,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from deepviewagg_tpu_torch.data.collate import batch_to_torch  # noqa: E402
 from deepviewagg_tpu_torch.data.toy import flagship_spec, toy_batch  # noqa: E402
+from deepviewagg_tpu_torch.models.losses import segmentation_loss  # noqa: E402
 from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg  # noqa: E402
+from deepviewagg_tpu_torch.nn.norm import MaskedBatchNorm  # noqa: E402
 from deepviewagg_tpu_torch.ops import segment as seg  # noqa: E402
+from deepviewagg_tpu_torch.train.optimizers import (  # noqa: E402
+    make_optimizer, make_schedule)
+from deepviewagg_tpu_torch.train.step import (  # noqa: E402
+    TrainState, make_train_step)
 from deepviewagg_tpu_torch.utils import cuda_build  # noqa: E402
 
 # the benchmark request (bench.py's forward batch) and the graft-entry one
@@ -57,6 +81,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 SUM_RTOL = 1e-5                    # kernel vs plain: only summation order
 LOGITS_RTOL = 3e-2                 # card vs CPU: bf16 tower convs differ
 ARGMAX_AGREE = 0.99
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+# card vs CPU train step: bf16 tower convs and the order of the pixel
+# gather's scatter-add differ
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_NORM_RTOL = 3e-2
 
 
 def log(phase: str, **fields) -> None:
@@ -216,35 +245,258 @@ def phase_kernels(model, batch) -> dict:
     return totals
 
 
-def phase_serving(model, requests) -> dict:
+def zero_launches() -> None:
     for name in seg.LAUNCHES:
         seg.LAUNCHES[name] = 0
+
+
+def serve_one(model, np_batch, phase: str, **fields) -> None:
+    """One eval forward of a request on the card, checked: logits of the
+    expected shape, finite on the valid voxels, through the forward kernel."""
+    batch = batch_to_torch(np_batch, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = seg.LAUNCHES["segment_csr"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(batch)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    n = valid_voxels(np_batch)
+    logits = out["logits"][:n]
+    if logits.shape != (n, model.spec.num_classes):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits on valid voxels")
+    launched = seg.LAUNCHES["segment_csr"] - before
+    if launched <= 0:
+        raise AssertionError("the forward kernel was not launched")
+    log(phase, **fields, voxels=n,
+        images=int(np.asarray(np_batch["images"]).shape[0]),
+        forward_ms=f"{fwd_ms:.1f}", voxels_per_s=f"{n / fwd_ms * 1e3:.0f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches={"segment_csr": launched})
+
+
+def phase_serving(model, requests) -> dict:
+    zero_launches()
     for i, (np_batch, prep_ms) in enumerate(requests):
-        batch = batch_to_torch(np_batch, device="cuda")
-        torch.cuda.synchronize()
+        serve_one(model, np_batch, "3 serving", request=i,
+                  preprocess_ms=f"{prep_ms:.1f}")
+    if seg.LAUNCHES["segment_csr_bwd"] != 0:
+        raise AssertionError("serving launched the backward kernel")
+    return dict(seg.LAUNCHES)
+
+
+def record_backward_calls(model, batch) -> list:
+    """Every ``segment_csr_bwd`` call of one training-mode forward and
+    backward: ``(g, x, out, ptr, valid, reduce, num_rows)`` as the autograd
+    function hands them over (the cotangent cloned)."""
+    calls, inner = [], seg.segment_csr_bwd
+
+    def recorder(g, x, out, ptr, valid, reduce, num_rows=None):
+        calls.append((g.clone(), x, out, ptr, valid, reduce, num_rows))
+        return inner(g, x, out, ptr, valid, reduce, num_rows)
+
+    seg.segment_csr_bwd = recorder
+    try:
+        out = model(batch)
+        loss = segmentation_loss(out["logits"], batch["labels"],
+                                 batch["graph"]["levels"][0]["valid"])
+        loss.backward()
+    finally:
+        seg.segment_csr_bwd = inner
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_bwd_call(g, x, out, ptr, valid, reduce, num_rows) -> float:
+    """Backward kernel vs plain on one input: bit-equal or it raises;
+    returns the largest absolute difference (0.0 when they are equal)."""
+    got = seg.segment_csr_bwd(g, x, out, ptr, valid, reduce, num_rows)
+    torch.cuda.synchronize()
+    ref = seg.segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"segment_csr_bwd {reduce} differs: {err}")
+    return err
+
+
+def bwd_edge_case() -> None:
+    """Empty, masked and all-masked segments, narrow and odd widths, with
+    forced ties: both tied rows get the full cotangent, rows of an
+    all-masked segment get none."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    e, s = 5000, 900
+    ids = torch.sort(torch.randint(0, s // 2, (e,), generator=gen,
+                                   device="cuda"))[0]
+    valid = (torch.rand(e, generator=gen, device="cuda") > 0.3) & (ids % 5 != 1)
+    ptr = seg.segment_ptr(ids.to(torch.int32), s)
+    for c in (1, 3, 4, 64):
+        x = torch.randn(e, c, generator=gen, device="cuda")
+        # tie: copy each row onto its successor where both share a segment
+        same = torch.zeros(e, dtype=torch.bool, device="cuda")
+        same[1::2] = ids[1::2] == ids[0:-1:2]
+        x[same] = x[torch.nonzero(same)[:, 0] - 1]
+        g = torch.randn(s, c, generator=gen, device="cuda")
+        for v in (None, valid):
+            for reduce in ("sum", "max"):
+                out = seg.segment_csr(x, ptr, v, reduce)
+                check_bwd_call(g, x, out, ptr, v, reduce, e)
+            out = seg.segment_csr(x, ptr, v, "max")
+            gx = seg.segment_csr_bwd(g, x, out, ptr, v, "max")
+            keep = torch.ones_like(valid) if v is None else v
+            hit = keep[:, None] & (x == out[ids])
+            if not torch.equal(gx[hit], g[ids][hit]):
+                raise AssertionError("a max-attaining row lacks the full "
+                                     "cotangent")
+            tied = same & keep & torch.roll(keep, 1)
+            both = tied[:, None] & hit
+            if not (both.any() and torch.equal(
+                    gx[both], torch.roll(gx, 1, 0)[both])):
+                raise AssertionError("tied rows did not both get the cotangent")
+            if v is not None:
+                dead = ~valid | (ids % 5 == 1)
+                if gx[dead].abs().sum() != 0:
+                    raise AssertionError("masked or all-masked rows got "
+                                         "gradient")
+    log("2b backward kernels", case="empty+masked+all-masked+ties",
+        widths="1,3,4,64", ok=True)
+
+
+def phase_backward_kernels(model, batch) -> dict:
+    calls = record_backward_calls(model, batch)
+    if not calls:
+        raise AssertionError("the train step recorded no segment backward")
+    bwd_edge_case()
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  max_abs_err=0.0)
+    for i, (g, x, out, ptr, valid, reduce, num_rows) in enumerate(calls):
+        err = check_bwd_call(g, x, out, ptr, valid, reduce, num_rows)
+        s, c = g.shape
+        e = x.shape[0] if x is not None else num_rows
+        # read g, valid, ptr (and x, out for max) once; write gx once
+        nbytes = (s * c * 4 + (e if valid is not None else 0) + 4 * (s + 1)
+                  + e * c * 4)
+        if reduce == "max":
+            nbytes += e * c * 4 + s * c * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        kms = time_ms(lambda: seg.segment_csr_bwd(
+            g, x, out, ptr, valid, reduce, num_rows))
+        pms = time_ms(lambda: seg.segment_csr_bwd_plain(
+            g, x, out, ptr, valid, reduce, num_rows))
+        # the library form on precomputed ids (timing only; never used)
+        ids, keep = seg._row_segments(ptr, e)
+        if valid is not None:
+            keep = keep & valid
+        keep = keep[:, None]
+        if reduce == "sum":
+            lms = time_ms(lambda: torch.where(
+                keep, g.index_select(0, ids), 0.0))
+        else:
+            lms = time_ms(lambda: torch.where(
+                keep & (x == out.index_select(0, ids)) & (x > -5e29),
+                g.index_select(0, ids), 0.0))
+        log("2b backward kernels", call=i, reduce=reduce, rows=e, channels=c,
+            segments=s, masked=valid is not None,
+            kernel_ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+            library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
+            max_abs_err=err)
+        totals["ms"] += kms
+        totals["plain_ms"] += pms
+        totals["library_ms"] += lms
+        totals["bound_ms"] += bound
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+    log("2b backward kernels", kernel="segment_csr_bwd", checked=True,
+        bit_equal=True, calls_per_step=len(calls))
+    return totals
+
+
+def phase_training(model, np_batch, check_batch) -> dict:
+    """Ten optimizer steps on one request; returns the launch counts."""
+    model.train()
+    batch = batch_to_torch(np_batch, device="cuda")
+    n = valid_voxels(np_batch)
+    state = TrainState.create(model, make_optimizer(
+        make_schedule("constant", 0.1), grad_clip=10.0))
+    step = make_train_step(model)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    means = {k: m.running_mean.clone() for k, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm)}
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    for i in range(TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
         before = dict(seg.LAUNCHES)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            out = model(batch)
+        state, metrics = step(state, batch, None)
         torch.cuda.synchronize()
-        fwd_ms = (time.perf_counter() - t0) * 1e3
-        n = valid_voxels(np_batch)
-        logits = out["logits"][:n]
-        if logits.shape != (n, model.spec.num_classes):
-            raise AssertionError(f"logits shape {tuple(logits.shape)}")
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite logits on valid voxels")
-        per_fwd = {k: seg.LAUNCHES[k] - before[k] for k in seg.LAUNCHES}
-        if min(per_fwd.values()) <= 0:
-            raise AssertionError(f"a kernel was not launched: {per_fwd}")
-        log("3 serving", request=i, voxels=n,
-            images=int(np.asarray(np_batch["images"]).shape[0]),
-            preprocess_ms=f"{prep_ms:.1f}", forward_ms=f"{fwd_ms:.1f}",
-            voxels_per_s=f"{n / fwd_ms * 1e3:.0f}",
+        ms = (time.perf_counter() - t0) * 1e3
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
+        per_step = {k: seg.LAUNCHES[k] - before[k] for k in seg.LAUNCHES}
+        if min(per_step.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched: {per_step}")
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            step_ms.append(ms)
+        log("6 training", step=i, loss=f"{loss:.4f}",
+            grad_norm=f"{gnorm:.4f}", step_ms=f"{ms:.1f}",
+            voxels_per_s=f"{n / ms * 1e3:.0f}", timed=i >= TRAIN_WARMUP,
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-            launches=per_fwd)
-    return dict(seg.LAUNCHES)
+            launches=per_step)
+    launches = dict(seg.LAUNCHES)
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"step counter {state.step}")
+    no_grad = [k for k, p in model.named_parameters() if p.grad is None]
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach(), start[k])]
+    if no_grad or still:
+        raise AssertionError(f"parameters without gradient {no_grad[:5]} or "
+                             f"unmoved {still[:5]}")
+    stuck = [k for k, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm)
+             and torch.equal(m.running_mean, means[k])]
+    if stuck:
+        raise AssertionError(f"running means did not move: {stuck[:5]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    log("6 training", steps=TRAIN_STEPS, timed_steps=len(step_ms),
+        params=sum(p.numel() for p in model.parameters()), voxels=n,
+        first_loss=f"{losses[0]:.4f}", last_loss=f"{losses[-1]:.4f}",
+        mean_step_ms=f"{mean_ms:.1f}", min_step_ms=f"{min(step_ms):.1f}",
+        voxels_per_s=f"{n / mean_ms * 1e3:.0f}", launches=launches)
+    model.eval()
+    serve_one(model, check_batch, "6 training", after="training, eval mode")
+    return launches
+
+
+def phase_train_card_vs_cpu(model) -> None:
+    """One train step from identical weights on the card and on the CPU."""
+    np_batch, _ = make_request(0, "cuda", **CHECK_REQUEST)
+    got = {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(device)
+        state = TrainState.create(m, make_optimizer(
+            make_schedule("constant", 0.1), grad_clip=10.0))
+        _, metrics = make_train_step(m)(
+            state, batch_to_torch(np_batch, device), None)
+        got[device] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        del m, state
+    (loss, gnorm), (ref_loss, ref_gnorm) = got["cuda"], got["cpu"]
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    gnorm_err = abs(gnorm - ref_gnorm) / abs(ref_gnorm)
+    log("7 train card vs cpu", voxels=valid_voxels(np_batch),
+        loss=f"{loss:.6f}", cpu_loss=f"{ref_loss:.6f}",
+        loss_rel_err=f"{loss_err:.3e}", grad_norm=f"{gnorm:.5f}",
+        cpu_grad_norm=f"{ref_gnorm:.5f}", grad_norm_rel_err=f"{gnorm_err:.3e}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GRAD_NORM_RTOL):
+        raise AssertionError(
+            f"card and CPU train steps disagree: {loss_err}, {gnorm_err}")
 
 
 def phase_card_vs_cpu(model) -> None:
@@ -267,7 +519,8 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     # cuDNN convs and cuBLAS GEMMs share "xmma"/"gemm" in their names; the
     # convs carry "conv", "fprop" or "implicit"
-    for key, fam in (("segment_csr", "segment_csr (ours)"),
+    for key, fam in (("segment_csr_bwd", "segment_csr_bwd (ours)"),
+                     ("segment_csr", "segment_csr (ours)"),
                      ("conv", "conv2d"), ("fprop", "conv2d"),
                      ("implicit", "conv2d"), ("gemm", "matmul"),
                      ("index", "gather/scatter"), ("gather", "gather/scatter"),
@@ -280,18 +533,17 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_trace(model, np_batch, repeats: int = 3) -> None:
+def phase_trace(what: str, run, repeats: int = 3) -> None:
     """Device time by kernel family and the device's idle share over
-    ``repeats`` forwards of one request (``torch.profiler``)."""
+    ``repeats`` calls of ``run`` (one forward or one train step of one
+    request) under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = batch_to_torch(np_batch, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.no_grad():
-            for _ in range(repeats):
-                model(batch)
+        for _ in range(repeats):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     fams: dict = {}
@@ -302,12 +554,29 @@ def phase_trace(model, np_batch, repeats: int = 3) -> None:
             fam = kernel_family(ev.key)
             fams[fam] = fams.get(fam, 0.0) + us
     busy = sum(fams.values())
-    log("5 trace", forwards=repeats, wall_ms_per_forward=f"{wall_us / repeats / 1e3:.2f}",
-        device_ms_per_forward=f"{busy / repeats / 1e3:.2f}",
+    log("5 trace", what=what, repeats=repeats,
+        wall_ms_each=f"{wall_us / repeats / 1e3:.2f}",
+        device_ms_each=f"{busy / repeats / 1e3:.2f}",
         idle_share=f"{1 - busy / wall_us:.3f}")
     for fam, us in sorted(fams.items(), key=lambda kv: -kv[1]):
-        log("5 trace", family=fam, ms_per_forward=f"{us / repeats / 1e3:.3f}",
-            share=f"{us / busy:.3f}")
+        log("5 trace", what=what, family=fam,
+            ms_each=f"{us / repeats / 1e3:.3f}", share=f"{us / busy:.3f}")
+
+
+def trace_forward_and_train(model, train_model, np_batch) -> None:
+    batch = batch_to_torch(np_batch, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+
+    phase_trace("forward", forward)
+    train_model.train()
+    state = TrainState.create(train_model, make_optimizer(
+        make_schedule("constant", 0.1), grad_clip=10.0))
+    step = make_train_step(train_model)
+    step(state, batch, None)                       # warm-up, not traced
+    phase_trace("train_step", lambda: step(state, batch, None))
 
 
 def main() -> None:
@@ -324,18 +593,39 @@ def main() -> None:
     totals = phase_kernels(model, batch_to_torch(requests[0][0], "cuda"))
     launches = phase_serving(model, requests)
     phase_card_vs_cpu(model)
+    # training runs on a copy, so the serving model keeps its weights
+    train_model = copy.deepcopy(model).train()
+    bwd_totals = phase_backward_kernels(
+        train_model, batch_to_torch(requests[0][0], "cuda"))
+    train_launches = phase_training(train_model, requests[0][0],
+                                    requests[1][0])
+    phase_train_card_vs_cpu(model)
     if trace:
-        phase_trace(model, requests[0][0])
-    kernels = [{
-        "name": "segment_csr", "route": "cuda",
-        "source": "deepviewagg_tpu_torch/csrc/segment_csr.cu",
-        "replaces": "deepviewagg_tpu/ops/pallas_segment.py:75",
-        "launches": launches["segment_csr"],
-        "max_abs_err": totals["max_abs_err"],
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"], "bound_by": "bytes",
-        "library_ms": totals["library_ms"], "checked": True,
-    }]
+        trace_forward_and_train(model, train_model, requests[0][0])
+
+    def entry(name, source, replaces, totals, **counts):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **counts,
+            "max_abs_err": totals["max_abs_err"],
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": "bytes",
+            "library_ms": totals["library_ms"], "checked": True,
+        }
+
+    # ``launches``: the kernel's count over the path that drives it first
+    # (serving for the forward, training for the backward); times are sums
+    # over the calls of one forward / one train step
+    kernels = [
+        entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
+              "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
+              launches=launches["segment_csr"],
+              launches_training=train_launches["segment_csr"]),
+        entry("segment_csr_bwd",
+              "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
+              "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
+              launches=train_launches["segment_csr_bwd"]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

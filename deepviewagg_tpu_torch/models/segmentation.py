@@ -1,4 +1,4 @@
-"""The multimodal segmentation model (DeepViewAgg), eval path.
+"""The multimodal segmentation model (DeepViewAgg).
 
 The port of ``deepviewagg_tpu/models/segmentation.py`` (``BranchSpec``,
 ``ModelSpec``, ``make_tower``, ``MultimodalSeg``; the reference's
@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..modules import image_encoders as towers
-from ..modules.branch import UnimodalBranch
+from ..modules.branch import UnimodalBranch, soft_dropout
 from ..nn.res16unet import RES16_PRESETS, DownStage, Stem, UpStage
 
 __all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "make_tower",
@@ -119,8 +119,9 @@ def _check_branch(spec: BranchSpec) -> None:
 
 class MultimodalSeg(nn.Module):
     """DeepViewAgg: Res16UNet with image branches interleaved at encoder
-    levels; ``forward(batch)`` returns ``{"logits", "x_seen"}``.  Eval mode
-    only (dropout is the identity there)."""
+    levels; ``forward(batch, generator=None)`` returns ``{"logits",
+    "x_seen"}`` in training and eval mode alike.  ``generator`` feeds every
+    dropout (modality, 3D and head); without one they are the identity."""
 
     def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
         super().__init__()
@@ -149,7 +150,9 @@ class MultimodalSeg(nn.Module):
                     use_mod=b.use_mod, pool_use_num=b.pool_use_num,
                     pool_scaling=b.pool_scaling, pool_modes=b.pool_modes,
                     pool_fusion=b.pool_fusion, gated=b.gated,
-                    interpolate=b.interpolate, fusion_mode=b.fusion_mode,
+                    interpolate=b.interpolate, drop_modality=b.drop_modality,
+                    drop_3d=b.drop_3d, drop_hard=b.drop_hard,
+                    fusion_mode=b.fusion_mode,
                     tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
                     device=device)
                 name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
@@ -175,7 +178,7 @@ class MultimodalSeg(nn.Module):
         if seed is not None:
             init_parameters(self, torch.Generator().manual_seed(seed))
 
-    def _run_branches(self, level, x, batch, seen_all):
+    def _run_branches(self, level, x, batch, seen_all, generator):
         k = 0
         while True:
             name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
@@ -184,26 +187,30 @@ class MultimodalSeg(nn.Module):
                 return x, seen_all
             images = batch["images"]
             x, seen = branch(x, images, batch["mappings"][level],
-                             (images.shape[1], images.shape[2]))
+                             (images.shape[1], images.shape[2]),
+                             generator=generator)
             seen_all = seen if seen_all is None else (seen_all | seen)
             k += 1
 
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("training mode is not ported yet; "
-                                      "call .eval() first")
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         graph = batch["graph"]
-        x, x_seen = self._run_branches(0, batch["feats"], batch, None)
+        x, x_seen = self._run_branches(0, batch["feats"], batch, None,
+                                       generator)
         x = self.stem(x, graph)
         skips = [x]
         for i in range(self.n_down):
             x = getattr(self, f"down{i}")(x, graph, i)
-            x, _ = self._run_branches(i + 1, x, batch, None)
+            x, _ = self._run_branches(i + 1, x, batch, None, generator)
             if i < self.n_down - 1:
                 skips.append(x)
         for j in range(self.n_down):
             lvl_out = self.n_down - 1 - j
             x = getattr(self, f"up{j}")(x, skips[lvl_out], graph, lvl_out)
+        # the generator's presence (not the training flag) gates the head
+        # dropout, so MC-dropout voting works at eval
+        x = soft_dropout(x, self.spec.head_dropout, generator)
         out = {"logits": self.head(x)}
         if x_seen is not None:
             out["x_seen"] = x_seen

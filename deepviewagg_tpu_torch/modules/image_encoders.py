@@ -1,4 +1,4 @@
-"""2D image towers: ResNet-18 with GroupNorm + weight standardization, eval.
+"""2D image towers: ResNet-18 with GroupNorm + weight standardization.
 
 The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 ``f32_convs``, ``run_tower``, ``_Norm``, ``_BasicBlock2d``, ``ResNet18``,
@@ -7,7 +7,9 @@ image.py).  Public tensors keep the JAX layout ``[I, W, H, C]`` (W before H);
 the towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
 flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
 parameters by name.  Only ``norm='group'`` (the from-scratch towers) is
-ported; remat and view sharding are training / multi-card concerns.
+ported: it has no batch statistics, so the towers compute the same in
+training and eval mode and differentiate by ordinary autograd.  Remat (a
+memory saving that changes no number) and view sharding are not ported.
 """
 
 from __future__ import annotations

@@ -1,26 +1,54 @@
-"""Validity-masked batch normalization, eval path.
+"""Validity-masked batch normalization.
 
-The port of ``deepviewagg_tpu/nn/norm.py::MaskedBatchNorm``: the reference
-normalizes sparse-voxel features with BatchNorm over active voxels; in eval
+The port of ``deepviewagg_tpu/nn/norm.py`` (``MaskedBatchNorm``,
+``bn_momentum``): the reference normalizes sparse-voxel features with
+BatchNorm over active voxels; the static-shape sparse tensors carry padding
+rows, so the training statistics are taken over *valid* rows only.  In eval
 mode the layer applies its running statistics (``running_mean`` /
 ``running_var`` buffers, the flax ``batch_stats`` ``mean`` / ``var``) with
-eps 1e-5 in float32.  The masked training statistics wait for the training
-slice of the port.
+eps 1e-5 in float32.  Cross-device (sync) statistics are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 from torch import nn
 
-__all__ = ["MaskedBatchNorm"]
+__all__ = ["MaskedBatchNorm", "bn_momentum"]
+
+# Trainer-scoped momentum override: the reference's BN-momentum scheduler
+# (core/schedulers/bn_schedulers.py) decays momentum across epochs.
+_BN_MOMENTUM = [None]
+
+
+@contextlib.contextmanager
+def bn_momentum(value: Optional[float]):
+    """While active, every MaskedBatchNorm uses this momentum."""
+    _BN_MOMENTUM.append(value)
+    try:
+        yield
+    finally:
+        _BN_MOMENTUM.pop()
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the row axis of ``x [N, C]``; eval mode only."""
+    """BatchNorm over the row axis of ``x [N, C]`` with a validity mask
+    ``valid bool [N]`` (None: all rows).
 
-    def __init__(self, channels: int, epsilon: float = 1e-5, device=None):
+    In training mode the batch statistics are masked sums with the *biased*
+    variance, and the running statistics follow ``momentum * old +
+    (1 - momentum) * new`` with that same biased variance (unlike
+    ``torch.nn.BatchNorm1d``, whose running variance is unbiased); the
+    buffers are updated in place.  ``momentum`` follows the torch default
+    the reference uses (running = 0.9 * old + 0.1 * new)."""
+
+    def __init__(self, channels: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, device=None):
         super().__init__()
+        self.momentum = momentum
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
@@ -28,9 +56,24 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
     def forward(self, x: torch.Tensor, valid=None) -> torch.Tensor:
+        xf = x.to(torch.float32)
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training statistics are not ported yet")
-        y = (x.to(torch.float32) - self.running_mean) * torch.rsqrt(
-            self.running_var + self.epsilon)
+            if valid is None:
+                w = xf.new_ones(xf.shape[:-1] + (1,))
+            else:
+                w = valid.to(torch.float32).reshape(valid.shape + (1,))
+            rows = tuple(range(xf.ndim - 1))
+            s1 = torch.sum(xf * w, dim=rows)
+            s2 = torch.sum(xf * xf * w, dim=rows)
+            n = torch.clamp(torch.sum(w), min=1.0)
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+            mom = (self.momentum if _BN_MOMENTUM[-1] is None
+                   else _BN_MOMENTUM[-1])
+            with torch.no_grad():
+                self.running_mean.mul_(mom).add_(mean, alpha=1 - mom)
+                self.running_var.mul_(mom).add_(var, alpha=1 - mom)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias

@@ -67,7 +67,8 @@ class Stem(nn.Module):
                  kernel_size: int = 3, device=None):
         super().__init__()
         self.SparseConvNormRelu_0 = SparseConvNormRelu(
-            kernel_size ** 3, in_channels, out_channels, device=device)
+            kernel_size ** 3, in_channels, out_channels, submanifold=True,
+            device=device)
 
     def forward(self, feats, graph):
         return self.SparseConvNormRelu_0(
@@ -92,7 +93,9 @@ class DownStage(nn.Module):
     def forward(self, feats, graph, level_in: int):
         src = graph["levels"][level_in]
         dst = graph["levels"][level_in + 1]
-        x = self.SparseConvNormRelu_0(feats, src["down_nbr"], dst["valid"])
+        # the precomputed transpose map gives the gather-only backward
+        x = self.SparseConvNormRelu_0(feats, src["down_nbr"], dst["valid"],
+                                      nbr_t=src["up_nbr"])
         for i in range(self.num_blocks):
             x = getattr(self, f"ResBlock_{i}")(x, dst["sub_nbr"], dst["valid"])
         return x
@@ -115,7 +118,9 @@ class UpStage(nn.Module):
 
     def forward(self, feats, skip, graph, level_out: int):
         dst = graph["levels"][level_out]
-        x = self.SparseConvNormRelu_0(feats, dst["up_nbr"], dst["valid"])
+        # the transpose of the up map is the down map
+        x = self.SparseConvNormRelu_0(feats, dst["up_nbr"], dst["valid"],
+                                      nbr_t=dst["down_nbr"])
         x = torch.cat([x, skip], dim=-1)
         for i in range(self.num_blocks):
             x = getattr(self, f"ResBlock_{i}")(x, dst["sub_nbr"], dst["valid"])

@@ -1,4 +1,4 @@
-"""Sparse-voxel conv blocks, eval path.
+"""Sparse-voxel conv blocks.
 
 The port of ``deepviewagg_tpu/nn/sparse_blocks.py`` (``SparseConv``,
 ``SparseConvNormRelu``, ``ResBlock``; the reference's
@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.sparse_conv import sparse_conv
+from ..ops.sparse_conv import (sparse_conv, sparse_conv_pair,
+                               sparse_conv_submanifold)
 from .norm import MaskedBatchNorm
 
 __all__ = ["SparseConv", "SparseConvNormRelu", "ResBlock"]
@@ -25,15 +26,24 @@ __all__ = ["SparseConv", "SparseConvNormRelu", "ResBlock"]
 
 class SparseConv(nn.Module):
     """Bare sparse convolution: ``weight [K, Cin, Cout]`` (JAX layout),
-    bias-free (no block of the flagship uses one)."""
+    bias-free (no block of the flagship uses one).
+
+    ``submanifold=True`` (same in/out coords, centered odd kernel) and a
+    given transpose map ``nbr_t`` (strided pairs) select the convolutions
+    with the gather-only backward; anything else is the plain one."""
 
     def __init__(self, kernel_volume: int, in_channels: int, out_channels: int,
-                 device=None):
+                 submanifold: bool = False, device=None):
         super().__init__()
+        self.submanifold = submanifold
         self.weight = nn.Parameter(torch.empty(
             kernel_volume, in_channels, out_channels, device=device))
 
-    def forward(self, feats, nbr):
+    def forward(self, feats, nbr, nbr_t=None):
+        if self.submanifold and feats.shape[0] == nbr.shape[1]:
+            return sparse_conv_submanifold(feats, self.weight, nbr)
+        if nbr_t is not None:
+            return sparse_conv_pair(feats, self.weight, nbr, nbr_t)
         return sparse_conv(feats, self.weight, nbr)
 
 
@@ -41,15 +51,16 @@ class SparseConvNormRelu(nn.Module):
     """Conv -> masked BN -> ReLU, the reference's conv/norm/act triplet."""
 
     def __init__(self, kernel_volume: int, in_channels: int, out_channels: int,
-                 relu: bool = True, device=None):
+                 relu: bool = True, submanifold: bool = False, device=None):
         super().__init__()
         self.relu = relu
         self.SparseConv_0 = SparseConv(kernel_volume, in_channels,
-                                       out_channels, device=device)
+                                       out_channels, submanifold=submanifold,
+                                       device=device)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, device=device)
 
-    def forward(self, feats, nbr, valid):
-        x = self.MaskedBatchNorm_0(self.SparseConv_0(feats, nbr), valid)
+    def forward(self, feats, nbr, valid, nbr_t=None):
+        x = self.MaskedBatchNorm_0(self.SparseConv_0(feats, nbr, nbr_t), valid)
         return F.relu(x) if self.relu else x
 
 
@@ -61,10 +72,11 @@ class ResBlock(nn.Module):
                  kernel_volume: int = 27, device=None):
         super().__init__()
         self.SparseConvNormRelu_0 = SparseConvNormRelu(
-            kernel_volume, in_channels, out_channels, device=device)
+            kernel_volume, in_channels, out_channels, submanifold=True,
+            device=device)
         self.SparseConvNormRelu_1 = SparseConvNormRelu(
             kernel_volume, out_channels, out_channels, relu=False,
-            device=device)
+            submanifold=True, device=device)
         if in_channels != out_channels:
             self.Dense_0 = nn.Linear(in_channels, out_channels, bias=False,
                                      device=device)

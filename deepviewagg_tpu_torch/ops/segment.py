@@ -15,6 +15,14 @@ or raises; on a CPU tensor it runs :func:`segment_csr_plain`, the plain
 PyTorch version with the same semantics.  The CSR ``ptr`` is used when the
 caller gives it (collate ships ``point_ptr`` / ``pix_ptr``), else computed
 with one ``searchsorted``.
+
+:func:`segment_csr` is differentiable in ``x`` through a
+``torch.autograd.Function`` whose backward is :func:`segment_csr_bwd`, the
+port of the TPU kernel's hand-written backwards (``_sum_bwd`` / ``_max_bwd``):
+on a CUDA tensor the kernel ``csrc/segment_csr_bwd.cu`` or an error, on a CPU
+tensor :func:`segment_csr_bwd_plain`.  Sum passes the segment's cotangent to
+every valid row; max passes it, whole, to every valid element that attains
+the segment's maximum (ties included) and is above the masked fill.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ __all__ = [
     "LAUNCHES",
     "segment_csr",
     "segment_csr_plain",
+    "segment_csr_bwd",
+    "segment_csr_bwd_plain",
     "segment_ptr",
     "segment_sum",
     "segment_mean",
@@ -42,7 +52,7 @@ __all__ = [
 _NEG = -1e30
 
 # launches of each hand-written kernel, counted where the wrapper launches it
-LAUNCHES = {"segment_csr": 0}
+LAUNCHES = {"segment_csr": 0, "segment_csr_bwd": 0}
 
 
 def segment_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -60,15 +70,12 @@ def segment_csr_plain(x: torch.Tensor, ptr: torch.Tensor,
     masked segments; rows outside ``[ptr[0], ptr[-1])`` are ignored."""
     e, c = x.shape
     s = ptr.numel() - 1
-    rows = torch.arange(e, device=x.device)
-    ids = torch.searchsorted(ptr.to(torch.int64), rows, right=True) - 1
-    keep = (ids >= 0) & (ids < s)
-    if valid is not None:
-        keep = keep & valid
-    ids = ids.clamp(0, max(s - 1, 0))
     out = torch.zeros((s, c), dtype=x.dtype, device=x.device)
     if s == 0 or e == 0:
         return out
+    ids, keep = _row_segments(ptr, e)
+    if valid is not None:
+        keep = keep & valid
     if reduce == "sum":
         return out.index_add_(0, ids, torch.where(keep[:, None], x, 0.0))
     if reduce == "max":
@@ -79,30 +86,67 @@ def segment_csr_plain(x: torch.Tensor, ptr: torch.Tensor,
     raise ValueError(reduce)
 
 
-def segment_csr(x: torch.Tensor, ptr: torch.Tensor,
-                valid: Optional[torch.Tensor], reduce: str) -> torch.Tensor:
-    """Sorted-segment ``'sum'`` or ``'max'`` of ``x [E, C]`` float32 over CSR
-    ``ptr int32 [S+1]`` -> ``[S, C]``.  CUDA tensors launch the kernel
-    (counted in ``LAUNCHES``); CPU tensors take :func:`segment_csr_plain`."""
+def _row_segments(ptr: torch.Tensor, num_rows: int):
+    """``(ids int64 [E] clamped into [0, S-1], inside bool [E])``: the segment
+    of each row under ``ptr``, and whether the row lies in
+    ``[ptr[0], ptr[-1])``."""
+    s = ptr.numel() - 1
+    rows = torch.arange(num_rows, device=ptr.device)
+    ids = torch.searchsorted(ptr.to(torch.int64), rows, right=True) - 1
+    inside = (ids >= 0) & (ids < s)
+    return ids.clamp(0, max(s - 1, 0)), inside
+
+
+def segment_csr_bwd_plain(g: torch.Tensor, x: Optional[torch.Tensor],
+                          out: Optional[torch.Tensor], ptr: torch.Tensor,
+                          valid: Optional[torch.Tensor], reduce: str,
+                          num_rows: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch gradient of :func:`segment_csr_plain` in ``x``:
+    ``gx[r] = g[s(r)]`` where row ``r`` lies in segment ``s(r)`` and is
+    valid, else 0; for ``'max'`` only where ``x[r, c] == out[s(r), c]`` and
+    ``x[r, c] > -5e29`` (every max-attaining element gets the full
+    cotangent).  ``x`` and ``out`` (the forward's input and result) are read
+    for ``'max'`` only; ``'sum'`` takes ``num_rows`` when ``x`` is None."""
     if reduce not in ("sum", "max"):
         raise ValueError(reduce)
+    e = x.shape[0] if x is not None else int(num_rows)
+    c = g.shape[1]
+    if e == 0 or ptr.numel() <= 1:
+        return torch.zeros((e, c), dtype=g.dtype, device=g.device)
+    ids, keep = _row_segments(ptr, e)
+    if valid is not None:
+        keep = keep & valid
+    mask = keep[:, None]
+    if reduce == "max":
+        mask = mask & (x == out[ids]) & (x > _NEG / 2)
+    return torch.where(mask, g[ids], 0.0)
+
+
+def _check_args(name, x, ptr, valid, num_rows):
+    """What both the kernels and their plain versions take: float32 ``[.,
+    C]`` values, an int32 ``ptr`` and a bool ``valid [E]`` on one device."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes float32, got {x.dtype}")
+    if x.ndim != 2 or ptr.ndim != 1:
+        raise ValueError(f"{name}: x must be [E, C] and ptr [S+1], got "
+                         f"{tuple(x.shape)} and {tuple(ptr.shape)}")
+    if ptr.dtype != torch.int32 or ptr.device != x.device:
+        raise TypeError(f"{name}: ptr must be int32 on x's device")
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != (num_rows,)
+                              or valid.device != x.device):
+        raise TypeError(f"{name}: valid must be bool [E] on x's device")
+    if num_rows > 2**31 - 1024:
+        raise ValueError(f"{name}: the kernel indexes rows with int32")
+
+
+def _segment_csr_forward(x, ptr, valid, reduce):
+    """The forward of :func:`segment_csr` outside autograd."""
+    _check_args("segment_csr", x, ptr, valid, x.shape[0])
     if x.device.type == "cpu":
         return segment_csr_plain(x, ptr, valid, reduce)
     if x.device.type != "cuda":
         raise RuntimeError(f"segment_csr: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"segment_csr kernel takes float32, got {x.dtype}")
-    if x.ndim != 2 or ptr.ndim != 1:
-        raise ValueError(f"segment_csr: x must be [E, C] and ptr [S+1], got "
-                         f"{tuple(x.shape)} and {tuple(ptr.shape)}")
-    if ptr.dtype != torch.int32 or ptr.device != x.device:
-        raise TypeError("segment_csr: ptr must be int32 on x's device")
-    if x.shape[0] > 2**31 - 1024:
-        raise ValueError("segment_csr: the kernel indexes rows with int32")
-    if valid is not None and (valid.dtype != torch.bool
-                              or valid.shape != x.shape[:1]
-                              or valid.device != x.device):
-        raise TypeError("segment_csr: valid must be bool [E] on x's device")
     from ..utils import cuda_build
 
     lib = cuda_build.load("segment_csr")
@@ -123,6 +167,101 @@ def segment_csr(x: torch.Tensor, ptr: torch.Tensor,
         raise RuntimeError(f"segment_csr kernel launch failed: CUDA error {rc}")
     LAUNCHES["segment_csr"] += 1
     return out
+
+
+def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
+                    out: Optional[torch.Tensor], ptr: torch.Tensor,
+                    valid: Optional[torch.Tensor], reduce: str,
+                    num_rows: Optional[int] = None) -> torch.Tensor:
+    """Gradient of :func:`segment_csr` in ``x``: ``g [S, C]`` float32 ->
+    ``gx [E, C]`` (the arguments of :func:`segment_csr_bwd_plain`).  CUDA
+    tensors launch the backward kernel (counted in ``LAUNCHES``) or raise;
+    CPU tensors take the plain version."""
+    if reduce not in ("sum", "max"):
+        raise ValueError(reduce)
+    if reduce == "max" and (x is None or out is None):
+        raise ValueError("segment_csr_bwd: 'max' needs x and out")
+    e = x.shape[0] if x is not None else int(num_rows)
+    _check_args("segment_csr_bwd", g, ptr, valid, e)
+    s, c = ptr.numel() - 1, g.shape[1]
+    if g.shape[0] != s:
+        raise ValueError(f"segment_csr_bwd: g has {g.shape[0]} rows for "
+                         f"{s} segments")
+    if reduce == "max" and not (
+            x.dtype == out.dtype == torch.float32 and x.shape == (e, c)
+            and out.shape == g.shape and x.device == out.device == g.device):
+        raise TypeError("segment_csr_bwd: x [E, C] and out [S, C] must be "
+                        "float32 on g's device")
+    if g.device.type == "cpu":
+        return segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"segment_csr_bwd: unsupported device {g.device}")
+    if reduce == "max":
+        x, out = x.contiguous(), out.contiguous()
+    from ..utils import cuda_build
+
+    lib = cuda_build.load("segment_csr_bwd")
+    g = g.contiguous()
+    ptr = ptr.contiguous()
+    if valid is not None:
+        valid = valid.contiguous()
+    gx = torch.empty((e, c), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.segment_csr_bwd_f32(
+            g.data_ptr(),
+            x.data_ptr() if reduce == "max" else None,
+            out.data_ptr() if reduce == "max" else None,
+            ptr.data_ptr(),
+            None if valid is None else valid.data_ptr(), gx.data_ptr(),
+            e, s, c, int(reduce == "max"),
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"segment_csr_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["segment_csr_bwd"] += 1
+    return gx
+
+
+class _SegmentCSR(torch.autograd.Function):
+    """``segment_csr`` with the hand-written backward; saves ``(x, out)`` for
+    ``'max'`` and nothing of ``x`` for ``'sum'``."""
+
+    @staticmethod
+    def forward(ctx, x, ptr, valid, reduce):
+        out = _segment_csr_forward(x, ptr, valid, reduce)
+        ctx.reduce = reduce
+        ctx.num_rows = x.shape[0]
+        ctx.has_valid = valid is not None
+        saved = [ptr] + ([valid] if valid is not None else [])
+        if reduce == "max":
+            saved += [x, out]
+        ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = list(ctx.saved_tensors)
+        ptr = saved.pop(0)
+        valid = saved.pop(0) if ctx.has_valid else None
+        x, out = saved if ctx.reduce == "max" else (None, None)
+        gx = segment_csr_bwd(g.contiguous(), x, out, ptr, valid, ctx.reduce,
+                             ctx.num_rows)
+        return gx, None, None, None
+
+
+def segment_csr(x: torch.Tensor, ptr: torch.Tensor,
+                valid: Optional[torch.Tensor], reduce: str) -> torch.Tensor:
+    """Sorted-segment ``'sum'`` or ``'max'`` of ``x [E, C]`` float32 over CSR
+    ``ptr int32 [S+1]`` -> ``[S, C]``, differentiable in ``x``.  CUDA tensors
+    launch the kernels (counted in ``LAUNCHES``); CPU tensors take
+    :func:`segment_csr_plain` and :func:`segment_csr_bwd_plain`."""
+    if reduce not in ("sum", "max"):
+        raise ValueError(reduce)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        # nothing to differentiate: spare the autograd function's host cost
+        return _segment_csr_forward(x, ptr, valid, reduce)
+    return _SegmentCSR.apply(x, ptr, valid, reduce)
 
 
 def _masked(x, valid, fill):
@@ -197,7 +336,10 @@ def segment_softmax(logits, segment_ids, num_segments: int, valid=None,
     segment before exponentiation (pooling.py:788-801).  Invalid elements get
     weight 0.
     """
-    seg_max = segment_max(logits, segment_ids, num_segments, valid, ptr)
+    # the max shift leaves the softmax's value unchanged, so its gradient is
+    # identically zero: cut it out of the backward
+    seg_max = segment_max(logits.detach(), segment_ids, num_segments, valid,
+                          ptr)
     logits = _masked(logits, valid, _NEG)
     shifted = logits - seg_max[segment_ids]
     if scaling:

@@ -30,6 +30,10 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     "segment_csr": {
         "segment_csr_f32": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     },
+    "segment_csr_bwd": {
+        "segment_csr_bwd_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+                                _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,7 @@
-"""Load the JAX package's flax variables into the port's modules.
+"""Move variables between the JAX package's flax trees and the port's modules:
+:func:`load_flax_variables` fills a model from a flax tree, and
+:func:`to_flax_tree` is the inverse walk (parameters, their gradients or the
+running statistics as a flax-layout tree of numpy arrays).
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as nested dicts of
 numpy arrays (``jax.device_get`` of what ``model.init`` returns).  The port's
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_variables", "flatten"]
+__all__ = ["load_flax_variables", "to_flax_tree", "flatten"]
 
 
 def flatten(tree: Mapping, prefix=()):
@@ -97,3 +100,59 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"torch entries not filled from flax: {missing}")
+
+
+def _unconvert(module: nn.Module, name: str, value: np.ndarray):
+    """(flax leaf name, flax-layout array) of one torch parameter or buffer:
+    the inverse of :func:`_convert`."""
+    from ..modules.image_encoders import Conv2dWS
+    from ..modules.pooling import Gating
+    from ..nn.norm import MaskedBatchNorm
+    from ..nn.sparse_blocks import SparseConv
+
+    if isinstance(module, MaskedBatchNorm) and name.startswith("running_"):
+        return name[len("running_"):], value
+    if isinstance(module, nn.Linear):
+        if name == "weight":
+            return "kernel", value.T
+        if name == "bias":
+            return "bias", value
+    elif isinstance(module, Conv2dWS) and name == "weight":
+        return "kernel", value.transpose(2, 3, 1, 0)
+    elif isinstance(module, SparseConv) and name == "weight":
+        return "kernel", value
+    elif isinstance(module, (MaskedBatchNorm, nn.GroupNorm)):
+        if name in ("weight", "bias"):
+            return {"weight": "scale", "bias": "bias"}[name], value
+    elif isinstance(module, Gating) and name in ("weight", "bias"):
+        return name, value
+    raise KeyError(f"no rule for {name!r} of {type(module).__name__}")
+
+
+def to_flax_tree(model: nn.Module, what: str = "params") -> dict:
+    """The model's ``"params"``, their ``"grads"`` or its ``"batch_stats"``
+    as a nested dict of numpy arrays in flax layout under flax paths.
+    Strict: every parameter (buffer) is written exactly once, a missing
+    gradient raises."""
+    if what in ("params", "grads"):
+        items = model.named_parameters()
+    elif what == "batch_stats":
+        items = model.named_buffers()
+    else:
+        raise ValueError(what)
+    tree: dict = {}
+    for key, tensor in items:
+        *path, name = key.split(".")
+        if what == "grads":
+            if tensor.grad is None:
+                raise KeyError(f"{key!r} has no gradient")
+            tensor = tensor.grad
+        leaf, arr = _unconvert(model.get_submodule(".".join(path)), name,
+                               tensor.detach().cpu().numpy())
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf in node:
+            raise KeyError(f"{key!r}: flax leaf {leaf!r} written twice")
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

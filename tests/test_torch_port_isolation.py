@@ -34,6 +34,63 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_training_modules_are_covered():
+    covered = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    for rel in ("train/__init__.py", "train/optimizers.py", "train/step.py",
+                "models/losses.py", "ops/segment.py", "ops/sparse_conv.py",
+                "nn/norm.py", "utils/from_jax.py"):
+        assert rel in covered, rel
+    assert (PKG / "csrc" / "segment_csr_bwd.cu").exists()
+
+
+def test_cpu_tensors_take_the_plain_backward_and_never_launch(monkeypatch):
+    import torch
+
+    from deepviewagg_tpu_torch.ops import segment as seg
+
+    calls = []
+    plain = seg.segment_csr_bwd_plain
+    monkeypatch.setattr(seg, "segment_csr_bwd_plain",
+                        lambda *a, **k: calls.append(a[5]) or plain(*a, **k))
+    x = torch.arange(12.0).reshape(6, 2).requires_grad_()
+    ptr = torch.tensor([0, 2, 2, 6], dtype=torch.int32)
+    valid = torch.tensor([True, True, True, False, True, True])
+    before = dict(seg.LAUNCHES)
+    for reduce in ("sum", "max"):
+        seg.segment_csr(x, ptr, valid, reduce).sum().backward()
+    assert calls == ["sum", "max"]
+    assert seg.LAUNCHES == before
+    # sum: 1 on the 5 valid rows; max: 1 on rows 1 and 5 (the segment maxima)
+    want = torch.tensor([[1.0], [2.0], [1.0], [0.0], [1.0], [2.0]]).expand(6, 2)
+    assert torch.equal(x.grad, want)
+
+
+def test_segment_csr_raises_instead_of_falling_back():
+    import torch
+
+    from deepviewagg_tpu_torch.ops import segment as seg
+
+    x = torch.zeros(4, 2)
+    ptr = torch.tensor([0, 2, 4], dtype=torch.int32)
+    g = torch.zeros(2, 2)
+    # a type the kernels do not take: no conversion, no plain-version detour
+    for bad in (x.double(), x.to(torch.bfloat16)):
+        with pytest.raises(TypeError, match="float32"):
+            seg.segment_csr(bad, ptr, None, "sum")
+    with pytest.raises(TypeError, match="float32"):
+        seg.segment_csr_bwd(g.double(), None, None, ptr, None, "sum", 4)
+    with pytest.raises(TypeError, match="int32"):
+        seg.segment_csr(x, ptr.long(), None, "sum")
+    # a device that is neither the CPU nor a card
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        seg.segment_csr(x.to("meta"), ptr.to("meta"), None, "max")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        seg.segment_csr_bwd(g.to("meta"), None, None, ptr.to("meta"), None,
+                            "sum", 4)
+    with pytest.raises(ValueError):
+        seg.segment_csr_bwd(g, None, None, ptr, None, "max", 4)
+
+
 def test_entry_points_default_to_the_card():
     from deepviewagg_tpu_torch.data import collate, geometric, mapping_factory, toy
     from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg

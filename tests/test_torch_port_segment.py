@@ -16,6 +16,7 @@ from deepviewagg_tpu.ops import pallas_segment as ps
 from deepviewagg_tpu.ops import segment as jseg
 from deepviewagg_tpu_torch.ops import segment as tseg
 from torch_port_util import _torch_threads, rel_err  # noqa: F401
+from torch_port_util import segment_case as _case
 
 
 @pytest.fixture(autouse=True)
@@ -24,26 +25,6 @@ def _interpret():
     ps.INTERPRET = True
     yield
     ps.INTERPRET = old
-
-
-def _case(seed, e=700, s=120, c=16, one_d=False, empty_tail=False):
-    """Sorted ids with a drop segment ``s - 1`` for masked rows, some empty
-    segments, and (when ``empty_tail``) segments whose rows are all masked."""
-    rng = np.random.default_rng(seed)
-    hi = s // 2 if empty_tail else s - 1
-    ids = rng.integers(0, hi, e)
-    # padding rows go to the drop segment, masked
-    drop = rng.random(e) < 0.15
-    ids = np.where(drop, s - 1, ids)
-    valid = ~drop
-    if empty_tail:
-        valid &= ids % 7 != 3           # every 7th segment fully masked
-    order = np.argsort(ids, kind="stable")
-    ids, valid = ids[order].astype(np.int32), valid[order]
-    shape = (e,) if one_d else (e, c)
-    x = rng.normal(size=shape).astype(np.float32)
-    ptr = np.searchsorted(ids, np.arange(s + 1)).astype(np.int32)
-    return x, ids, valid, ptr, s
 
 
 def _t(a):

@@ -125,9 +125,56 @@ def f32_sparse_convs(monkeypatch):
                         j_subm(f, w, n, jnp.float32))
     monkeypatch.setattr(jb, "sparse_conv_pair", lambda f, w, n, nt, cd=None:
                         j_pair(f, w, n, nt, jnp.float32))
-    t_plain = tb.sparse_conv
+    t_plain, t_subm, t_pair = (tb.sparse_conv, tb.sparse_conv_submanifold,
+                               tb.sparse_conv_pair)
     monkeypatch.setattr(tb, "sparse_conv", lambda f, w, n, bias=None, compute_dtype=None:
                         t_plain(f, w, n, bias, torch.float32))
+    monkeypatch.setattr(tb, "sparse_conv_submanifold", lambda f, w, n, cd=None:
+                        t_subm(f, w, n, torch.float32))
+    monkeypatch.setattr(tb, "sparse_conv_pair", lambda f, w, n, nt, cd=None:
+                        t_pair(f, w, n, nt, torch.float32))
+
+
+def segment_case(seed, e=700, s=120, c=16, one_d=False, empty_tail=False):
+    """Sorted segment ids with a masked drop segment ``s - 1``, some empty
+    segments and (when ``empty_tail``) segments whose rows are all masked:
+    ``(x [e, c] or [e], ids, valid, ptr, s)`` as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, s // 2 if empty_tail else s - 1, e)
+    drop = rng.random(e) < 0.15
+    ids = np.where(drop, s - 1, ids)
+    valid = ~drop
+    if empty_tail:
+        valid &= ids % 7 != 3           # every 7th segment fully masked
+    order = np.argsort(ids, kind="stable")
+    ids, valid = ids[order].astype(np.int32), valid[order]
+    x = rng.normal(size=(e,) if one_d else (e, c)).astype(np.float32)
+    ptr = np.searchsorted(ids, np.arange(s + 1)).astype(np.int32)
+    return x, ids, valid, ptr, s
+
+
+def backward_node_names(t):
+    """Type names of every node in the autograd graph below tensor ``t``."""
+    seen, stack, names = set(), [t.grad_fn], []
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.append(type(fn).__name__)
+        stack.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def flat_leaves(tree, prefix=()):
+    """``{"a/b/leaf": leaf}`` of a nested mapping."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(flat_leaves(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
 
 
 def rel_err(a, b) -> float:
