@@ -7,11 +7,18 @@ exit) on any fault:
   1. build    compile every hand-written kernel (one nvcc per source, in
               parallel) from the checkout's ``csrc/``
   2. kernels  replay every sorted-segment call of one flagship forward
-              through the CUDA kernel and through its plain PyTorch version
-              on the same inputs (max exact, sum within 1e-5 relative), plus
-              a case with empty, masked and all-masked segments; time the
-              kernel, the plain version, ``torch.segment_reduce`` and the
-              byte bound
+              (six, no two of them the same reduction) through the CUDA
+              kernel and through its plain PyTorch version on the same inputs
+              (max exact, sum within 1e-5 relative, the same bits on two
+              runs), plus empty, masked and all-masked segments and the
+              tile-edge cases of ``segment_edge_cases``; time the kernel
+              alone on the device (``kernel_ms``: launches into preallocated
+              tensors, captured in a CUDA graph of N and of 2N launches, so
+              the host is not the limit), the call through the wrapper
+              (``call_ms``), the plain version, ``torch.segment_reduce`` and
+              the byte bound (``x`` counted at its live rows only: a masked
+              row need not be read); ``--tune`` also sweeps the kernel's
+              tile size
   3. serving  the flagship model (Res16UNet34 + ResNet18-PPM branch, random
               weights from a seed) answers three requests of the benchmark's
               shape (4 samples, density 260, 12 images of 256 x 128), each
@@ -25,9 +32,12 @@ exit) on any fault:
               recorded from a real backward pass) through the CUDA backward
               kernel and its plain version: bit-equal for sum and max; plus
               empty, masked and all-masked segments with forced ties (every
-              max-attaining row gets the full cotangent); time the kernel,
-              the plain version, the library form (``index_select`` +
-              ``where`` on precomputed ids) and the byte bound
+              max-attaining row gets the full cotangent); time the kernel
+              alone (``kernel_ms``, as in phase 2), the call through the
+              wrapper (``call_ms``), the plain version, the library form
+              (``index_select`` + ``where`` on precomputed ids) and the byte
+              bound (``x`` at its live rows, ``g`` and the result at the
+              segments that hold one)
   6. training the flagship model in training mode takes ten optimizer steps
               (SGD + momentum 0.9, LR 0.1, weight decay 1e-4, clip 10) on
               the benchmark request, two of them warm-up; the launch counts
@@ -43,7 +53,9 @@ exit) on any fault:
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line ``{"kernels": [...]}`` before it holds each kernel's launches, error
-and times.  Needs a CUDA card, ``nvcc`` and the repository checkout.
+and times (``ms``: device time of the kernel alone, summed over the calls of
+one forward or one train step; ``call_ms``: the same calls through the
+wrapper).  Needs a CUDA card, ``nvcc`` and the repository checkout.
 """
 
 from __future__ import annotations
@@ -82,6 +94,13 @@ SUM_RTOL = 1e-5                    # kernel vs plain: only summation order
 LOGITS_RTOL = 3e-2                 # card vs CPU: bf16 tower convs differ
 ARGMAX_AGREE = 0.99
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+# sorted-segment launches of the flagship: atomic max, set-encoder max, one
+# count, one compatibility max, softmax sum, weighted sum; the count has no
+# gradient
+FORWARD_LAUNCHES, BACKWARD_LAUNCHES = 6, 5
+GRAPH_LAUNCHES = 20                # launches per captured graph (and twice)
+EDGE_WIDTHS = (1, 3, 4, 5, 32, 64, 128, 130)
+TUNE_TILES = (32, 64, 128, 256, 512, 1024, 2048)
 # card vs CPU train step: bf16 tower convs and the order of the pixel
 # gather's scatter-add differ
 TRAIN_LOSS_RTOL = 1e-2
@@ -106,6 +125,39 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(launch, n: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device time of one ``launch()`` in ms: ``n`` launches captured in a
+    CUDA graph, the graph replayed between two CUDA events, so that no host
+    work lies between the kernels.  ``launch`` must not allocate."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
+def kernel_ms(launch) -> tuple:
+    """``(ms, ms at twice the launches)`` of one kernel launch on the device;
+    raises when the two differ by more than half and 2 us (the host, not the
+    device, would then be what is timed)."""
+    once, twice = graph_ms(launch), graph_ms(launch, 2 * GRAPH_LAUNCHES)
+    if abs(once - twice) > max(0.5 * min(once, twice), 2e-3):
+        raise AssertionError(f"kernel time depends on the number of "
+                             f"launches: {once} vs {twice} ms")
+    return once, twice
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -177,7 +229,11 @@ def check_call(x, ptr, valid, reduce) -> dict:
     """Kernel vs plain on one input; raises when they disagree."""
     got = seg.segment_csr(x, ptr, valid, reduce)
     torch.cuda.synchronize()
+    if not torch.equal(got, seg.segment_csr(x, ptr, valid, reduce)):
+        raise AssertionError("segment_csr: two runs gave different bits")
     ref = seg.segment_csr_plain(x, ptr, valid, reduce)
+    if got.shape != ref.shape:
+        raise AssertionError(f"segment_csr shape {tuple(got.shape)}")
     err = float((got - ref).abs().max()) if got.numel() else 0.0
     if reduce == "max":
         if not torch.equal(got, ref):
@@ -209,21 +265,124 @@ def edge_case() -> None:
                     raise AssertionError("empty or all-masked segment not 0")
     log("2 kernels", case="empty+masked+all-masked", widths="1,3,4,64",
         ok=True)
+    # the edges of the tiling, at each width's own tile size
+    names = []
+    for c in EDGE_WIDTHS:
+        tile = seg.kernel_tile_rows(c)
+        for name, x, ptr, v in seg.segment_edge_cases(tile, c):
+            x, ptr = x.cuda(), ptr.cuda()
+            v = None if v is None else v.cuda()
+            for reduce in ("sum", "max"):
+                try:
+                    check_call(x, ptr, v, reduce)
+                except AssertionError as exc:
+                    raise AssertionError(
+                        f"edge case {name}, width {c}, tile {tile}: {exc}")
+            names.append(name)
+    log("2 kernels", case="tile edges: " + "+".join(dict.fromkeys(names)),
+        widths=",".join(map(str, EDGE_WIDTHS)), ok=True)
 
 
-def phase_kernels(model, batch) -> dict:
+def live_rows(ptr, valid, num_rows: int) -> int:
+    """Rows a segment reduction has to read: inside ``[ptr[0], ptr[-1])``
+    and valid.  The byte bounds count ``x`` at these rows only."""
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    if valid is None:
+        return hi - lo
+    return int(valid[lo:hi].sum())
+
+
+def live_segments(ptr, valid, num_rows: int) -> int:
+    """Segments that hold a live row: the only rows of ``g`` (and of the
+    forward's result) that a backward has to read."""
+    keep = (torch.ones(num_rows, device=ptr.device) if valid is None
+            else valid.float())
+    return int((seg.segment_csr_plain(keep[:, None], ptr, None, "sum")
+                > 0).sum())
+
+
+def forward_buffers(x, ptr, tile):
+    """Preallocated ``(out, scratch)`` of one forward launch."""
+    e, c = x.shape
+    return (torch.empty((ptr.numel() - 1, c), device="cuda"),
+            seg.segment_csr_scratch(e, c, tile, "cuda"))
+
+
+def check_distinct(calls) -> None:
+    """No two recorded calls are the same reduction of the same rows."""
+    for i, a in enumerate(calls):
+        for j in range(i):
+            b = calls[j]
+            same = a[3] == b[3] and all(
+                (u is None) == (v is None) and (u is None or (
+                    u.shape == v.shape and torch.equal(u, v)))
+                for u, v in zip(a[:3], b[:3]))
+            if same:
+                raise AssertionError(f"calls {j} and {i} are one reduction")
+
+
+def tune_tiles(calls) -> None:
+    """Device time of every recorded call at every tile size, each first
+    held against the plain version; then the two kernels' shares of a call
+    at the default tile size, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, (x, ptr, valid, reduce) in enumerate(calls):
+        e, c = x.shape
+        ref = seg.segment_csr_plain(x, ptr, valid, reduce)
+        times = {}
+        for tile in TUNE_TILES:
+            out, scratch = forward_buffers(x, ptr, tile)
+
+            def launch():
+                seg.segment_csr_into(x, ptr, valid, out, scratch, reduce,
+                                     tile)
+
+            launch()
+            if reduce == "max" and not torch.equal(out, ref):
+                raise AssertionError(f"tile {tile}: max")
+            if reduce == "sum" and rel_err(out, ref) > SUM_RTOL:
+                raise AssertionError(f"tile {tile}: sum")
+            times[tile] = graph_ms(launch)
+        log("2 kernels tune", call=i, reduce=reduce, rows=e, channels=c,
+            default_tile=seg.kernel_tile_rows(c),
+            **{f"tile{t}_ms": f"{ms:.4f}" for t, ms in times.items()})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, ptr, valid, reduce in calls:
+            for _ in range(10):
+                seg.segment_csr(x, ptr, valid, reduce)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "segment_csr" in ev.key:
+            log("2 kernels tune", kernel=ev.key[:100].replace(" ", ""),
+                launches=ev.count,
+                mean_us=f"{ev.self_device_time_total / ev.count:.2f}")
+
+
+def phase_kernels(model, batch, tune: bool = False) -> dict:
     calls = record_segment_calls(model, batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one forward")
+    check_distinct(calls)
     edge_case()
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  max_abs_err=0.0)
+    if tune:
+        tune_tiles(calls)
+    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  bound_ms=0.0, max_abs_err=0.0)
     for i, (x, ptr, valid, reduce) in enumerate(calls):
         res = check_call(x, ptr, valid, reduce)
         e, c = x.shape
         s = ptr.numel() - 1
-        nbytes = (e * c * 4 + (e if valid is not None else 0)
+        # read the live rows of x, valid and ptr once; write out once
+        live = live_rows(ptr, valid, e)
+        nbytes = (live * c * 4 + (e if valid is not None else 0)
                   + 4 * (s + 1) + s * c * 4)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        kms = time_ms(lambda: seg.segment_csr(x, ptr, valid, reduce))
+        tile = seg.kernel_tile_rows(c)
+        out, scratch = forward_buffers(x, ptr, tile)
+        kms, kms2 = kernel_ms(lambda: seg.segment_csr_into(
+            x, ptr, valid, out, scratch, reduce, tile))
+        cms = time_ms(lambda: seg.segment_csr(x, ptr, valid, reduce))
         pms = time_ms(lambda: seg.segment_csr_plain(x, ptr, valid, reduce))
         # the library call on pre-masked rows (timing only; never used)
         fill = 0.0 if reduce == "sum" else float("-inf")
@@ -232,16 +391,19 @@ def phase_kernels(model, batch) -> dict:
             xm, reduce, offsets=ptr, axis=0, unsafe=True))
         log("2 kernels", call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
-            kernel_ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live, tile=tile,
+            kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
+            call_ms=f"{cms:.4f}", plain_ms=f"{pms:.4f}",
             library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
             max_abs_err=res["max_abs_err"])
-        totals["ms"] += kms
-        totals["plain_ms"] += pms
-        totals["library_ms"] += lms
-        totals["bound_ms"] += bound
+        for key, ms in (("ms", kms), ("call_ms", cms), ("plain_ms", pms),
+                        ("library_ms", lms), ("bound_ms", bound)):
+            totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], res["max_abs_err"])
     log("2 kernels", kernel="segment_csr", checked=True,
-        calls_per_forward=len(calls))
+        calls_per_forward=len(calls), kernel_ms=f"{totals['ms']:.4f}",
+        call_ms=f"{totals['call_ms']:.4f}",
+        bound_ms=f"{totals['bound_ms']:.4f}")
     return totals
 
 
@@ -269,8 +431,9 @@ def serve_one(model, np_batch, phase: str, **fields) -> None:
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite logits on valid voxels")
     launched = seg.LAUNCHES["segment_csr"] - before
-    if launched <= 0:
-        raise AssertionError("the forward kernel was not launched")
+    if launched != FORWARD_LAUNCHES:
+        raise AssertionError(f"{launched} forward launches, expected "
+                             f"{FORWARD_LAUNCHES}")
     log(phase, **fields, voxels=n,
         images=int(np.asarray(np_batch["images"]).shape[0]),
         forward_ms=f"{fwd_ms:.1f}", voxels_per_s=f"{n / fwd_ms * 1e3:.0f}",
@@ -370,19 +533,27 @@ def phase_backward_kernels(model, batch) -> dict:
     if not calls:
         raise AssertionError("the train step recorded no segment backward")
     bwd_edge_case()
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  max_abs_err=0.0)
+    if len(calls) != BACKWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment backwards in one step")
+    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  bound_ms=0.0, max_abs_err=0.0)
     for i, (g, x, out, ptr, valid, reduce, num_rows) in enumerate(calls):
         err = check_bwd_call(g, x, out, ptr, valid, reduce, num_rows)
         s, c = g.shape
         e = x.shape[0] if x is not None else num_rows
-        # read g, valid, ptr (and x, out for max) once; write gx once
-        nbytes = (s * c * 4 + (e if valid is not None else 0) + 4 * (s + 1)
-                  + e * c * 4)
+        # read valid, ptr, g at the segments that hold a live row (and, for
+        # max, the result there and the live rows of x: a masked row's
+        # gradient is 0 whatever x holds) once; write gx once
+        live, live_s = live_rows(ptr, valid, e), live_segments(ptr, valid, e)
+        nbytes = (live_s * c * 4 + (e if valid is not None else 0)
+                  + 4 * (s + 1) + e * c * 4)
         if reduce == "max":
-            nbytes += e * c * 4 + s * c * 4
+            nbytes += live * c * 4 + live_s * c * 4
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        kms = time_ms(lambda: seg.segment_csr_bwd(
+        gx = torch.empty((e, c), device="cuda")
+        kms, kms2 = kernel_ms(lambda: seg.segment_csr_bwd_into(
+            g, x, out, ptr, valid, gx, reduce))
+        cms = time_ms(lambda: seg.segment_csr_bwd(
             g, x, out, ptr, valid, reduce, num_rows))
         pms = time_ms(lambda: seg.segment_csr_bwd_plain(
             g, x, out, ptr, valid, reduce, num_rows))
@@ -400,16 +571,19 @@ def phase_backward_kernels(model, batch) -> dict:
                 g.index_select(0, ids), 0.0))
         log("2b backward kernels", call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
-            kernel_ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
+            live_segments=live_s, kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
+            call_ms=f"{cms:.4f}", plain_ms=f"{pms:.4f}",
             library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
             max_abs_err=err)
-        totals["ms"] += kms
-        totals["plain_ms"] += pms
-        totals["library_ms"] += lms
-        totals["bound_ms"] += bound
+        for key, ms in (("ms", kms), ("call_ms", cms), ("plain_ms", pms),
+                        ("library_ms", lms), ("bound_ms", bound)):
+            totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
     log("2b backward kernels", kernel="segment_csr_bwd", checked=True,
-        bit_equal=True, calls_per_step=len(calls))
+        bit_equal=True, calls_per_step=len(calls),
+        kernel_ms=f"{totals['ms']:.4f}", call_ms=f"{totals['call_ms']:.4f}",
+        bound_ms=f"{totals['bound_ms']:.4f}")
     return totals
 
 
@@ -438,8 +612,9 @@ def phase_training(model, np_batch, check_batch) -> dict:
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
         per_step = {k: seg.LAUNCHES[k] - before[k] for k in seg.LAUNCHES}
-        if min(per_step.values()) <= 0:
-            raise AssertionError(f"a kernel was not launched: {per_step}")
+        if per_step != {"segment_csr": FORWARD_LAUNCHES,
+                        "segment_csr_bwd": BACKWARD_LAUNCHES}:
+            raise AssertionError(f"launches per step: {per_step}")
         losses.append(loss)
         if i >= TRAIN_WARMUP:
             step_ms.append(ms)
@@ -519,8 +694,12 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     # cuDNN convs and cuBLAS GEMMs share "xmma"/"gemm" in their names; the
     # convs carry "conv", "fprop" or "implicit"
+    # the forward's finish kernel starts while its tile kernel still runs
+    # and waits for it, so its duration overlaps the tile kernel's
     for key, fam in (("segment_csr_bwd", "segment_csr_bwd (ours)"),
-                     ("segment_csr", "segment_csr (ours)"),
+                     ("segment_csr_tile", "segment_csr tile kernel (ours)"),
+                     ("segment_csr_finish", "segment_csr finish kernel "
+                      "(ours; includes its wait for the tile kernel)"),
                      ("conv", "conv2d"), ("fprop", "conv2d"),
                      ("implicit", "conv2d"), ("gemm", "matmul"),
                      ("index", "gather/scatter"), ("gather", "gather/scatter"),
@@ -581,6 +760,7 @@ def trace_forward_and_train(model, train_model, np_batch) -> None:
 
 def main() -> None:
     trace = "--trace" in sys.argv[1:]
+    tune = "--tune" in sys.argv[1:]
     device = phase_card()
     phase_build()
     t0 = time.perf_counter()
@@ -590,7 +770,8 @@ def main() -> None:
         build_s=f"{time.perf_counter() - t0:.1f}")
     requests = [make_request(seed, "cuda", **SERVE_REQUEST)
                 for seed in range(3)]
-    totals = phase_kernels(model, batch_to_torch(requests[0][0], "cuda"))
+    totals = phase_kernels(model, batch_to_torch(requests[0][0], "cuda"),
+                           tune)
     launches = phase_serving(model, requests)
     phase_card_vs_cpu(model)
     # training runs on a copy, so the serving model keeps its weights
@@ -608,14 +789,16 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts,
             "max_abs_err": totals["max_abs_err"],
-            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "ms": totals["ms"], "call_ms": totals["call_ms"],
+            "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "bytes",
             "library_ms": totals["library_ms"], "checked": True,
         }
 
     # ``launches``: the kernel's count over the path that drives it first
     # (serving for the forward, training for the backward); times are sums
-    # over the calls of one forward / one train step
+    # over the calls of one forward / one train step: ``ms`` on the device,
+    # ``call_ms`` through the wrapper
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,

@@ -133,14 +133,17 @@ class UnimodalBranch(nn.Module):
         v_valid = mapping["view_valid"]
         # segment-level BN statistics exclude the padding drop row
         seg_ok = torch.arange(num_points + 1, device=pid.device) < num_points
+        # valid views per point, counted once: the pool's size feature and
+        # softmax scaling, and x_seen below
+        n_views = seg.segment_count(pid, num_points + 1, v_valid,
+                                    mapping.get("point_ptr"))
         pooled, _ = self.view_pool(
             x_view, mapping["view_feats"], pid, v_valid, num_points + 1,
-            ptr=mapping.get("point_ptr"), seg_valid=seg_ok)
+            ptr=mapping.get("point_ptr"), seg_valid=seg_ok, count=n_views)
         pooled = pooled[:num_points]
 
         # --- x_seen (modules.py:410) -------------------------------------
-        n_views = seg.segment_count(pid, num_points + 1, v_valid)[:num_points]
-        x_seen = n_views > 0
+        x_seen = n_views[:num_points] > 0
 
         # --- modality dropout + fusion -----------------------------------
         if self.drop_hard:

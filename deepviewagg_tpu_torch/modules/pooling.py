@@ -92,14 +92,18 @@ class DeepSetFeat(nn.Module):
         self.mlp_elt_2 = MLP(fused, [d, d], device=device)
 
     def forward(self, x, segment_ids, valid, num_segments: int, ptr=None,
-                seg_valid=None):
+                seg_valid=None, count=None):
+        """``count``: the per-segment number of valid elements, when the
+        caller already has it (computed here otherwise)."""
         x = self.mlp_elt_1(x, valid)
         x_set = torch.cat([
             seg.segment_reduce(x, segment_ids, num_segments, m, valid, ptr)
             for m in self.pool_modes
         ], dim=-1)
         if self.use_num:
-            n = seg.segment_count(segment_ids, num_segments, valid, ptr)
+            n = count
+            if n is None:
+                n = seg.segment_count(segment_ids, num_segments, valid, ptr)
             x_set = torch.cat([x_set, torch.sqrt(1.0 / (n + 1e-3))[:, None]],
                               dim=-1)
         x_set = self.mlp_set(x_set, seg_valid)[segment_ids]
@@ -146,21 +150,32 @@ class GroupViewPool(nn.Module):
             self.gating = Gating(num_groups, device=device)
 
     def forward(self, x_mod, x_map, segment_ids, valid, num_segments: int,
-                ptr=None, seg_valid=None):
+                ptr=None, seg_valid=None, count=None):
+        """``count``: the per-segment number of valid elements, when the
+        caller already has it.  Each distinct reduction is taken once: the
+        count serves the set encoder's size feature and the softmax's
+        scaling, the compatibilities' maximum the softmax's shift (detached)
+        and the gating (with its gradient)."""
         g, c = self.num_groups, self.out_channels
+        if count is None and (self.set_enc.use_num or self.scaling):
+            count = seg.segment_count(segment_ids, num_segments, valid, ptr)
         enc = self.set_enc(x_map, segment_ids, valid, num_segments, ptr=ptr,
-                           seg_valid=seg_valid)
+                           seg_valid=seg_valid, count=count)
         values = self.e_mod(x_mod, valid)
         if self.use_mod:
             enc = self.e_mix(torch.cat([enc, values], dim=-1), valid)
         compat = self.e_score(enc)                                # [E, G]
-        attn = seg.segment_softmax(compat, segment_ids, num_segments,
-                                   valid=valid, scaling=self.scaling, ptr=ptr)
+        cmax = None
+        if self.gated:
+            cmax = seg.segment_max(compat, segment_ids, num_segments, valid,
+                                   ptr)
+        attn = seg.segment_softmax(
+            compat, segment_ids, num_segments, valid=valid,
+            scaling=self.scaling, ptr=ptr, count=count,
+            seg_max=None if cmax is None else cmax.detach())
         pooled = seg.segment_weighted_sum(
             values, expand_group_feat(attn, g, c), segment_ids, num_segments,
             valid, ptr)
         if self.gated:
-            cmax = seg.segment_max(compat, segment_ids, num_segments, valid,
-                                   ptr)
             pooled = pooled * expand_group_feat(self.gating(cmax), g, c)
         return pooled, attn

@@ -14,7 +14,12 @@ of the TPU kernel ``deepviewagg_tpu/ops/pallas_segment.py::_scan_kernel``)
 or raises; on a CPU tensor it runs :func:`segment_csr_plain`, the plain
 PyTorch version with the same semantics.  The CSR ``ptr`` is used when the
 caller gives it (collate ships ``point_ptr`` / ``pix_ptr``), else computed
-with one ``searchsorted``.
+with one ``searchsorted``.  The kernel cuts its work into tiles of
+consecutive rows (:func:`kernel_tile_rows`) and joins the segments that
+cross tile edges from partials in a scratch tensor;
+:func:`segment_csr_tiled_plain` is that scheme in plain PyTorch and
+:func:`segment_edge_cases` the inputs that exercise its edges (both for
+tests only: nothing on the main path calls them).
 
 :func:`segment_csr` is differentiable in ``x`` through a
 ``torch.autograd.Function`` whose backward is :func:`segment_csr_bwd`, the
@@ -35,6 +40,12 @@ __all__ = [
     "LAUNCHES",
     "segment_csr",
     "segment_csr_plain",
+    "segment_csr_tiled_plain",
+    "segment_csr_into",
+    "segment_csr_scratch",
+    "segment_csr_bwd_into",
+    "segment_edge_cases",
+    "kernel_tile_rows",
     "segment_csr_bwd",
     "segment_csr_bwd_plain",
     "segment_ptr",
@@ -97,6 +108,151 @@ def _row_segments(ptr: torch.Tensor, num_rows: int):
     return ids.clamp(0, max(s - 1, 0)), inside
 
 
+def segment_csr_tiled_plain(x: torch.Tensor, ptr: torch.Tensor,
+                            valid: Optional[torch.Tensor], reduce: str,
+                            tile_rows: int) -> torch.Tensor:
+    """:func:`segment_csr_plain` computed the way the CUDA kernel computes
+    it, for tests of the tile-edge bookkeeping (slow: Python loops).
+
+    Pass 1, per tile ``[t0, t1)`` of ``tile_rows`` rows: the segments that
+    start in the tile and hold a row are its own; an own segment that ends in
+    the tile is reduced and written; the segment that comes in from an
+    earlier tile (head) and the last own one when it runs on (tail) leave
+    unfinished partials ``[tiles, 2, C]``.  Pass 2: the empty segments get
+    zeros, and per tile whose head ends in it: tail of the segment's first
+    tile, then the heads, in tile order.  Every output row is written
+    exactly once (the result starts as NaN and a second write raises)."""
+    if reduce not in ("sum", "max"):
+        raise ValueError(reduce)
+    import bisect
+
+    e, c = x.shape
+    s = ptr.numel() - 1
+    if s == 0 or e == 0:
+        return torch.zeros((s, c), dtype=x.dtype, device=x.device)
+    out = torch.full((s, c), float("nan"), dtype=x.dtype, device=x.device)
+    written = [False] * s
+
+    def write(seg, value):
+        if written[seg]:
+            raise AssertionError(f"segment {seg} written twice")
+        written[seg] = True
+        out[seg] = value
+
+    is_max = reduce == "max"
+    ident = _NEG if is_max else 0.0
+    p = [int(v) for v in ptr.tolist()]
+    live = (torch.ones(e, dtype=torch.bool, device=x.device)
+            if valid is None else valid)
+    tiles = -(-e // tile_rows)
+    partial = torch.full((tiles, 2, c), float("nan"), dtype=x.dtype,
+                         device=x.device)
+
+    def raw(r0, r1):
+        rows = x[r0:r1][live[r0:r1]]
+        if rows.shape[0] == 0:
+            return torch.full((c,), ident, dtype=x.dtype, device=x.device)
+        return rows.amax(0) if is_max else rows.sum(0)
+
+    def join(a, b):
+        return torch.maximum(a, b) if is_max else a + b
+
+    def finish(a):
+        return torch.where(a <= _NEG / 2, 0.0, a) if is_max else a
+
+    def bounds(t):
+        t0 = t * tile_rows
+        return t0, (e if t == tiles - 1 else t0 + tile_rows)
+
+    for t in range(tiles):
+        t0, t1 = bounds(t)
+        first = bisect.bisect_left(p, t0)
+        if 1 <= first <= s and p[first] > t0:            # head
+            partial[t, 0] = raw(t0, min(p[first], t1))
+        for seg in range(first, min(bisect.bisect_left(p, t1), s)):
+            if p[seg + 1] == p[seg]:                     # empty: pass 2
+                continue
+            if p[seg + 1] > t1:                          # tail
+                partial[t, 1] = raw(p[seg], t1)
+            else:
+                write(seg, finish(raw(p[seg], p[seg + 1])))
+    for seg in range(s):
+        if p[seg + 1] == p[seg]:
+            write(seg, 0.0)
+    for t in range(tiles):
+        t0, t1 = bounds(t)
+        first = bisect.bisect_left(p, t0)
+        if not (1 <= first <= s and t0 < p[first] <= t1):
+            continue
+        start = p[first - 1] // tile_rows
+        acc = partial[start, 1]
+        for u in range(start + 1, t + 1):
+            acc = join(acc, partial[u, 0])
+        write(first - 1, finish(acc))
+    if not all(written):
+        raise AssertionError("a segment was never written")
+    return out
+
+
+def segment_edge_cases(tile_rows: int, channels: int, seed: int = 0):
+    """Inputs that exercise every edge of a kernel tiled by ``tile_rows``
+    rows: ``[(name, x [E, C], ptr int32 [S+1], valid bool [E] or None)]`` as
+    CPU tensors, drawn with numpy from ``seed``.  The values are multiples of
+    1/64, so that a float32 sum of a few thousand of them is exact in any
+    order: a difference between two implementations is a fault of their
+    bookkeeping, not of their rounding."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = tile_rows
+
+    def case(name, lengths, before=0, after=0, dead=(), dead_rows=(0, 0),
+             masked=0.2, with_valid=True):
+        """Segments of the given lengths after ``before`` rows outside every
+        segment, ``after`` such rows at the end; the segments listed in
+        ``dead`` and the rows ``dead_rows`` fully masked, other rows masked
+        with probability ``masked``."""
+        ptr = before + np.concatenate([[0], np.cumsum(lengths)])
+        e = int(ptr[-1]) + after
+        x = (np.round(rng.normal(size=(e, channels)) * 64) / 64).astype(
+            np.float32)
+        valid = rng.random(e) >= masked
+        valid[dead_rows[0]:dead_rows[1]] = False
+        for d in dead:
+            valid[ptr[d]:ptr[d + 1]] = False
+        return (name, torch.from_numpy(x),
+                torch.from_numpy(ptr.astype(np.int32)),
+                torch.from_numpy(valid) if with_valid else None)
+
+    short = lambda n: rng.integers(0, 7, n).tolist()        # noqa: E731
+    return [
+        # one segment over several tiles, short ones around it
+        case("long", short(9) + [3 * t + t // 2 + 5] + short(9)),
+        case("long_unmasked", [2, 2 * t + 3, 1], with_valid=False),
+        # segments that start and end exactly on tile edges
+        case("on_edges", [t - 3, 3, t, 2 * t, 5, t - 5, 4]),
+        # empty segments at a tile edge, and behind the last row
+        case("empty_at_edge", [t - 2, 2, 0, 0, 0, 5, t - 5, 0, 0, t, 0, 0]),
+        # a tile with no live row inside live segments
+        case("dead_tile", [t // 2, 3 * t, 7], dead_rows=(t, 2 * t),
+             masked=0.0),
+        # a fully masked run of tiles between live segments (a drop segment
+        # in the middle), many short dead segments too
+        case("drop_in_middle", short(20) + [3 * t + 11] + short(20),
+             dead=(20, 3, 4, 30)),
+        # rows before ptr[0] and behind ptr[S]
+        case("offset", short(15) + [t + 3] + short(5), before=t + 7,
+             after=t // 2 + 1),
+        case("offset_small", [3, 0, 2], before=5, after=4),
+        # fewer rows than one tile; a single segment
+        case("under_one_tile", [2, 0, 3, 1, 4]),
+        case("one_segment", [2 * t + 9]),
+        case("one_segment_short", [5]),
+        case("one_empty_segment", [0], after=3),
+        case("no_rows", [0, 0]),
+    ]
+
+
 def segment_csr_bwd_plain(g: torch.Tensor, x: Optional[torch.Tensor],
                           out: Optional[torch.Tensor], ptr: torch.Tensor,
                           valid: Optional[torch.Tensor], reduce: str,
@@ -140,6 +296,78 @@ def _check_args(name, x, ptr, valid, num_rows):
         raise ValueError(f"{name}: the kernel indexes rows with int32")
 
 
+def kernel_tile_rows(channels: int) -> int:
+    """Rows per tile of the forward kernel for ``[E, channels]`` inputs,
+    chosen from ``chip_smoke.py --tune`` on an H100 (PERF.md)."""
+    return 512 if 2 < channels < 128 else 1024
+
+
+_FUNCTIONS = {}
+
+
+def _kernel_function(name: str):
+    """The C entry point ``<name>_f32``, built and resolved once a process."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        from ..utils import cuda_build
+
+        fn = _FUNCTIONS[name] = getattr(cuda_build.load(name), name + "_f32")
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream, raise when the
+    launch is refused, count it."""
+    fn = _kernel_function(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr_or_none(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _contiguous(t: Optional[torch.Tensor]):
+    return t if t is None or t.is_contiguous() else t.contiguous()
+
+
+def segment_csr_scratch(num_rows: int, channels: int, tile_rows: int,
+                        device) -> torch.Tensor:
+    """Uninitialised scratch of one forward launch: per tile two partial
+    rows (the segments that cross its edges) and two int32 of bookkeeping."""
+    tiles = -(-num_rows // tile_rows)
+    return torch.empty(tiles * (2 * channels + 2), dtype=torch.float32,
+                       device=device)
+
+
+def segment_csr_into(x, ptr, valid, out, scratch, reduce: str,
+                     tile_rows: int) -> None:
+    """Launch the forward kernel on contiguous CUDA tensors into the
+    preallocated ``out [S, C]`` and ``scratch`` (of
+    :func:`segment_csr_scratch`): what :func:`segment_csr` does after its
+    checks and allocations.  For timing the kernel apart from the wrapper."""
+    e, c = x.shape
+    tiles = -(-e // tile_rows)
+    if not (x.is_cuda and out.shape == (ptr.numel() - 1, c)
+            and scratch.numel() >= tiles * (2 * c + 2)
+            and ptr.is_contiguous()
+            and (valid is None or valid.is_contiguous())
+            and all(t.is_contiguous() and t.device == x.device
+                    and t.dtype == torch.float32 for t in (x, out, scratch))):
+        raise ValueError("segment_csr_into: contiguous float32 CUDA x, out "
+                         "[S, C] and scratch on one device")
+    _launch("segment_csr", x.device, x.data_ptr(), ptr.data_ptr(),
+            _ptr_or_none(valid), out.data_ptr(), scratch.data_ptr(), e,
+            ptr.numel() - 1, c, int(reduce == "max"), tile_rows)
+
+
 def _segment_csr_forward(x, ptr, valid, reduce):
     """The forward of :func:`segment_csr` outside autograd."""
     _check_args("segment_csr", x, ptr, valid, x.shape[0])
@@ -147,26 +375,34 @@ def _segment_csr_forward(x, ptr, valid, reduce):
         return segment_csr_plain(x, ptr, valid, reduce)
     if x.device.type != "cuda":
         raise RuntimeError(f"segment_csr: unsupported device {x.device}")
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("segment_csr")
-    x = x.contiguous()
-    ptr = ptr.contiguous()
-    if valid is not None:
-        valid = valid.contiguous()
+    e, c = x.shape
     s = ptr.numel() - 1
-    out = torch.empty((s, x.shape[1]), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.segment_csr_f32(
-            x.data_ptr(), ptr.data_ptr(),
-            None if valid is None else valid.data_ptr(), out.data_ptr(),
-            s, x.shape[1], int(reduce == "max"),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"segment_csr kernel launch failed: CUDA error {rc}")
-    LAUNCHES["segment_csr"] += 1
+    tile_rows = kernel_tile_rows(c)
+    out = torch.empty((s, c), dtype=torch.float32, device=x.device)
+    scratch = segment_csr_scratch(e, c, tile_rows, x.device)
+    segment_csr_into(_contiguous(x), _contiguous(ptr), _contiguous(valid),
+                     out, scratch, reduce, tile_rows)
     return out
+
+
+def segment_csr_bwd_into(g, x, out, ptr, valid, gx, reduce: str) -> None:
+    """Launch the backward kernel on contiguous CUDA tensors into the
+    preallocated ``gx [E, C]``: what :func:`segment_csr_bwd` does after its
+    checks and allocation.  For timing the kernel apart from the wrapper."""
+    is_max = reduce == "max"
+    given = (g, gx, ptr) + ((x, out) if is_max else ()) + (
+        () if valid is None else (valid,))
+    if not (g.is_cuda and gx.dtype == torch.float32
+            and gx.shape[1] == g.shape[1]
+            and all(t.is_contiguous() and t.device == g.device
+                    for t in given)):
+        raise ValueError("segment_csr_bwd_into: contiguous CUDA tensors on "
+                         "one device, gx float32 [E, C]")
+    _launch("segment_csr_bwd", g.device, g.data_ptr(),
+            x.data_ptr() if is_max else None,
+            out.data_ptr() if is_max else None, ptr.data_ptr(),
+            _ptr_or_none(valid), gx.data_ptr(), gx.shape[0], g.shape[0],
+            g.shape[1], int(is_max))
 
 
 def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
@@ -196,30 +432,9 @@ def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
         return segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
     if g.device.type != "cuda":
         raise RuntimeError(f"segment_csr_bwd: unsupported device {g.device}")
-    if reduce == "max":
-        x, out = x.contiguous(), out.contiguous()
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("segment_csr_bwd")
-    g = g.contiguous()
-    ptr = ptr.contiguous()
-    if valid is not None:
-        valid = valid.contiguous()
     gx = torch.empty((e, c), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = lib.segment_csr_bwd_f32(
-            g.data_ptr(),
-            x.data_ptr() if reduce == "max" else None,
-            out.data_ptr() if reduce == "max" else None,
-            ptr.data_ptr(),
-            None if valid is None else valid.data_ptr(), gx.data_ptr(),
-            e, s, c, int(reduce == "max"),
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"segment_csr_bwd kernel launch failed: CUDA error {rc}")
-    LAUNCHES["segment_csr_bwd"] += 1
+    segment_csr_bwd_into(_contiguous(g), _contiguous(x), _contiguous(out),
+                         _contiguous(ptr), _contiguous(valid), gx, reduce)
     return gx
 
 
@@ -329,21 +544,27 @@ def gather_segments(y, segment_ids):
 
 
 def segment_softmax(logits, segment_ids, num_segments: int, valid=None,
-                    scaling: bool = False, eps: float = 1e-12, ptr=None):
+                    scaling: bool = False, eps: float = 1e-12, ptr=None,
+                    seg_max=None, count=None):
     """Numerically-stable softmax within each segment.
 
     ``scaling=True`` divides the max-shifted logits by ``sqrt(n_items)`` per
     segment before exponentiation (pooling.py:788-801).  Invalid elements get
-    weight 0.
+    weight 0.  A caller that already holds the logits' per-segment maximum
+    (``seg_max``, detached) or the per-segment count of valid elements
+    (``count``) passes them in and saves those reductions.
     """
     # the max shift leaves the softmax's value unchanged, so its gradient is
     # identically zero: cut it out of the backward
-    seg_max = segment_max(logits.detach(), segment_ids, num_segments, valid,
-                          ptr)
+    if seg_max is None:
+        seg_max = segment_max(logits.detach(), segment_ids, num_segments,
+                              valid, ptr)
     logits = _masked(logits, valid, _NEG)
     shifted = logits - seg_max[segment_ids]
     if scaling:
-        n = segment_count(segment_ids, num_segments, valid, ptr)
+        n = count
+        if n is None:
+            n = segment_count(segment_ids, num_segments, valid, ptr)
         denom = torch.sqrt(torch.clamp(n, min=1.0))[segment_ids]
         denom = denom.reshape(denom.shape + (1,) * (shifted.ndim - denom.ndim))
         shifted = shifted / denom

@@ -28,7 +28,8 @@ _BUILD = _PKG / "_build"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "segment_csr": {
-        "segment_csr_f32": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+        "segment_csr_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                            _I),
     },
     "segment_csr_bwd": {
         "segment_csr_bwd_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

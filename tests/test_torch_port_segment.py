@@ -148,3 +148,107 @@ def test_cpu_tensors_never_launch_the_kernel():
     before = dict(tseg.LAUNCHES)
     tseg.segment_max(_t(x), _t(ids), s, _t(valid), _t(ptr))
     assert tseg.LAUNCHES == before
+
+
+# --- the tiled scheme of the CUDA kernel, in plain PyTorch ------------------
+
+EDGE_WIDTHS = (1, 3, 4, 5, 32, 64, 128, 130)
+EDGE_CASES = [name for name, *_ in tseg.segment_edge_cases(32, 1)]
+
+
+def test_edge_cases_cover_the_tile_edges():
+    """The generator really holds what its names say, at any tile size."""
+    for tile in (32, 96, 1024):
+        cases = {n: (x, p.numpy(), v) for n, x, p, v
+                 in tseg.segment_edge_cases(tile, 4)}
+        assert list(cases) == EDGE_CASES
+        assert np.diff(cases["long"][1]).max() > 3 * tile
+        edges = cases["on_edges"][1]
+        assert tile in edges and 2 * tile in edges and 4 * tile in edges
+        p = cases["empty_at_edge"][1]
+        assert (np.diff(p)[p[:-1] == tile] == 0).sum() >= 3
+        assert (p[:-1] == p[-1]).sum() >= 2       # empty, behind the last row
+        _, p, v = cases["dead_tile"]
+        assert not v[tile:2 * tile].any() and v[:tile].all()
+        _, p, v = cases["drop_in_middle"]
+        assert p[21] - p[20] > 3 * tile and not v[p[20]:p[21]].any()
+        assert v[:p[20]].any() and v[p[21]:].any()
+        x, p, _ = cases["offset"]
+        assert p[0] > tile and p[-1] < x.shape[0]
+        assert cases["under_one_tile"][0].shape[0] < tile
+        assert len(cases["one_segment"][1]) == 2
+        assert cases["long_unmasked"][2] is None
+        assert cases["no_rows"][0].shape[0] == 0
+
+
+@pytest.mark.parametrize("tile", [32, 96, 1024])
+@pytest.mark.parametrize("channels", EDGE_WIDTHS)
+def test_tiled_plain_matches_plain_on_edge_cases(tile, channels):
+    for name, x, ptr, valid in tseg.segment_edge_cases(tile, channels):
+        for reduce in ("sum", "max"):
+            ref = tseg.segment_csr_plain(x, ptr, valid, reduce)
+            got = tseg.segment_csr_tiled_plain(x, ptr, valid, reduce, tile)
+            assert got.shape == ref.shape, name
+            if reduce == "max":
+                assert torch.equal(got, ref), (name, reduce)
+            elif ref.numel():
+                assert rel_err(got.numpy(), ref.numpy()) <= 1e-6, name
+
+
+@pytest.mark.parametrize("tile", [32, 96, 1024])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_tiled_plain_matches_plain_on_random_rows(tile, reduce):
+    """Values that do round: the tiled order of addition stays within 1e-6."""
+    x, ids, valid, ptr, s = _case(11, e=3000, s=300, c=8, empty_tail=True)
+    ref = tseg.segment_csr_plain(_t(x), _t(ptr), _t(valid), reduce)
+    got = tseg.segment_csr_tiled_plain(_t(x), _t(ptr), _t(valid), reduce, tile)
+    if reduce == "max":
+        assert torch.equal(got, ref)
+    else:
+        assert rel_err(got.numpy(), ref.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("channels", [1, 4, 130])
+def test_plain_matches_jax_on_edge_cases(case, channels):
+    """``segment_csr_plain`` against the JAX package on the tile-edge inputs
+    (XLA path; the rows outside ``[ptr[0], ptr[S])`` are cut off first, since
+    ids cannot express them)."""
+    name, x, ptr, valid = next(
+        c for c in tseg.segment_edge_cases(96, channels) if c[0] == case)
+    p = ptr.numpy()
+    s = len(p) - 1
+    lo, hi = int(p[0]), int(p[-1])
+    ids = np.repeat(np.arange(s), np.diff(p)).astype(np.int32)
+    xs = x.numpy()[lo:hi]
+    v = None if valid is None else valid.numpy()[lo:hi]
+    for reduce, jfn in (("sum", jseg.segment_sum), ("max", jseg.segment_max)):
+        got = tseg.segment_csr_plain(x, ptr, valid, reduce).numpy()
+        if hi == lo:
+            assert got.shape == (s, channels) and not got.any()
+            continue
+        ref = np.asarray(jfn(jnp.asarray(xs), jnp.asarray(ids), s,
+                             None if v is None else jnp.asarray(v)))
+        if reduce == "max":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            assert rel_err(got, ref) <= 1e-6
+
+
+def test_kernel_tile_rows_is_one_the_kernel_takes():
+    for c in (1, 2, 4, 8, 16, 32, 64, 128, 130, 512):
+        tile = tseg.kernel_tile_rows(c)
+        assert 32 <= tile <= 2048 and tile % 32 == 0
+
+
+def test_segment_softmax_takes_the_callers_max_and_count():
+    x, ids, valid, ptr, s = _case(12, c=4)
+    args = (_t(x), _t(ids), s)
+    for scaling in (False, True):
+        ref = tseg.segment_softmax(*args, valid=_t(valid), scaling=scaling,
+                                   ptr=_t(ptr))
+        cmax = tseg.segment_max(*args, _t(valid), _t(ptr))
+        count = tseg.segment_count(_t(ids), s, _t(valid), _t(ptr))
+        got = tseg.segment_softmax(*args, valid=_t(valid), scaling=scaling,
+                                   ptr=_t(ptr), seg_max=cmax, count=count)
+        assert torch.equal(got, ref)
