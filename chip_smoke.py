@@ -44,23 +44,55 @@ exit) on any fault:
               are zeroed just before and read just after; loss and gradient
               norm stay finite, the loss falls, every parameter and every
               running mean moves; then the trained model serves one request
-              in eval mode
+              in eval mode, and a model with ``remat_tower=False`` takes six
+              steps from the same weights (step ms and peak memory without
+              the default ``'convs'`` remat, same first loss)
   7. card vs CPU, one train step  from identical weights on the smaller
               request: loss within 1e-2 relative, gradient norm within 3e-2
+  8. recipe request  the crop-ladder batch at the S3DIS recipe's 2D size
+              (``recipe_batch()``: 2 samples, 4 panoramas of 1024 x 512 in
+              the ladder's largest bucket, about 934k pixel rows; three
+              smaller buckets with one zero image and 256 masked rows each),
+              through the same flagship weights, nothing cut:
+              8a  every sorted-segment forward and backward call of one
+                  recipe forward / train step (one atomic pool per bucket,
+                  three of them with every row masked and every segment
+                  empty, then the view pool's) held against its plain
+                  version and timed as in phases 2 / 2b
+              8b  the pixel gather at the largest bucket's shape, timed in
+                  its parts: the upsample einsums, the row gather and its
+                  backward as ``index_select`` (atomics, what the port uses)
+                  and as ``flat[idx]`` (``index_put_`` with accumulate, a
+                  sort), and the four-tap form
+              8c  serving: four forwards in eval mode (one warm-up);
+                  preprocess ms, forward ms, voxels/s, peak memory; launch
+                  counts zeroed before and read after
+              8d  training: eight optimizer steps with ``remat_tower='convs'``
+                  (two warm-up), the loss must fall and every parameter and
+                  running mean move; then five steps each with ``False`` and
+                  ``True`` from the same weights: step ms, peak memory, and
+                  the loss of the second step equal across the three modes
+                  within 2e-3
+              8e  card vs CPU on the check request as a ladder batch (ladder
+                  (64, 32), (128, 64)): logits and one train step to the
+                  bounds of phases 4 and 7
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
+              of the benchmark request and of the recipe request
               (``torch.profiler``)
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line ``{"kernels": [...]}`` before it holds each kernel's launches, error
 and times (``ms``: device time of the kernel alone, summed over the calls of
 one forward or one train step; ``call_ms``: the same calls through the
-wrapper).  Needs a CUDA card, ``nvcc`` and the repository checkout.
+wrapper; ``recipe``: the same for the recipe request).  Needs a CUDA card,
+``nvcc`` and the repository checkout.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -73,9 +105,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from deepviewagg_tpu_torch.data.collate import batch_to_torch  # noqa: E402
-from deepviewagg_tpu_torch.data.toy import flagship_spec, toy_batch  # noqa: E402
+from deepviewagg_tpu_torch.data.toy import (  # noqa: E402
+    flagship_spec, recipe_batch, toy_batch)
 from deepviewagg_tpu_torch.models.losses import segmentation_loss  # noqa: E402
 from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg  # noqa: E402
+from deepviewagg_tpu_torch.modules import gather as pixel_gather  # noqa: E402
 from deepviewagg_tpu_torch.nn.norm import MaskedBatchNorm  # noqa: E402
 from deepviewagg_tpu_torch.ops import segment as seg  # noqa: E402
 from deepviewagg_tpu_torch.train.optimizers import (  # noqa: E402
@@ -94,6 +128,7 @@ SUM_RTOL = 1e-5                    # kernel vs plain: only summation order
 LOGITS_RTOL = 3e-2                 # card vs CPU: bf16 tower convs differ
 ARGMAX_AGREE = 0.99
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+NO_REMAT_STEPS = 4                 # timed steps with remat_tower=False
 # sorted-segment launches of the flagship: atomic max, set-encoder max, one
 # count, one compatibility max, softmax sum, weighted sum; the count has no
 # gradient
@@ -105,6 +140,20 @@ TUNE_TILES = (32, 64, 128, 256, 512, 1024, 2048)
 # gather's scatter-add differ
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 3e-2
+# the recipe request: recipe_batch()'s defaults; the card vs CPU check takes
+# the flat check's request as a ladder batch (ladder (64, 32), (128, 64)),
+# so that the same bounds apply: at 64 x 32 images the tower's maps are 8 x 4
+# cells and the bf16 gradient norm alone differs by 4.9e-2 between card and
+# CPU (loss 7.5e-4, logits 2.3e-3)
+RECIPE_IMAGE_SIZE = (1024, 512)
+LADDER_CHECK_REQUEST = dict(min_size=32, **CHECK_REQUEST)
+RECIPE_FORWARDS = 4                # one of them warm-up
+RECIPE_STEPS, RECIPE_WARMUP = 8, 2
+RECIPE_SHORT_STEPS = 5             # remat False and True, two of them warm-up
+# per ladder batch: one atomic pool per bucket that holds an image, then the
+# view pool's five reductions (four of them differentiated)
+VIEW_POOL_FORWARD, VIEW_POOL_BACKWARD = 5, 4
+REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
 
 
 def log(phase: str, **fields) -> None:
@@ -149,15 +198,17 @@ def graph_ms(launch, n: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * n)
 
 
-def kernel_ms(launch) -> tuple:
+def kernel_ms(launch, tries: int = 3) -> tuple:
     """``(ms, ms at twice the launches)`` of one kernel launch on the device;
     raises when the two differ by more than half and 2 us (the host, not the
-    device, would then be what is timed)."""
-    once, twice = graph_ms(launch), graph_ms(launch, 2 * GRAPH_LAUNCHES)
-    if abs(once - twice) > max(0.5 * min(once, twice), 2e-3):
-        raise AssertionError(f"kernel time depends on the number of "
-                             f"launches: {once} vs {twice} ms")
-    return once, twice
+    device, would then be what is timed) in each of ``tries`` measurements:
+    a single one can be off by a clock change on the card."""
+    for _ in range(tries):
+        once, twice = graph_ms(launch), graph_ms(launch, 2 * GRAPH_LAUNCHES)
+        if abs(once - twice) <= max(0.5 * min(once, twice), 2e-3):
+            return once, twice
+    raise AssertionError(f"kernel time depends on the number of launches: "
+                         f"{once} vs {twice} ms")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -367,6 +418,13 @@ def phase_kernels(model, batch, tune: bool = False) -> dict:
     edge_case()
     if tune:
         tune_tiles(calls)
+    return measure_forward_calls(calls, "2 kernels", "calls_per_forward")
+
+
+def measure_forward_calls(calls, phase: str, count_key: str) -> dict:
+    """Hold every recorded forward call against its plain version and time
+    it: the kernel alone, the call through the wrapper, the plain version,
+    the library call; returns the sums over the calls."""
     totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
                   bound_ms=0.0, max_abs_err=0.0)
     for i, (x, ptr, valid, reduce) in enumerate(calls):
@@ -389,9 +447,10 @@ def phase_kernels(model, batch, tune: bool = False) -> dict:
         xm = x if valid is None else torch.where(valid[:, None], x, fill)
         lms = time_ms(lambda: torch.segment_reduce(
             xm, reduce, offsets=ptr, axis=0, unsafe=True))
-        log("2 kernels", call=i, reduce=reduce, rows=e, channels=c,
+        log(phase, call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
-            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live, tile=tile,
+            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
+            empty_segments=int((ptr[1:] == ptr[:-1]).sum()), tile=tile,
             kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
             call_ms=f"{cms:.4f}", plain_ms=f"{pms:.4f}",
             library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
@@ -400,8 +459,8 @@ def phase_kernels(model, batch, tune: bool = False) -> dict:
                         ("library_ms", lms), ("bound_ms", bound)):
             totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], res["max_abs_err"])
-    log("2 kernels", kernel="segment_csr", checked=True,
-        calls_per_forward=len(calls), kernel_ms=f"{totals['ms']:.4f}",
+    log(phase, kernel="segment_csr", checked=True,
+        **{count_key: len(calls)}, kernel_ms=f"{totals['ms']:.4f}",
         call_ms=f"{totals['call_ms']:.4f}",
         bound_ms=f"{totals['bound_ms']:.4f}")
     return totals
@@ -412,10 +471,21 @@ def zero_launches() -> None:
         seg.LAUNCHES[name] = 0
 
 
-def serve_one(model, np_batch, phase: str, **fields) -> None:
+def image_count(np_batch) -> int:
+    """Images a request carries (a ladder batch: over its buckets, padding
+    images included)."""
+    if "images" in np_batch:
+        return int(np.asarray(np_batch["images"]).shape[0])
+    return sum(int(im.shape[0]) for im in np_batch["bucket_images"])
+
+
+def serve_one(model, np_batch, phase: str, expect: int = FORWARD_LAUNCHES,
+              batch=None, **fields) -> float:
     """One eval forward of a request on the card, checked: logits of the
-    expected shape, finite on the valid voxels, through the forward kernel."""
-    batch = batch_to_torch(np_batch, device="cuda")
+    expected shape, finite on the valid voxels, through ``expect`` launches
+    of the forward kernel; returns the forward's ms."""
+    if batch is None:
+        batch = batch_to_torch(np_batch, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = seg.LAUNCHES["segment_csr"]
@@ -431,14 +501,14 @@ def serve_one(model, np_batch, phase: str, **fields) -> None:
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite logits on valid voxels")
     launched = seg.LAUNCHES["segment_csr"] - before
-    if launched != FORWARD_LAUNCHES:
+    if launched != expect:
         raise AssertionError(f"{launched} forward launches, expected "
-                             f"{FORWARD_LAUNCHES}")
-    log(phase, **fields, voxels=n,
-        images=int(np.asarray(np_batch["images"]).shape[0]),
+                             f"{expect}")
+    log(phase, **fields, voxels=n, images=image_count(np_batch),
         forward_ms=f"{fwd_ms:.1f}", voxels_per_s=f"{n / fwd_ms * 1e3:.0f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches={"segment_csr": launched})
+    return fwd_ms
 
 
 def phase_serving(model, requests) -> dict:
@@ -526,6 +596,25 @@ def bwd_edge_case() -> None:
                                          "gradient")
     log("2b backward kernels", case="empty+masked+all-masked+ties",
         widths="1,3,4,64", ok=True)
+    # the forward's tile-edge inputs (all-empty and interleaved-empty calls
+    # of a crop-ladder bucket among them), with a random cotangent
+    names = []
+    for c in (1, 4, 128):
+        for name, x, ptr, v in seg.segment_edge_cases(
+                seg.kernel_tile_rows(c), c):
+            x, ptr = x.cuda(), ptr.cuda()
+            v = None if v is None else v.cuda()
+            g = torch.randn(ptr.numel() - 1, c, generator=gen, device="cuda")
+            for reduce in ("sum", "max"):
+                out = seg.segment_csr(x, ptr, v, reduce)
+                try:
+                    check_bwd_call(g, x, out, ptr, v, reduce, x.shape[0])
+                except AssertionError as exc:
+                    raise AssertionError(f"edge case {name}, width {c}: {exc}")
+            names.append(name)
+    log("2b backward kernels",
+        case="tile edges: " + "+".join(dict.fromkeys(names)),
+        widths="1,4,128", ok=True)
 
 
 def phase_backward_kernels(model, batch) -> dict:
@@ -535,6 +624,12 @@ def phase_backward_kernels(model, batch) -> dict:
     bwd_edge_case()
     if len(calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment backwards in one step")
+    return measure_backward_calls(calls, "2b backward kernels")
+
+
+def measure_backward_calls(calls, phase: str) -> dict:
+    """Hold every recorded backward call against its plain version
+    (bit-equal) and time it as :func:`measure_forward_calls` does."""
     totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
                   bound_ms=0.0, max_abs_err=0.0)
     for i, (g, x, out, ptr, valid, reduce, num_rows) in enumerate(calls):
@@ -569,7 +664,7 @@ def phase_backward_kernels(model, batch) -> dict:
             lms = time_ms(lambda: torch.where(
                 keep & (x == out.index_select(0, ids)) & (x > -5e29),
                 g.index_select(0, ids), 0.0))
-        log("2b backward kernels", call=i, reduce=reduce, rows=e, channels=c,
+        log(phase, call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
             drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
             live_segments=live_s, kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
@@ -580,28 +675,29 @@ def phase_backward_kernels(model, batch) -> dict:
                         ("library_ms", lms), ("bound_ms", bound)):
             totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-    log("2b backward kernels", kernel="segment_csr_bwd", checked=True,
+    log(phase, kernel="segment_csr_bwd", checked=True,
         bit_equal=True, calls_per_step=len(calls),
         kernel_ms=f"{totals['ms']:.4f}", call_ms=f"{totals['call_ms']:.4f}",
         bound_ms=f"{totals['bound_ms']:.4f}")
     return totals
 
 
-def phase_training(model, np_batch, check_batch) -> dict:
-    """Ten optimizer steps on one request; returns the launch counts."""
+def run_steps(model, batch, n_voxels: int, steps: int, warmup: int,
+              phase: str, expect: dict, **fields) -> dict:
+    """``steps`` optimizer steps (SGD + momentum 0.9, LR 0.1, weight decay
+    1e-4, clip 10) of ``model`` on one batch on the card, each closed by a
+    synchronisation and checked (finite loss and gradient norm, ``expect``
+    launches); returns losses, timed step ms, the largest peak memory and
+    what was resident before the first step (models, batches: the peaks of
+    two runs compare only over it)."""
     model.train()
-    batch = batch_to_torch(np_batch, device="cuda")
-    n = valid_voxels(np_batch)
     state = TrainState.create(model, make_optimizer(
         make_schedule("constant", 0.1), grad_clip=10.0))
     step = make_train_step(model)
-    start = {k: p.detach().clone() for k, p in model.named_parameters()}
-    means = {k: m.running_mean.clone() for k, m in model.named_modules()
-             if isinstance(m, MaskedBatchNorm)}
-    losses, step_ms = [], []
+    losses, step_ms, peak = [], [], 0
     torch.cuda.synchronize()
-    zero_launches()
-    for i in range(TRAIN_STEPS):
+    resident = torch.cuda.memory_allocated()
+    for i in range(steps):
         torch.cuda.reset_peak_memory_stats()
         before = dict(seg.LAUNCHES)
         t0 = time.perf_counter()
@@ -612,20 +708,27 @@ def phase_training(model, np_batch, check_batch) -> dict:
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
         per_step = {k: seg.LAUNCHES[k] - before[k] for k in seg.LAUNCHES}
-        if per_step != {"segment_csr": FORWARD_LAUNCHES,
-                        "segment_csr_bwd": BACKWARD_LAUNCHES}:
-            raise AssertionError(f"launches per step: {per_step}")
+        if per_step != expect:
+            raise AssertionError(f"launches per step: {per_step}, expected "
+                                 f"{expect}")
         losses.append(loss)
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
             step_ms.append(ms)
-        log("6 training", step=i, loss=f"{loss:.4f}",
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        log(phase, **fields, step=i, loss=f"{loss:.6f}",
             grad_norm=f"{gnorm:.4f}", step_ms=f"{ms:.1f}",
-            voxels_per_s=f"{n / ms * 1e3:.0f}", timed=i >= TRAIN_WARMUP,
+            voxels_per_s=f"{n_voxels / ms * 1e3:.0f}", timed=i >= warmup,
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
             launches=per_step)
-    launches = dict(seg.LAUNCHES)
-    if state.step != TRAIN_STEPS:
+    if state.step != steps:
         raise AssertionError(f"step counter {state.step}")
+    return {"losses": losses, "step_ms": step_ms, "peak": peak,
+            "resident": resident, "mean_ms": float(np.mean(step_ms))}
+
+
+def check_trained(model, start, means, losses) -> None:
+    """Every parameter has a gradient and moved, every running mean moved,
+    the loss fell."""
     no_grad = [k for k, p in model.named_parameters() if p.grad is None]
     still = [k for k, p in model.named_parameters()
              if torch.equal(p.detach(), start[k])]
@@ -639,20 +742,60 @@ def phase_training(model, np_batch, check_batch) -> dict:
         raise AssertionError(f"running means did not move: {stuck[:5]}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    mean_ms = float(np.mean(step_ms))
-    log("6 training", steps=TRAIN_STEPS, timed_steps=len(step_ms),
+
+
+def snapshot(model) -> tuple:
+    return ({k: p.detach().clone() for k, p in model.named_parameters()},
+            {k: m.running_mean.clone() for k, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm)})
+
+
+def phase_training(model, np_batch, check_batch) -> dict:
+    """Ten optimizer steps on one request; returns the launch counts."""
+    batch = batch_to_torch(np_batch, device="cuda")
+    n = valid_voxels(np_batch)
+    start, means = snapshot(model)
+    zero_launches()
+    run = run_steps(model, batch, n, TRAIN_STEPS, TRAIN_WARMUP, "6 training",
+                    {"segment_csr": FORWARD_LAUNCHES,
+                     "segment_csr_bwd": BACKWARD_LAUNCHES})
+    launches = dict(seg.LAUNCHES)
+    check_trained(model, start, means, run["losses"])
+    log("6 training", steps=TRAIN_STEPS, timed_steps=len(run["step_ms"]),
         params=sum(p.numel() for p in model.parameters()), voxels=n,
-        first_loss=f"{losses[0]:.4f}", last_loss=f"{losses[-1]:.4f}",
-        mean_step_ms=f"{mean_ms:.1f}", min_step_ms=f"{min(step_ms):.1f}",
-        voxels_per_s=f"{n / mean_ms * 1e3:.0f}", launches=launches)
+        first_loss=f"{run['losses'][0]:.4f}",
+        last_loss=f"{run['losses'][-1]:.4f}",
+        mean_step_ms=f"{run['mean_ms']:.1f}",
+        min_step_ms=f"{min(run['step_ms']):.1f}",
+        voxels_per_s=f"{n / run['mean_ms'] * 1e3:.0f}", launches=launches)
     model.eval()
     serve_one(model, check_batch, "6 training", after="training, eval mode")
+    # the same step without tower remat (``flagship_spec`` asks for 'convs'):
+    # what the default costs on the clock and saves in memory
+    plain = MultimodalSeg(with_remat(model.spec, False), device="cuda",
+                          seed=0)
+    short = run_steps(plain, batch, n, TRAIN_WARMUP + NO_REMAT_STEPS,
+                      TRAIN_WARMUP, "6 training",
+                      {"segment_csr": FORWARD_LAUNCHES,
+                       "segment_csr_bwd": BACKWARD_LAUNCHES}, remat=False)
+    log("6 training", remat=False, timed_steps=NO_REMAT_STEPS,
+        mean_step_ms=f"{short['mean_ms']:.1f}",
+        min_step_ms=f"{min(short['step_ms']):.1f}",
+        peak_mem_gib=f"{short['peak'] / 2**30:.2f}",
+        over_resident_gib=f"{(short['peak'] - short['resident']) / 2**30:.2f}",
+        convs_peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
+        convs_over_resident_gib=(
+            f"{(run['peak'] - run['resident']) / 2**30:.2f}"),
+        first_loss=f"{short['losses'][0]:.6f}")
+    err = abs(short["losses"][0] - run["losses"][0]) / abs(run["losses"][0])
+    if err > REMAT_LOSS_RTOL:
+        raise AssertionError(f"remat changed the first loss: {err}")
     return launches
 
 
-def phase_train_card_vs_cpu(model) -> None:
+def phase_train_card_vs_cpu(model, np_batch, phase="7 train card vs cpu"
+                            ) -> None:
     """One train step from identical weights on the card and on the CPU."""
-    np_batch, _ = make_request(0, "cuda", **CHECK_REQUEST)
     got = {}
     for device in ("cuda", "cpu"):
         m = copy.deepcopy(model).to(device)
@@ -665,7 +808,7 @@ def phase_train_card_vs_cpu(model) -> None:
     (loss, gnorm), (ref_loss, ref_gnorm) = got["cuda"], got["cpu"]
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     gnorm_err = abs(gnorm - ref_gnorm) / abs(ref_gnorm)
-    log("7 train card vs cpu", voxels=valid_voxels(np_batch),
+    log(phase, voxels=valid_voxels(np_batch),
         loss=f"{loss:.6f}", cpu_loss=f"{ref_loss:.6f}",
         loss_rel_err=f"{loss_err:.3e}", grad_norm=f"{gnorm:.5f}",
         cpu_grad_norm=f"{ref_gnorm:.5f}", grad_norm_rel_err=f"{gnorm_err:.3e}")
@@ -674,8 +817,7 @@ def phase_train_card_vs_cpu(model) -> None:
             f"card and CPU train steps disagree: {loss_err}, {gnorm_err}")
 
 
-def phase_card_vs_cpu(model) -> None:
-    np_batch, _ = make_request(0, "cuda", **CHECK_REQUEST)
+def phase_card_vs_cpu(model, np_batch, phase="4 card vs cpu") -> None:
     n = valid_voxels(np_batch)
     with torch.no_grad():
         card = model(batch_to_torch(np_batch, "cuda"))["logits"][:n].cpu()
@@ -683,10 +825,237 @@ def phase_card_vs_cpu(model) -> None:
         cpu = cpu_model(batch_to_torch(np_batch, "cpu"))["logits"][:n]
     err = rel_err(card, cpu)
     agree = float((card.argmax(1) == cpu.argmax(1)).double().mean())
-    log("4 card vs cpu", voxels=n, rel_err=f"{err:.3e}",
+    log(phase, voxels=n, rel_err=f"{err:.3e}",
         argmax_agree=f"{agree:.5f}")
     if not (err <= LOGITS_RTOL and agree >= ARGMAX_AGREE):
         raise AssertionError(f"card and CPU disagree: {err}, {agree}")
+
+
+# --- the recipe request (crop ladder) ----------------------------------------
+
+def ladder_launches(np_batch) -> dict:
+    """Kernel launches of one train step on a ladder batch with one branch:
+    an atomic pool per bucket that holds an image, then the view pool's."""
+    buckets = sum(int(im.shape[0]) > 0 for im in np_batch["bucket_images"])
+    return {"segment_csr": buckets + VIEW_POOL_FORWARD,
+            "segment_csr_bwd": buckets + VIEW_POOL_BACKWARD}
+
+
+def with_remat(spec, remat):
+    return dataclasses.replace(spec, branches=tuple(
+        (lvl, dataclasses.replace(b, remat_tower=remat))
+        for lvl, b in spec.branches))
+
+
+def check_recipe_request(np_batch) -> dict:
+    """The request is the recipe's: every image in the largest bucket at
+    full size, the smaller buckets one zero image and masked rows only."""
+    images = np_batch["bucket_images"]
+    buckets = np_batch["mappings"][0]["buckets"]
+    rows = [int(b["pix_valid"].shape[0]) for b in buckets]
+    live = [int(b["pix_valid"].sum()) for b in buckets]
+    if tuple(images[-1].shape[1:3]) != RECIPE_IMAGE_SIZE or len(images) != 4:
+        raise AssertionError(f"ladder {[tuple(i.shape) for i in images]}")
+    if images[-1].shape[0] != 4 or any(live[:-1]) or live[-1] < 500_000:
+        raise AssertionError(f"images {[i.shape[0] for i in images]}, live "
+                             f"pixel rows {live}")
+    if any(np.abs(im).max() != 0 for im in images[:-1]):
+        raise AssertionError("a padding image is not zero")
+    view = np_batch["mappings"][0]["view"]
+    return dict(voxels=valid_voxels(np_batch),
+                voxel_cap=int(np_batch["feats"].shape[0]),
+                view_rows=int(view["view_valid"].shape[0]),
+                valid_views=int(view["view_valid"].sum()),
+                ladder="+".join(f"{i.shape[0]}x{i.shape[1]}x{i.shape[2]}"
+                                for i in images),
+                pixel_rows=rows, live_pixel_rows=live)
+
+
+def phase_recipe_gather(batch) -> None:
+    """The pixel gather of the largest bucket in its parts, forward and
+    backward, by CUDA events (plain PyTorch with ordinary autograd; timing
+    only).  ``index_select``, which the port's gathers use, differentiates
+    through atomic adds; ``flat[idx]`` through ``index_put_`` with accumulate
+    (a sort, deterministic)."""
+    bucket = batch["mappings"][0]["buckets"][-1]
+    images = batch["bucket_images"][-1]
+    i_cap, (w, h) = images.shape[0], images.shape[1:3]
+    wf, hf, c = w // 8, h // 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    maps = torch.randn(i_cap, wf, hf, c, generator=gen, device="cuda")
+    img = bucket["pix_image"].clamp(0, i_cap - 1).to(torch.int64)
+    px, py = bucket["pix_x"].to(torch.int64), bucket["pix_y"].to(torch.int64)
+    rows = px.shape[0]
+    used = pixel_gather._use_upsample(i_cap, w, h, c, rows, 4)
+    idx = img * (w * h) + px.clamp(0, w - 1) * h + py.clamp(0, h - 1)
+    mw = pixel_gather._resize_matrix(w, wf, "cuda")
+    mh = pixel_gather._resize_matrix(h, hf, "cuda")
+
+    def upsample(m):
+        up = torch.einsum("aw,iwhc->iahc", mw, m)
+        return torch.einsum("bh,iahc->iabc", mh, up).reshape(-1, c)
+
+    flat = upsample(maps)
+    g_rows = torch.randn(rows, c, generator=gen, device="cuda")
+    g_flat = torch.randn_like(flat)
+    leaf = maps.clone().requires_grad_()
+    flat_leaf = flat.clone().requires_grad_()
+    xf = px.float() / (w - 1) * wf - 0.5
+    yf = py.float() / (h - 1) * hf - 0.5
+
+    def backward_of(fn, inp, g):
+        out = fn(inp)
+        torch.cuda.synchronize()
+
+        def run():
+            inp.grad = None
+            out.backward(g, retain_graph=True)
+
+        return time_ms(run, iters=5)
+
+    times = {
+        "upsample_einsums_fwd": time_ms(lambda: upsample(maps), iters=5),
+        "upsample_einsums_bwd": backward_of(upsample, leaf, g_flat),
+        "row_gather_index_fwd": time_ms(lambda: flat[idx], iters=5),
+        "row_gather_index_bwd_index_put": backward_of(
+            lambda f: f[idx], flat_leaf, g_rows),
+        "row_gather_index_select_fwd": time_ms(
+            lambda: flat.index_select(0, idx), iters=5),
+        "row_gather_index_select_bwd_atomics": backward_of(
+            lambda f: f.index_select(0, idx), flat_leaf, g_rows),
+        "four_tap_fwd": time_ms(
+            lambda: pixel_gather._bilinear(maps, img, xf, yf), iters=5),
+        "four_tap_bwd": backward_of(
+            lambda m: pixel_gather._bilinear(m, img, xf, yf), leaf, g_rows),
+    }
+    log("8b recipe gather", rows=rows, channels=c, maps=f"{i_cap}x{wf}x{hf}",
+        upsampled=f"{i_cap}x{w}x{h}",
+        upsampled_gib=f"{flat.numel() * 4 / 2**30:.2f}",
+        use_upsample=used, port_uses="upsample + index_select" if used
+        else "four taps (index_select)",
+        **{k + "_ms": f"{v:.3f}" for k, v in times.items()})
+    if not used:
+        raise AssertionError("the recipe shape did not take the upsample path")
+
+
+def phase_recipe(model, trace: bool) -> dict:
+    """Phases 8, 8a-8e: the crop-ladder path at the recipe's size."""
+    t0 = time.perf_counter()
+    np_batch, _, _ = recipe_batch(device="cuda")
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    shape = check_recipe_request(np_batch)
+    log("8 recipe request", preprocess_ms=f"{prep_ms:.1f}", **shape)
+    n = shape["voxels"]
+    expect = ladder_launches(np_batch)
+    batch = batch_to_torch(np_batch, device="cuda")
+
+    # 8a: every kernel call of the path against its plain version
+    calls = record_segment_calls(model, batch)
+    if len(calls) != expect["segment_csr"]:
+        raise AssertionError(f"{len(calls)} segment calls in one recipe "
+                             f"forward, expected {expect['segment_csr']}")
+    masked_out = [c for c in calls if c[2] is not None and not c[2].any()]
+    if len(masked_out) != 3:
+        raise AssertionError(f"{len(masked_out)} all-masked calls")
+    fwd_totals = measure_forward_calls(calls, "8a recipe kernels",
+                                       "calls_per_recipe_forward")
+    del calls, masked_out
+    train_model = copy.deepcopy(model).train()
+    bwd_calls = record_backward_calls(train_model, batch)
+    if len(bwd_calls) != expect["segment_csr_bwd"]:
+        raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
+                             f"recipe step, expected "
+                             f"{expect['segment_csr_bwd']}")
+    bwd_totals = measure_backward_calls(bwd_calls, "8a recipe kernels")
+    del bwd_calls, train_model
+    torch.cuda.empty_cache()
+
+    # 8b: the pixel gather in its parts
+    phase_recipe_gather(batch)
+    torch.cuda.empty_cache()
+
+    # 8c: serving
+    zero_launches()
+    fwd_ms = [serve_one(model, np_batch, "8c recipe serving",
+                        expect=expect["segment_csr"], batch=batch, forward=i,
+                        timed=i > 0)
+              for i in range(RECIPE_FORWARDS)][1:]
+    serve_launches = dict(seg.LAUNCHES)
+    if serve_launches["segment_csr_bwd"] != 0:
+        raise AssertionError("serving launched the backward kernel")
+    log("8c recipe serving", timed_forwards=len(fwd_ms),
+        mean_forward_ms=f"{np.mean(fwd_ms):.1f}",
+        min_forward_ms=f"{min(fwd_ms):.1f}",
+        voxels_per_s=f"{n / np.mean(fwd_ms) * 1e3:.0f}",
+        launches=serve_launches)
+
+    # 8d: training under the three remat modes, from the same weights
+    runs, train_launches, trained = {}, None, None
+    for remat, steps, warmup in (("convs", RECIPE_STEPS, RECIPE_WARMUP),
+                                 (False, RECIPE_SHORT_STEPS, RECIPE_WARMUP),
+                                 (True, RECIPE_SHORT_STEPS, RECIPE_WARMUP)):
+        m = MultimodalSeg(with_remat(model.spec, remat), device="cuda",
+                          seed=0)
+        start, means = snapshot(m)
+        if not all(torch.equal(p, dict(model.named_parameters())[k])
+                   for k, p in start.items()):
+            raise AssertionError("the seeded weights differ from the serving "
+                                 "model's")
+        zero_launches()
+        runs[remat] = run_steps(m, batch, n, steps, warmup,
+                                "8d recipe training", expect, remat=remat)
+        if remat == "convs":
+            train_launches = dict(seg.LAUNCHES)
+            check_trained(m, start, means, runs[remat]["losses"])
+            trained = m
+        else:
+            del m
+        del start, means
+        torch.cuda.empty_cache()
+    for remat, run in runs.items():
+        log("8d recipe training", remat=remat, timed_steps=len(run["step_ms"]),
+            mean_step_ms=f"{run['mean_ms']:.1f}",
+            min_step_ms=f"{min(run['step_ms']):.1f}",
+            voxels_per_s=f"{n / run['mean_ms'] * 1e3:.0f}",
+            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
+            over_resident_gib=f"{(run['peak'] - run['resident']) / 2**30:.2f}",
+            first_loss=f"{run['losses'][0]:.6f}",
+            second_loss=f"{run['losses'][1]:.6f}",
+            last_loss=f"{run['losses'][-1]:.6f}")
+    ref = runs[False]["losses"]
+    for remat in ("convs", True):
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(runs[remat]["losses"][:2], ref[:2])]
+        log("8d recipe training", remat=remat, against=False,
+            first_loss_rel_err=f"{errs[0]:.3e}",
+            second_loss_rel_err=f"{errs[1]:.3e}")
+        if max(errs) > REMAT_LOSS_RTOL:
+            raise AssertionError(f"remat {remat!r} changed the loss: {errs}")
+
+    # 8e: card vs CPU on a small ladder batch, logits and one train step
+    small, _, _ = recipe_batch(device="cuda", **LADDER_CHECK_REQUEST)
+    ladder = [tuple(im.shape[1:3]) for im in small["bucket_images"]]
+    if ladder != [(64, 32), (128, 64)]:
+        raise AssertionError(f"small ladder {ladder}")
+    phase_card_vs_cpu(model, small, "8e ladder card vs cpu")
+    phase_train_card_vs_cpu(model, small, "8e ladder train card vs cpu")
+
+    if trace:
+        def forward():
+            with torch.no_grad():
+                model(batch)
+
+        phase_trace("recipe_forward", forward)
+        trained.train()
+        state = TrainState.create(trained, make_optimizer(
+            make_schedule("constant", 0.1), grad_clip=10.0))
+        step = make_train_step(trained)
+        step(state, batch, None)                   # warm-up, not traced
+        phase_trace("recipe_train_step", lambda: step(state, batch, None))
+    return {"forward": fwd_totals, "backward": bwd_totals,
+            "serve_launches": serve_launches,
+            "train_launches": train_launches}
 
 
 def kernel_family(name: str) -> str:
@@ -700,12 +1069,21 @@ def kernel_family(name: str) -> str:
                      ("segment_csr_tile", "segment_csr tile kernel (ours)"),
                      ("segment_csr_finish", "segment_csr finish kernel "
                       "(ours; includes its wait for the tile kernel)"),
+                     ("indexing_backward", "scatter-add (index_put "
+                      "accumulate: autograd of x[idx])"),
+                     ("index_put", "scatter-add (index_put accumulate: "
+                      "autograd of x[idx])"),
+                     ("indexfunc", "scatter-add (index_add atomics: "
+                      "autograd of index_select, the pixel gather)"),
+                     ("indexselect", "gather/scatter"),
                      ("conv", "conv2d"), ("fprop", "conv2d"),
                      ("implicit", "conv2d"), ("gemm", "matmul"),
                      ("index", "gather/scatter"), ("gather", "gather/scatter"),
                      ("scatter", "gather/scatter"), ("sort", "sort/search"),
                      ("search", "sort/search"), ("reduce", "reduction"),
-                     ("norm", "norm"), ("copy", "copy/cast"),
+                     ("norm", "norm"), ("rowwisemoments", "norm"),
+                     ("upsample", "resize (PPM upsampling)"),
+                     ("pool", "pooling"), ("copy", "copy/cast"),
                      ("cat", "copy/cast"), ("elementwise", "elementwise")):
         if key in low:
             return fam
@@ -726,12 +1104,15 @@ def phase_trace(what: str, run, repeats: int = 3) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     fams: dict = {}
+    other: dict = {}
     for ev in prof.key_averages():
         # device-side events only: an operator's entry repeats its kernels'
         us = ev.self_device_time_total
         if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             fam = kernel_family(ev.key)
             fams[fam] = fams.get(fam, 0.0) + us
+            if fam == "other":
+                other[ev.key] = other.get(ev.key, 0.0) + us
     busy = sum(fams.values())
     log("5 trace", what=what, repeats=repeats,
         wall_ms_each=f"{wall_us / repeats / 1e3:.2f}",
@@ -740,6 +1121,10 @@ def phase_trace(what: str, run, repeats: int = 3) -> None:
     for fam, us in sorted(fams.items(), key=lambda kv: -kv[1]):
         log("5 trace", what=what, family=fam,
             ms_each=f"{us / repeats / 1e3:.3f}", share=f"{us / busy:.3f}")
+    for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:4]:
+        log("5 trace", what=what, family="other",
+            kernel=key[:90].replace(" ", ""),
+            ms_each=f"{us / repeats / 1e3:.3f}")
 
 
 def trace_forward_and_train(model, train_model, np_batch) -> None:
@@ -773,41 +1158,53 @@ def main() -> None:
     totals = phase_kernels(model, batch_to_torch(requests[0][0], "cuda"),
                            tune)
     launches = phase_serving(model, requests)
-    phase_card_vs_cpu(model)
+    check_request, _ = make_request(0, "cuda", **CHECK_REQUEST)
+    phase_card_vs_cpu(model, check_request)
     # training runs on a copy, so the serving model keeps its weights
     train_model = copy.deepcopy(model).train()
     bwd_totals = phase_backward_kernels(
         train_model, batch_to_torch(requests[0][0], "cuda"))
     train_launches = phase_training(train_model, requests[0][0],
                                     requests[1][0])
-    phase_train_card_vs_cpu(model)
+    phase_train_card_vs_cpu(model, check_request)
+    recipe = phase_recipe(model, trace)
     if trace:
         trace_forward_and_train(model, train_model, requests[0][0])
 
-    def entry(name, source, replaces, totals, **counts):
+    def entry(name, source, replaces, totals, recipe_totals, **counts):
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts,
-            "max_abs_err": totals["max_abs_err"],
+            "max_abs_err": max(totals["max_abs_err"],
+                               recipe_totals["max_abs_err"]),
             "ms": totals["ms"], "call_ms": totals["call_ms"],
             "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "bytes",
             "library_ms": totals["library_ms"], "checked": True,
+            "recipe": {k: recipe_totals[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+                "max_abs_err")},
         }
 
     # ``launches``: the kernel's count over the path that drives it first
     # (serving for the forward, training for the backward); times are sums
     # over the calls of one forward / one train step: ``ms`` on the device,
-    # ``call_ms`` through the wrapper
+    # ``call_ms`` through the wrapper; ``recipe``: the same sums over the
+    # calls of one recipe forward / train step, ``launches_recipe_*``: the
+    # counts over the recipe's serving and training runs
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
-              launches=launches["segment_csr"],
-              launches_training=train_launches["segment_csr"]),
+              recipe["forward"], launches=launches["segment_csr"],
+              launches_training=train_launches["segment_csr"],
+              launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
+              launches_recipe_training=recipe["train_launches"]["segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
-              launches=train_launches["segment_csr_bwd"]),
+              recipe["backward"], launches=train_launches["segment_csr_bwd"],
+              launches_recipe_training=recipe["train_launches"][
+                  "segment_csr_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -11,7 +11,9 @@ Here all of it happens host-side, once per batch:
      bucket's per-level capacities;
   3. concatenate per-sample mappings with point/image offsets, then derive
      the per-branch-level mappings by merging through the parent chain;
-  4. pad images/views/pixels to bucket capacities.
+  4. pad images/views/pixels to bucket capacities — one flat image batch,
+     or, with ``Bucket.image_ladder``, one image tensor and one pixel table
+     per crop size (:mod:`.crop_groups`) over a single view table.
 
 A ``Bucket`` pins every static dimension, so batches of one bucket family
 share every array shape (SURVEY.md §7 design move 1).
@@ -126,26 +128,101 @@ def collate(
         imgs = np.concatenate([s.images for s in samples]).astype(np.float32)
 
         if bucket.image_ladder is not None:
-            raise NotImplementedError(
-                "crop-ladder buckets (Bucket.image_ladder) are not ported yet"
-            )
-        mappings = {}
-        m = merged0
-        level = 0
-        for lvl in sorted(branch_levels):
-            while level < lvl:
-                parent = graph.levels[level].parent
-                m = m.merge_points(parent, bucket.level_caps[level + 1])
-                level += 1
-            mappings[lvl] = m.pad(bucket.view_cap,
-                                  bucket.pix_cap).to_device()
-        batch["mappings"] = mappings
+            from .crop_groups import assign_crop_groups, split_mapping_by_bucket
 
-        if len(imgs) > bucket.image_cap:
-            raise ValueError(
-                f"{len(imgs)} images exceed cap {bucket.image_cap}"
-            )
-        batch["images"] = pad_to(imgs, bucket.image_cap)
+            ladder = [tuple(s_) for s_ in bucket.image_ladder]
+            # bucket assignment + image crops are level-invariant (pixel
+            # coords never change across stride merges) — build them ONCE;
+            # per level only the view/pixel tables are recomputed
+            padded0 = merged0.pad(bucket.view_cap, bucket.pix_cap)
+            if all(s.image_family is not None for s in samples):
+                # camera families: each image's bucket is its camera family
+                # at the family's native size (origin 0 on the storage
+                # canvas), NOT a bbox-fitted crop
+                fams = np.concatenate(
+                    [np.asarray(s.image_family, np.int64) for s in samples]
+                ) if samples else np.zeros(0, np.int64)
+                cloud0 = {
+                    "image_bucket": fams,
+                    "crop_origin": np.zeros((len(fams), 2), np.int64),
+                }
+            else:
+                cloud0 = assign_crop_groups(
+                    {"mapping": padded0, "images": imgs}, ladder
+                )
+            mappings = {}
+            bucket_images = None
+            m = merged0
+            level = 0
+            for lvl in sorted(branch_levels):
+                while level < lvl:
+                    parent = graph.levels[level].parent
+                    m = m.merge_points(parent, bucket.level_caps[level + 1])
+                    level += 1
+                padded = m.pad(bucket.view_cap, bucket.pix_cap)
+                mm = split_mapping_by_bucket(
+                    {"mapping": padded, "images": imgs,
+                     "image_bucket": cloud0["image_bucket"],
+                     "crop_origin": cloud0["crop_origin"]},
+                    ladder, include_images=bucket_images is None,
+                )
+                if bucket_images is None:
+                    bucket_images = []
+                    for bi, bk in enumerate(mm["buckets"]):
+                        raw = bk.pop("images")
+                        icap = bucket.ladder_image_caps[bi]
+                        # check BEFORE pad_to — it silently truncates, and a
+                        # truncated tensor would make pix_image rows >= icap
+                        # silently gather the wrong image downstream
+                        if len(raw) > icap:
+                            raise ValueError(
+                                f"crop bucket {bi} overflows image cap "
+                                f"({len(raw)}/{icap} imgs)"
+                            )
+                        bucket_images.append(pad_to(raw, icap))
+                # pad per-bucket pixel tables to static caps
+                for bi, bk in enumerate(mm["buckets"]):
+                    icap = bucket.ladder_image_caps[bi]
+                    qcap = bucket.ladder_pix_caps[bi]
+                    n_img = int(bk["pix_image"].max(initial=-1)) + 1
+                    if n_img > icap or len(bk["pix_view"]) > qcap:
+                        raise ValueError(
+                            f"crop bucket {bi} overflows caps "
+                            f"({n_img}/{icap} imgs, "
+                            f"{len(bk['pix_view'])}/{qcap} pix)"
+                        )
+                    vc = padded.view_capacity
+                    bk["pix_view"] = pad_to(bk["pix_view"], qcap, fill=vc)
+                    bk["pix_ptr"] = np.searchsorted(
+                        bk["pix_view"], np.arange(vc + 2)
+                    ).astype(np.int32)
+                    bk["pix_x"] = pad_to(bk["pix_x"], qcap)
+                    bk["pix_y"] = pad_to(bk["pix_y"], qcap)
+                    bk["pix_valid"] = pad_to(bk["pix_valid"], qcap, fill=False)
+                    bk["pix_image"] = pad_to(bk["pix_image"], qcap)
+                    bk.pop("size", None)
+                mm.pop("num_points")
+                mappings[lvl] = mm
+            batch["mappings"] = mappings
+            batch["bucket_images"] = bucket_images  # shared across levels
+        else:
+            mappings = {}
+            m = merged0
+            level = 0
+            for lvl in sorted(branch_levels):
+                while level < lvl:
+                    parent = graph.levels[level].parent
+                    m = m.merge_points(parent, bucket.level_caps[level + 1])
+                    level += 1
+                mappings[lvl] = m.pad(bucket.view_cap,
+                                      bucket.pix_cap).to_device()
+            batch["mappings"] = mappings
+
+            if len(imgs) > bucket.image_cap:
+                raise ValueError(
+                    f"{len(imgs)} images exceed cap {bucket.image_cap}"
+                )
+            batch["images"] = pad_to(imgs, bucket.image_cap)
 
     # host-side metadata (never moved to the device)
     batch["meta"] = {
@@ -161,8 +238,10 @@ def collate(
 
 def batch_to_torch(batch: Dict, device="cuda") -> Dict:
     """Move the numpy leaves of a collated batch onto ``device`` as tensors
-    (dtypes kept: int32 ids, bool masks, float32 values); ``meta`` and other
-    non-array leaves stay as they are."""
+    (dtypes kept: int32 ids and CSR pointers, bool masks, float32 values, as
+    the segment kernels' wrapper takes them); the nesting of a crop-ladder
+    batch (``mappings[level]["buckets"][b]``, the ``bucket_images`` list) is
+    kept; ``meta`` and other non-array leaves stay as they are."""
 
     def move(node):
         if isinstance(node, dict):

@@ -19,10 +19,12 @@ import numpy as np
 from ..models.segmentation import BranchSpec, ModelSpec
 from ..ops import voxel
 from .collate import Bucket, Sample, collate
+from .crop_groups import (assign_crop_groups, crop_ladder,
+                          split_mapping_by_bucket)
 from .mapping_factory import VisibilityParams, build_mappings
 from . import synthetic
 
-__all__ = ["flagship_spec", "toy_batch", "toy_samples"]
+__all__ = ["flagship_spec", "toy_batch", "toy_samples", "recipe_batch"]
 
 NUM_CLASSES = 4  # synthetic room classes
 
@@ -92,6 +94,22 @@ def toy_samples(
     return samples
 
 
+def _level_counts(samples):
+    """Exact voxel counts of the five UNet levels of the samples as one
+    batch, to size a bucket."""
+    coords = np.concatenate([
+        np.concatenate([np.full((len(s.coords), 1), b, np.int32),
+                        s.coords.astype(np.int32)], axis=1)
+        for b, s in enumerate(samples)
+    ])
+    counts, cur, stride = [len(coords)], coords, 1
+    for _ in range(4):
+        cur, _ = voxel.downsample_coords(cur, stride * 2)
+        stride *= 2
+        counts.append(len(cur))
+    return counts
+
+
 def toy_batch(
     n_samples: int = 2,
     density: float = 120.0,
@@ -113,24 +131,68 @@ def toy_batch(
     def cap(x, m=256):
         return int(-(-int(x * headroom) // m) * m)
 
-    # measure exact per-level voxel counts to size the bucket
-    coords = np.concatenate([
-        np.concatenate([np.full((len(s.coords), 1), b, np.int32),
-                        s.coords.astype(np.int32)], axis=1)
-        for b, s in enumerate(samples)
-    ])
-    counts, cur, stride = [len(coords)], coords, 1
-    for _ in range(4):
-        cur, _ = voxel.downsample_coords(cur, stride * 2)
-        stride *= 2
-        counts.append(len(cur))
-
     bucket = Bucket(
-        level_caps=[cap(c) for c in counts],
+        level_caps=[cap(c) for c in _level_counts(samples)],
         num_batches=n_samples,
         view_cap=cap(views), pix_cap=cap(pix),
         image_cap=n_samples * n_cameras,
         image_size=image_size,
+    )
+    batch = collate(samples, bucket, branch_levels=branch_levels,
+                    conv0_kernel=conv0_kernel)
+    return batch, bucket, samples
+
+
+def recipe_batch(
+    n_samples: int = 2,
+    density: float = 260.0,
+    image_size: Tuple[int, int] = (1024, 512),
+    n_cameras: int = 2,
+    voxel_size: float = 0.1,
+    branch_levels=(0,),
+    seed: int = 0,
+    headroom: float = 1.3,
+    min_size: int = 64,
+    conv0_kernel: int = 3,
+    device="cuda",
+):
+    """One collated crop-ladder batch at the S3DIS recipe's 2D resolution
+    (1024 x 512 panoramas, ``resolution_2d`` of conf/s3dis_benchmark.yaml):
+    every image is cropped to the smallest size of the power-of-two ladder
+    ``crop_ladder(image_size, min_size)`` that holds its mapped pixels and
+    shipped in that size's bucket, with per-bucket pixel tables over one
+    global view table.  Bucket capacities are sized from the sample
+    contents (at least one image and 256 pixel rows per ladder size).  The
+    defaults are the recipe-scale request of the benchmark; tests pass small
+    sizes.  Built anew on every call (nothing is cached on disk)."""
+    samples = toy_samples(n_samples, density, image_size, n_cameras,
+                          voxel_size, seed, device=device)
+    ladder = crop_ladder(image_size, min_size=min_size)
+
+    def cap(x, m=256):
+        return int(-(-int(x * headroom) // m) * m)
+
+    # per-bucket pixel and image maxima
+    b_pix = [0] * len(ladder)
+    b_img = [0] * len(ladder)
+    for s in samples:
+        ass = assign_crop_groups({"mapping": s.mapping, "images": s.images},
+                                 ladder)
+        mmp = split_mapping_by_bucket(ass, ladder, include_images=False)
+        for bi, bk in enumerate(mmp["buckets"]):
+            b_pix[bi] += len(bk["pix_view"])
+            b_img[bi] += int((ass["image_bucket"] == bi).sum())
+    views = sum(s.mapping.num_views for s in samples)
+    pix = sum(s.mapping.num_pixels for s in samples)
+    bucket = Bucket(
+        level_caps=[cap(c) for c in _level_counts(samples)],
+        num_batches=len(samples),
+        view_cap=cap(views), pix_cap=cap(pix),
+        image_cap=sum(b_img),
+        image_size=image_size,
+        image_ladder=ladder,
+        ladder_image_caps=[max(1, i) for i in b_img],
+        ladder_pix_caps=[max(cap(p), 256) for p in b_pix],
     )
     batch = collate(samples, bucket, branch_levels=branch_levels,
                     conv0_kernel=conv0_kernel)

@@ -3,14 +3,20 @@
 The port of ``deepviewagg_tpu/models/segmentation.py`` (``BranchSpec``,
 ``ModelSpec``, ``make_tower``, ``MultimodalSeg``; the reference's
 models/segmentation/multimodal/sparseconv3d.py): a Res16UNet whose encoder
-levels interleave image branches over flat image batches.  A branch at
-level L consumes ``batch['mappings'][L]`` (level-0 mappings merged through
-the stride chain at collate time).
+levels interleave image branches.  A branch at level L consumes
+``batch['mappings'][L]`` (level-0 mappings merged through the stride chain
+at collate time).
 
 The batch contract is the collated dict moved to the device by
 :func:`deepviewagg_tpu_torch.data.collate.batch_to_torch`: ``feats [P0, Cin]``,
 ``graph`` (per level: valid / batch_idx / sub_nbr / down_nbr / up_nbr /
-parent), ``images [I, W, H, 3]``, ``mappings {level: mapping dict}``.
+parent) and either a flat image batch, ``images [I, W, H, 3]`` with
+``mappings {level: mapping dict}``, or a crop-ladder batch
+(``Bucket.image_ladder``), ``bucket_images [per ladder size: [Ib, w, h, 3]]``
+with ``mappings {level: {"view": ..., "buckets": [...]}}``.  One set of
+parameters serves both: a ladder batch goes through
+:class:`~deepviewagg_tpu_torch.modules.multibucket.MultiBucketBranch` over the
+branch's own tower, view pool and fusion.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 
 from ..modules import image_encoders as towers
 from ..modules.branch import UnimodalBranch, soft_dropout
+from ..modules.multibucket import MultiBucketBranch
 from ..nn.res16unet import RES16_PRESETS, DownStage, Stem, UpStage
 
 __all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "make_tower",
@@ -108,9 +115,9 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
 
 def _check_branch(spec: BranchSpec) -> None:
     unsupported = {
-        "view_pool": spec.view_pool != "group",
+        "view_pool": spec.view_pool not in ("group", "max", "mean", "min",
+                                            "sum", "add"),
         "set_encoder": spec.set_encoder != "deepset",
-        "frozen": spec.frozen,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -129,6 +136,7 @@ class MultimodalSeg(nn.Module):
             raise NotImplementedError(f"model family {spec.family!r} with "
                                       "these options is not ported yet")
         self.spec = spec
+        self._ladder: Dict[str, nn.Module] = {}   # see _ladder_branch
         if spec.backbone_layers is not None:
             layers, planes = spec.backbone_layers, spec.backbone_planes
             block = spec.backbone_block
@@ -144,17 +152,30 @@ class MultimodalSeg(nn.Module):
                     raise NotImplementedError(f"tower {b.tower!r} is not ported yet")
                 tower, c2 = make_tower(b.tower, b.tower_norm,
                                        b.tower_deep_stem, device=device)
-                branch = UnimodalBranch(
-                    tower, c2, c, b.out_channels,
-                    atomic_reduce=b.atomic_reduce, num_groups=b.num_groups,
-                    use_mod=b.use_mod, pool_use_num=b.pool_use_num,
-                    pool_scaling=b.pool_scaling, pool_modes=b.pool_modes,
-                    pool_fusion=b.pool_fusion, gated=b.gated,
-                    interpolate=b.interpolate, drop_modality=b.drop_modality,
-                    drop_3d=b.drop_3d, drop_hard=b.drop_hard,
-                    fusion_mode=b.fusion_mode,
-                    tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
-                    device=device)
+                if b.view_pool == "group":
+                    branch = UnimodalBranch(
+                        tower, c2, c, b.out_channels,
+                        atomic_reduce=b.atomic_reduce,
+                        num_groups=b.num_groups, use_mod=b.use_mod,
+                        pool_use_num=b.pool_use_num,
+                        pool_scaling=b.pool_scaling, pool_modes=b.pool_modes,
+                        pool_fusion=b.pool_fusion, gated=b.gated,
+                        interpolate=b.interpolate,
+                        drop_modality=b.drop_modality, drop_3d=b.drop_3d,
+                        drop_hard=b.drop_hard, fusion_mode=b.fusion_mode,
+                        tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
+                        remat_tower=b.remat_tower, frozen=b.frozen,
+                        device=device)
+                else:
+                    # the parameter-free segment pools are ported for
+                    # crop-ladder batches only
+                    branch = MultiBucketBranch(
+                        tower, c2, c, b.out_channels,
+                        atomic_reduce=b.atomic_reduce, view_pool=b.view_pool,
+                        interpolate=b.interpolate, fusion_mode=b.fusion_mode,
+                        frozen=b.frozen, remat_tower=b.remat_tower,
+                        tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
+                        device=device)
                 name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
                 setattr(self, name, branch)
                 c = branch.out_channels
@@ -178,6 +199,19 @@ class MultimodalSeg(nn.Module):
         if seed is not None:
             init_parameters(self, torch.Generator().manual_seed(seed))
 
+    def _ladder_branch(self, name: str, branch: nn.Module) -> nn.Module:
+        """The branch that takes crop-ladder batches: ``branch`` itself, or
+        the ladder form of a ``UnimodalBranch`` over the same sub-modules
+        (built once, kept outside the module tree so that the parameters are
+        registered once)."""
+        if isinstance(branch, MultiBucketBranch):
+            return branch
+        ladder = self._ladder.get(name)
+        if ladder is None:
+            ladder = self._ladder[name] = MultiBucketBranch.over(branch)
+        ladder.training = branch.training
+        return ladder
+
     def _run_branches(self, level, x, batch, seen_all, generator):
         k = 0
         while True:
@@ -185,10 +219,20 @@ class MultimodalSeg(nn.Module):
             branch = getattr(self, name, None)
             if branch is None:
                 return x, seen_all
-            images = batch["images"]
-            x, seen = branch(x, images, batch["mappings"][level],
-                             (images.shape[1], images.shape[2]),
-                             generator=generator)
+            mm = batch["mappings"][level]
+            if "buckets" in mm:
+                # crop-group families (Bucket.image_ladder collate path)
+                x, seen = self._ladder_branch(name, branch)(
+                    x, mm, bucket_images=batch.get("bucket_images"))
+            elif isinstance(branch, MultiBucketBranch):
+                raise NotImplementedError(
+                    f"view_pool {branch.view_pool.reduce!r} on a flat image "
+                    "batch is not ported yet")
+            else:
+                images = batch["images"]
+                x, seen = branch(x, images, mm,
+                                 (images.shape[1], images.shape[2]),
+                                 generator=generator)
             seen_all = seen if seen_all is None else (seen_all | seen)
             k += 1
 

@@ -85,14 +85,17 @@ class UnimodalBranch(nn.Module):
                  pool_fusion: str = "concatenation", gated: bool = True,
                  interpolate: bool = True, drop_modality: float = 0.0,
                  drop_3d: float = 0.0, drop_hard: bool = True,
-                 fusion_mode: str = "residual", tower_bf16: bool = True, pool_bf16: bool = False,
-                 device=None):
+                 fusion_mode: str = "residual", tower_bf16: bool = True,
+                 pool_bf16: bool = False, remat_tower=False,
+                 frozen: bool = False, device=None):
         super().__init__()
         self.tower = tower
         self.atomic_reduce = atomic_reduce
         self.interpolate = interpolate
         self.tower_bf16 = tower_bf16
         self.pool_bf16 = pool_bf16
+        self.remat_tower = remat_tower  # False | True | 'convs' (run_tower)
+        self.frozen = frozen            # frozen pretrained tower
         self.drop_modality = drop_modality
         self.drop_3d = drop_3d
         # hard: all-or-nothing ModalityDropout; soft: per-element dropout on
@@ -116,7 +119,9 @@ class UnimodalBranch(nn.Module):
         if x_3d is not None:
             num_points = x_3d.shape[0]
 
-        feats_2d = run_tower(self.tower, images, bf16=self.tower_bf16,
+        feats_2d = run_tower(self.tower, images, self.training,
+                             remat=self.remat_tower, frozen=self.frozen,
+                             bf16=self.tower_bf16,
                              out_f32=not (self.pool_bf16 and self.tower_bf16))
 
         # --- pixels -> views (atomic pool) -------------------------------

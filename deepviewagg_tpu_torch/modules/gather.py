@@ -12,7 +12,10 @@ The port of ``deepviewagg_tpu/modules/gather.py`` (the reference's
     (image.py:1278-1284).
 
 All taps index a flattened ``[I*Wf*Hf, C]`` view of ``[I, Wf, Hf, C]`` maps.
-These gathers stay plain PyTorch in this version of the port.
+These gathers stay plain PyTorch in this version of the port; every row
+gather is an ``index_select`` (``_rows``), so that autograd's scatter-add of
+the cotangent rows is an atomic ``index_add_`` and not the sort of
+``index_put_(accumulate=True)``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,15 @@ def _resize_matrix(n_out: int, n_in: int, device) -> torch.Tensor:
     return torch.as_tensor(mat, device=device)
 
 
+def _rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``flat[idx]`` for an int64 row index, as ``index_select``: on CUDA its
+    backward adds the cotangent rows with atomics (the order of the float
+    additions into one row is then not fixed), where advanced indexing
+    differentiates through ``index_put_(accumulate=True)``, which sorts the
+    index first and takes tens of times longer at a million rows."""
+    return flat.index_select(0, idx)
+
+
 def _use_upsample(i_cap, w, h, c, n_rows, itemsize) -> bool:
     up_bytes = i_cap * w * h * c * itemsize
     if up_bytes > _UPSAMPLE_MAX_BYTES:
@@ -60,7 +72,7 @@ def _bilinear_upsampled(maps, img_id, xi, yi, w, h, valid=None):
     idx = (img_id.to(torch.int64) * (w * h)
            + torch.clamp(xi, 0, w - 1).to(torch.int64) * h
            + torch.clamp(yi, 0, h - 1))
-    out = flat[idx]
+    out = _rows(flat, idx)
     if valid is not None:
         out = out * valid[:, None].to(out.dtype)
     return out
@@ -78,8 +90,8 @@ def _bilinear(maps, img_id, xf, yf):
     ty = (yf - y0)[:, None].to(maps.dtype)
 
     def tap(xi, yi):
-        return flat[base + torch.clamp(xi, 0, w - 1) * h
-                    + torch.clamp(yi, 0, h - 1)]
+        return _rows(flat, base + torch.clamp(xi, 0, w - 1) * h
+                     + torch.clamp(yi, 0, h - 1))
 
     return (
         tap(x0, y0) * (1 - tx) * (1 - ty)
@@ -117,5 +129,5 @@ def gather_pixel_features(feature_maps: torch.Tensor, mapping: dict, ref_size,
         yi = torch.clamp((mapping["pix_y"].to(torch.float32) * (hf / h))
                          .to(torch.int64), 0, hf - 1)
         flat = feature_maps.reshape(-1, feature_maps.shape[-1])
-        out = flat[img_id.to(torch.int64) * (wf * hf) + xi * hf + yi]
+        out = _rows(flat, img_id.to(torch.int64) * (wf * hf) + xi * hf + yi)
     return out * mapping["pix_valid"][:, None].to(out.dtype)

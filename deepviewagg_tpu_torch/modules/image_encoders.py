@@ -8,13 +8,16 @@ the towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
 flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
 parameters by name.  Only ``norm='group'`` (the from-scratch towers) is
 ported: it has no batch statistics, so the towers compute the same in
-training and eval mode and differentiate by ordinary autograd.  Remat (a
-memory saving that changes no number) and view sharding are not ported.
+training and eval mode and differentiate by ordinary autograd.
+:func:`run_tower` rematerializes the tower in the backward pass (``remat``:
+all of it, or all but the convolutions' outputs; a memory saving that changes
+no number) and freezes it (``frozen``).  View sharding is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -221,15 +224,57 @@ class ResNet18PPM(nn.Module):
         return self.PPM_0(self.ResNet18_0(x))
 
 
-def run_tower(tower: nn.Module, images: torch.Tensor, bf16: bool = True,
+def _save_only_convs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat='convs'``: the outputs of the
+    convolutions are kept, everything else is recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
+              remat=False, frozen: bool = False, bf16: bool = True,
               out_f32: bool = True) -> torch.Tensor:
     """Tower driver of the branch: ``images [I, W, H, 3]`` ->
     ``[I, Wf, Hf, C]``.  ``bf16`` runs the activations in bf16 (parameters
     and conv accumulation stay float32); the output is float32 unless
-    ``out_f32`` is False."""
+    ``out_f32`` is False.
+
+    ``remat`` is ``False`` (autograd keeps every activation), ``True`` (the
+    backward pass runs the whole tower forward again: one more tower forward
+    of work, only the input kept) or ``'convs'`` (the outputs of the
+    convolutions are kept and only the weight standardization, norm, relu
+    and pooling around them are recomputed); it changes no number.
+    ``frozen`` runs the tower in eval mode (``train and not frozen``) outside
+    autograd, so the output is detached and nothing is kept for a backward
+    pass; remat is then skipped."""
+    if remat not in (False, True, "convs"):
+        # a typo like 'conv' would otherwise silently select FULL remat
+        raise ValueError(f"remat must be False, True or 'convs'; got {remat!r}")
     if bf16:
         images = images.to(torch.bfloat16)
-    y = tower(images.permute(0, 3, 1, 2))
+    x = images.permute(0, 3, 1, 2)
+    was_training = tower.training
+    tower.train(train and not frozen)
+    try:
+        if frozen:
+            with torch.no_grad():
+                y = tower(x)
+        elif remat and torch.is_grad_enabled():
+            from torch.utils import checkpoint as ckpt
+
+            kw = {"preserve_rng_state": False}    # the towers draw nothing
+            if remat == "convs":
+                kw["context_fn"] = functools.partial(
+                    ckpt.create_selective_checkpoint_contexts,
+                    _save_only_convs)
+            y = ckpt.checkpoint(tower, x, use_reentrant=False, **kw)
+        else:
+            y = tower(x)
+    finally:
+        tower.train(was_training)
     y = y.permute(0, 2, 3, 1)
     if out_f32:
         y = y.to(torch.float32)

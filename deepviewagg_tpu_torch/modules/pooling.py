@@ -1,8 +1,10 @@
 """View pooling: the learned multi-view aggregation of DeepViewAgg.
 
-The port of the group attention pool of ``deepviewagg_tpu/modules/
-pooling.py`` (the reference's ``GroupBimodalCSRPool`` with ``DeepSetFeat``
-and ``Gating``, modules/multimodal/pooling.py:159-319,604-716): set-encoded
+The port of ``SegmentPool`` (the reference's parameter-free
+``BimodalCSRPool``, modules/multimodal/pooling.py:14) and of the group
+attention pool of ``deepviewagg_tpu/modules/pooling.py`` (the reference's
+``GroupBimodalCSRPool`` with ``DeepSetFeat`` and ``Gating``,
+modules/multimodal/pooling.py:159-319,604-716): set-encoded
 map features -> per-group compatibilities -> segment softmax -> weighted
 segment sum of the value projection -> gating on per-segment max
 compatibilities.  All modules take ``(x [E, C], segment_ids [E] sorted,
@@ -20,8 +22,8 @@ from torch import nn
 from ..ops import segment as seg
 from .mlp import MLP
 
-__all__ = ["Gating", "DeepSetFeat", "GroupViewPool", "expand_group_feat",
-           "group_sizes", "nearest_power_of_2"]
+__all__ = ["SegmentPool", "Gating", "DeepSetFeat", "GroupViewPool",
+           "expand_group_feat", "group_sizes", "nearest_power_of_2"]
 
 
 def nearest_power_of_2(x, min_power: int = 16) -> int:
@@ -52,6 +54,19 @@ def expand_group_feat(x, num_groups: int, num_channels: int):
                             device=x.device)
     return torch.repeat_interleave(x, sizes, dim=-1,
                                    output_size=num_channels)
+
+
+class SegmentPool(nn.Module):
+    """Parameter-free segment reduction (``BimodalCSRPool``, pooling.py:14):
+    max / mean / min / sum of the valid elements of each segment."""
+
+    def __init__(self, reduce: str = "max"):
+        super().__init__()
+        self.reduce = reduce
+
+    def forward(self, x, segment_ids, valid, num_segments: int, ptr=None):
+        return seg.segment_reduce(x, segment_ids, num_segments, self.reduce,
+                                  valid, ptr)
 
 
 class Gating(nn.Module):

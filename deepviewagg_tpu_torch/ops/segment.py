@@ -225,6 +225,11 @@ def segment_edge_cases(tile_rows: int, channels: int, seed: int = 0):
                 torch.from_numpy(valid) if with_valid else None)
 
     short = lambda n: rng.integers(0, 7, n).tolist()        # noqa: E731
+    # live segments (one longer than a tile) with runs of up to 8 empty ones
+    # between them, then a masked drop segment
+    spread = sum(([n + 1] + [0] * k for n, k in zip(
+        [5] + short(30) + [t + 2] + short(30),
+        rng.integers(0, 9, 62).tolist())), []) + [t // 2]
     return [
         # one segment over several tiles, short ones around it
         case("long", short(9) + [3 * t + t // 2 + 5] + short(9)),
@@ -250,6 +255,14 @@ def segment_edge_cases(tile_rows: int, channels: int, seed: int = 0):
         case("one_segment_short", [5]),
         case("one_empty_segment", [0], after=3),
         case("no_rows", [0, 0]),
+        # a crop-ladder bucket without a pixel: more empty segments than a
+        # tile has rows, all owned by the first tile, then one fully masked
+        # drop segment that holds every row
+        case("all_empty_all_masked", [0] * (2 * t + 3) + [t // 4 + 1],
+             dead=(2 * t + 3,)),
+        # a crop-ladder bucket that holds some of the views: runs of empty
+        # segments between the live ones, across tile edges, dead ones too
+        case("empties_between_live", spread, dead=(0, len(spread) - 1)),
     ]
 
 

@@ -19,6 +19,7 @@ import torch
 from deepviewagg_tpu.core import cameras as jcam
 from deepviewagg_tpu.core import csr as jcsr
 from deepviewagg_tpu.core import visibility as jvis
+from deepviewagg_tpu.data import collate as jcollate
 from deepviewagg_tpu.data import geometric as jgeo
 from deepviewagg_tpu.data import mapping_factory as jmf
 from deepviewagg_tpu.data import synthetic as jsyn
@@ -39,7 +40,8 @@ from deepviewagg_tpu_torch.ops import kernel_map as tkm
 from deepviewagg_tpu_torch.ops import knn as tknn
 from deepviewagg_tpu_torch.ops import sparse_graph as tsg
 from deepviewagg_tpu_torch.ops import voxel as tvox
-from torch_port_util import _torch_threads, rel_err  # noqa: F401
+from torch_port_util import (_torch_threads, jax_ladder_batch,  # noqa: F401
+                             ladder_bucket, rel_err, to_torch_samples)
 
 
 def assert_trees_identical(a, b, path=""):
@@ -144,6 +146,82 @@ def test_collate_identical_on_the_same_samples():
                            _to_torch_mapping(m).pad(
                                m.view_capacity + 5, m.pixel_capacity + 7)
                            .to_device())
+
+
+def _drop_meta(batch):
+    return {k: v for k, v in batch.items() if k != "meta"}
+
+
+def test_ladder_collate_identical_on_the_same_samples():
+    """The ``Bucket.image_ladder`` branch, bbox-fitted crops: views spread
+    over three buckets, one bucket without an image slot, mappings at levels
+    0 and 1 over one shared list of bucket images."""
+    ref, bucket, samples = jax_ladder_batch()
+    tbucket = tcollate.Bucket(**dataclasses.asdict(bucket))
+    got = tcollate.collate(to_torch_samples(samples), tbucket,
+                           branch_levels=[0, 1])
+    assert_trees_identical(ref, _drop_meta(got))
+    assert "images" not in got and len(got["bucket_images"]) == 4
+    assert got["bucket_images"][0].shape == (0, 8, 4, 3)
+    for lvl in (0, 1):
+        mm = got["mappings"][lvl]
+        assert sorted(mm) == ["buckets", "view"]
+        assert [int(b["pix_valid"].sum()) > 0 for b in mm["buckets"]] \
+            == [False, True, True, True]
+        vc = len(mm["view"]["view_valid"])
+        for b in mm["buckets"]:
+            assert "images" not in b and "size" not in b
+            assert b["pix_ptr"].dtype == np.int32 and len(b["pix_ptr"]) == vc + 2
+            assert b["pix_ptr"][-1] == len(b["pix_view"])
+    # what the model and the segment kernel's wrapper take: int32 ptr and
+    # ids, bool masks, float32 images, nesting kept
+    moved = tcollate.batch_to_torch(got, device="cpu")
+    b3 = moved["mappings"][1]["buckets"][3]
+    assert b3["pix_ptr"].dtype == torch.int32 and b3["pix_valid"].dtype == torch.bool
+    assert moved["mappings"][0]["view"]["point_ptr"].dtype == torch.int32
+    assert isinstance(moved["bucket_images"], list)
+    assert moved["bucket_images"][3].dtype == torch.float32
+    assert moved["meta"] is got["meta"]
+
+
+def test_ladder_collate_routes_camera_families_identically():
+    """``Sample.image_family`` set: every image goes to its family's bucket
+    at origin 0, whatever its pixels' bounding box."""
+    _, _, samples = jax_ladder_batch()
+    fams = [np.array([3, 0]), np.array([2, 3])]
+    jsamples = [dataclasses.replace(s, image_family=f)
+                for s, f in zip(samples, fams)]
+    tsamples = [dataclasses.replace(s, image_family=f)
+                for s, f in zip(to_torch_samples(samples), fams)]
+    jbucket = ladder_bucket(jsamples, jcollate.Bucket, jvox, families=True)
+    tbucket = tcollate.Bucket(**dataclasses.asdict(jbucket))
+    ref = jcollate.collate(jsamples, jbucket, branch_levels=[0])
+    got = tcollate.collate(tsamples, tbucket, branch_levels=[0])
+    assert_trees_identical(_drop_meta(ref), _drop_meta(got))
+    buckets = got["mappings"][0]["buckets"]
+    assert [int(b["pix_image"].max()) for b in buckets] == [0, 0, 0, 1]
+    assert [int(b["pix_valid"].sum()) > 0 for b in buckets] \
+        == [True, False, True, True]
+    # the crop is the canvas corner: the first image of the (8, 4) family
+    np.testing.assert_array_equal(got["bucket_images"][0][0],
+                                  samples[0].images[1][:8, :4])
+
+
+@pytest.mark.parametrize("which", ["images", "pixels"])
+def test_ladder_collate_overflow_raises_as_in_jax(which):
+    _, bucket, samples = jax_ladder_batch()
+    caps = dict(ladder_image_caps=[0, 1, 2, 1]) if which == "images" else dict(
+        ladder_pix_caps=[64, 64, 5120, 5120])
+    match = ("crop bucket 3 overflows image cap" if which == "images"
+             else "crop bucket 1 overflows caps")
+    jbucket = dataclasses.replace(bucket, **caps)
+    with pytest.raises(ValueError, match=match) as jerr:
+        jcollate.collate(list(samples), jbucket, branch_levels=[0])
+    with pytest.raises(ValueError, match=match) as terr:
+        tcollate.collate(to_torch_samples(samples),
+                         tcollate.Bucket(**dataclasses.asdict(jbucket)),
+                         branch_levels=[0])
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_synthetic_scene_and_render_identical():

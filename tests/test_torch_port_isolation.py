@@ -43,6 +43,51 @@ def test_training_modules_are_covered():
     assert (PKG / "csrc" / "segment_csr_bwd.cu").exists()
 
 
+@pytest.mark.parametrize("rel", ["data/crop_groups.py",
+                                 "modules/multibucket.py"])
+def test_crop_ladder_modules_are_covered(rel):
+    """The crop-ladder files exist, are among the files the import check
+    walks, and import neither package's counterpart."""
+    path = PKG / rel
+    assert path in sorted(PKG.rglob("*.py"))
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & set(FORBIDDEN)
+    assert roots <= {"__future__", "typing", "numpy", "torch"}
+
+
+def test_ladder_path_leaves_the_kernel_wrappers_alone(monkeypatch):
+    """On CPU tensors a ladder forward and backward take the plain versions
+    and launch nothing; the wrappers' dtype checks hold for what
+    ``batch_to_torch`` ships (int32 ``ptr``, bool ``valid``)."""
+    import torch
+
+    from deepviewagg_tpu_torch.data.collate import batch_to_torch
+    from deepviewagg_tpu_torch.data.toy import flagship_spec, recipe_batch
+    from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg
+    from deepviewagg_tpu_torch.ops import segment as seg
+
+    torch.set_num_threads(2)
+    np_batch, bucket, _ = recipe_batch(
+        n_samples=1, density=20.0, image_size=(64, 32), n_cameras=1,
+        voxel_size=0.15, min_size=16, device="cpu")
+    assert [tuple(s) for s in bucket.image_ladder] == [(32, 16), (64, 32)]
+    batch = batch_to_torch(np_batch, device="cpu")
+    model = MultimodalSeg(flagship_spec(backbone="Res16UNetTest",
+                                        tower="resnet18_l1", num_groups=2),
+                          device="cpu", seed=0).train()
+    kinds = []
+    plain = seg.segment_csr_plain
+    monkeypatch.setattr(seg, "segment_csr_plain", lambda x, p, v, r: kinds.append(
+        (r, p.dtype, None if v is None else v.dtype)) or plain(x, p, v, r))
+    before = dict(seg.LAUNCHES)
+    model(batch)["logits"].sum().backward()
+    assert seg.LAUNCHES == before
+    # an atomic pool per bucket, then the view pool's five reductions
+    assert len(kinds) == 2 + 5
+    assert all(p == torch.int32 and v in (None, torch.bool)
+               for _, p, v in kinds)
+
+
 def test_cpu_tensors_take_the_plain_backward_and_never_launch(monkeypatch):
     import torch
 
@@ -95,7 +140,8 @@ def test_entry_points_default_to_the_card():
     from deepviewagg_tpu_torch.data import collate, geometric, mapping_factory, toy
     from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg
 
-    for fn in (toy.toy_batch, toy.toy_samples, mapping_factory.build_mappings,
+    for fn in (toy.toy_batch, toy.toy_samples, toy.recipe_batch,
+               mapping_factory.build_mappings,
                geometric.pca_features, collate.batch_to_torch,
                MultimodalSeg.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -179,6 +179,13 @@ def test_edge_cases_cover_the_tile_edges():
         assert len(cases["one_segment"][1]) == 2
         assert cases["long_unmasked"][2] is None
         assert cases["no_rows"][0].shape[0] == 0
+        x, p, v = cases["all_empty_all_masked"]
+        assert (np.diff(p) == 0).sum() > 2 * tile and p[-2] == 0
+        assert p[-1] == x.shape[0] and not v.any()
+        _, p, v = cases["empties_between_live"]
+        n = np.diff(p)
+        assert (n == 0).sum() > 100 and (n > 0).sum() > 60 and n.max() > tile
+        assert not v[p[-2]:].any() and not v[:p[1]].any() and v.any()
 
 
 @pytest.mark.parametrize("tile", [32, 96, 1024])

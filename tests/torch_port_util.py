@@ -182,3 +182,94 @@ def rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+# --- crop-ladder batches ----------------------------------------------------
+
+LADDER = [(8, 4), (16, 8), (32, 16), (64, 32)]
+
+
+def window_image(sample, image: int, x0: int, y0: int, x1: int, y1: int):
+    """``sample`` with the mapped pixels of its image ``image`` masked out
+    where they lie outside the window ``[x0, x1] x [y0, y1]``, so that the
+    image's crop falls into a smaller size of the ladder.  Views left without
+    a pixel stay in the view table."""
+    import dataclasses
+
+    m = sample.mapping
+    img = m.image_id[np.minimum(m.pix_view, m.view_capacity - 1)]
+    inside = ((m.pix_x >= x0) & (m.pix_x <= x1)
+              & (m.pix_y >= y0) & (m.pix_y <= y1))
+    keep = m.pix_valid & ((img != image) | inside)
+    return dataclasses.replace(
+        sample, mapping=dataclasses.replace(m, pix_valid=keep))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_ladder_samples():
+    """Two JAX-package samples of two 64 x 32 images each; the first image
+    of either sample is windowed so that its crop falls into the (32, 16) and
+    the (16, 8) size of ``LADDER``; nothing falls into (8, 4)."""
+    from deepviewagg_tpu.data.toy import toy_samples
+
+    a, b = toy_samples(2, 30.0, (64, 32), 2, 0.15, 0)
+    return (window_image(a, 0, 10, 5, 33, 16),
+            window_image(b, 0, 40, 20, 51, 26))
+
+
+def ladder_bucket(samples, bucket_cls, voxel_mod, families: bool = False):
+    """A crop-ladder ``Bucket`` (of either package) sized from the samples;
+    the (8, 4) size gets no image slot unless ``families`` routes images
+    there."""
+    views = sum(s.mapping.num_views for s in samples)
+    pix = sum(s.mapping.num_pixels for s in samples)
+    coords = np.concatenate([
+        np.concatenate([np.full((len(s.coords), 1), b, np.int32), s.coords], 1)
+        for b, s in enumerate(samples)])
+    counts, cur, stride = [len(coords)], coords, 1
+    for _ in range(4):
+        cur, _ = voxel_mod.downsample_coords(cur, stride * 2)
+        stride *= 2
+        counts.append(len(cur))
+
+    def cap(x, m=64):
+        return int(-(-int(x * 1.2) // m) * m)
+
+    return bucket_cls(
+        level_caps=[cap(c) for c in counts], num_batches=len(samples),
+        view_cap=cap(views), pix_cap=cap(pix), image_ladder=LADDER,
+        ladder_image_caps=[2, 2, 2, 2] if families else [0, 1, 2, 2],
+        ladder_pix_caps=[cap(pix) if families else 64, cap(pix), cap(pix),
+                         cap(pix)])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_ladder_batch():
+    """The JAX package's collated crop-ladder batch of
+    :func:`jax_ladder_samples` with mappings at levels 0 and 1: ``(numpy
+    batch without meta, bucket, samples)``.  Its views spread over three
+    buckets and one bucket holds no image."""
+    from deepviewagg_tpu.data.collate import Bucket, collate
+    from deepviewagg_tpu.ops import voxel
+
+    samples = list(jax_ladder_samples())
+    bucket = ladder_bucket(samples, Bucket, voxel)
+    batch = collate(samples, bucket, branch_levels=[0, 1])
+    return ({k: v for k, v in batch.items() if k != "meta"}, bucket, samples)
+
+
+def to_torch_samples(samples, **replace):
+    """The port's ``Sample``s (and mappings) of JAX-package samples."""
+    import dataclasses
+
+    from deepviewagg_tpu_torch.data.collate import Sample
+    from deepviewagg_tpu_torch.data.mapping import MultiViewMapping
+
+    return [
+        Sample(**{**{f.name: getattr(s, f.name)
+                     for f in dataclasses.fields(s) if f.name != "mapping"},
+                  **replace},
+               mapping=MultiViewMapping(**{
+                   f.name: getattr(s.mapping, f.name)
+                   for f in dataclasses.fields(s.mapping)}))
+        for s in samples]
