@@ -76,6 +76,33 @@ exit) on any fault:
               8e  card vs CPU on the check request as a ladder batch (ladder
                   (64, 32), (128, 64)): logits and one train step to the
                   bounds of phases 4 and 7
+  9. loop     the experiment loop, through ``deepviewagg_tpu_torch.cli.
+              train.main`` in this process (data and run dirs under a
+              temporary directory, deleted afterwards); every train step
+              closed by a synchronisation and checked (finite loss, 6 + 5
+              segment launches), the consumer's wait on the train loader
+              timed:
+              9a  ``conf/synthetic.yaml`` (the Quick start: Res16UNet14-L1
+                  group-4 branch, 128 x 64 images, batch 2) for two epochs
+                  with an eval each: ``metrics.jsonl`` holds two records
+                  with ``val_miou``, ``latest`` and ``best_val_miou`` exist,
+                  every parameter is on the card and moved, both kernels
+                  launched; then ``training.resume=true`` for one epoch:
+                  the restored model and optimizer equal the saved ones bit
+                  for bit before the first resumed step, and the step count
+                  continues from the saved one
+              9b  ``conf/s3dis_benchmark.yaml`` with ``data.dataset=
+                  synthetic`` (``RECIPE_LOOP``): the recipe's model at its
+                  published widths (deep-stem 512-d L4 tower, group-4 pool,
+                  concat before the stem, trained from scratch), batch 4,
+                  4 image slots of 1024 x 512, 2 m spheres at 5 cm, two
+                  epochs of 48 spheres with an eval each; prints cache
+                  build ms, bucket probe ms and capacities, step ms, loader
+                  wait ms and valid voxels per batch, eval-epoch ms, peak
+                  memory and launches per step; then every sorted-segment
+                  forward and backward call of the first train batch
+                  (the atomic pool and the view pool at 512 channels) held
+                  against its plain version and timed as in phases 2 / 2b
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -85,7 +112,9 @@ The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line ``{"kernels": [...]}`` before it holds each kernel's launches, error
 and times (``ms``: device time of the kernel alone, summed over the calls of
 one forward or one train step; ``call_ms``: the same calls through the
-wrapper; ``recipe``: the same for the recipe request).  Needs a CUDA card,
+wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
+same for phase 9b's first train batch; ``launches_loop_*``: the counts over
+phase 9's runs).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
 
@@ -94,8 +123,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -154,6 +185,17 @@ RECIPE_SHORT_STEPS = 5             # remat False and True, two of them warm-up
 # view pool's five reductions (four of them differentiated)
 VIEW_POOL_FORWARD, VIEW_POOL_BACKWARD = 5, 4
 REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
+# phase 9: the experiment loop through ``deepviewagg_tpu_torch.cli.train``;
+# the S3DIS recipe (conf/s3dis_benchmark.yaml) on synthetic rooms, cut to
+# two epochs of 48 spheres (12 batches) with an eval every epoch (the
+# recipe: 200 x 2000, eval every 5); rooms of 6 x 4 x 2.6 m at 600 points
+# per m^2, six 1024 x 512 panoramas each, so that a 2 m sphere at 5 cm holds
+# about as many voxels as the cache's 6 cm grid gives
+CONF = Path(__file__).resolve().parent / "conf"
+QUICK_EPOCHS = 2
+RECIPE_LOOP = ("data.dataset=synthetic", "data.samples_per_epoch=48",
+               "training.epochs=2", "training.eval_frequency=1",
+               "data.kwargs={n_areas: 2, density: 600.0, n_cameras: 6}")
 
 
 def log(phase: str, **fields) -> None:
@@ -1058,6 +1100,325 @@ def phase_recipe(model, trace: bool) -> dict:
             "train_launches": train_launches}
 
 
+class LoopProbe:
+    """The seams of one ``cli.train.main`` run, patched for that run only:
+    every train step (closed by a synchronisation: ms, loss, launches of
+    each kernel), the consumer's wait in ``next()`` on the train loader and
+    the batch's valid voxels, every eval epoch (ms), the cache build and the
+    bucket probe (ms), the ``Trainer`` (its model's parameters as built)
+    and the first train step's batch on the card (``batch``).
+    ``on_fit(trainer)`` runs just before ``Trainer.fit``."""
+
+    def __init__(self, on_fit=None):
+        self.on_fit = on_fit
+        self.losses, self.step_ms, self.step_launches = [], [], []
+        self.wait_ms, self.train_images, self.eval_batches = [], [], 0
+        self.train_voxels = []
+        self.eval_ms, self.cache_ms, self.probe_ms = [], [], []
+        self.bucket = self.trainer = self.start = self.batch = None
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        original = getattr(owner, name)
+        self._undo.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.cli import train as cli
+        from deepviewagg_tpu_torch.data.datasets import base, synthetic_ds
+        from deepviewagg_tpu_torch.train import trainer
+
+        probe = self
+
+        def timed(into):
+            def make(fn):
+                def run(*args, **kwargs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    into.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return run
+            return make
+
+        def make_train_step(original):
+            def build(*args, **kwargs):
+                step = original(*args, **kwargs)
+
+                def run(state, batch, generator):
+                    if probe.batch is None:
+                        probe.batch = batch
+                    before = dict(seg.LAUNCHES)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch, generator)
+                    torch.cuda.synchronize()
+                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    loss = float(metrics["loss"])
+                    if not np.isfinite(loss):
+                        raise AssertionError(
+                            f"step {len(probe.losses)}: loss {loss}")
+                    probe.losses.append(loss)
+                    probe.step_launches.append(
+                        {k: seg.LAUNCHES[k] - before[k] for k in before})
+                    return state, metrics
+                return run
+            return build
+
+        def init(original):
+            def run(trainer_self, *args, **kwargs):
+                original(trainer_self, *args, **kwargs)
+                probe.trainer = trainer_self
+                probe.start = {k: p.detach().clone() for k, p in
+                               trainer_self.model.named_parameters()}
+            return run
+
+        def fit(original):
+            def run(trainer_self, *args, **kwargs):
+                if probe.on_fit is not None:
+                    probe.on_fit(trainer_self)
+                return original(trainer_self, *args, **kwargs)
+            return run
+
+        def loader_iter(original):
+            def run(loader):
+                it = original(loader)
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        if loader.dataset.train:
+                            probe.wait_ms.append(
+                                (time.perf_counter() - t0) * 1e3)
+                            probe.train_images.append(
+                                tuple(batch["images"].shape))
+                            probe.train_voxels.append(valid_voxels(batch))
+                        else:
+                            probe.eval_batches += 1
+                        yield batch
+                finally:
+                    it.close()
+            return run
+
+        def auto_bucket(original):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                probe.bucket = original(*args, **kwargs)
+                probe.probe_ms.append((time.perf_counter() - t0) * 1e3)
+                return probe.bucket
+            return run
+
+        self._patch(trainer, "make_train_step", make_train_step)
+        self._patch(trainer.Trainer, "__init__", init)
+        self._patch(trainer.Trainer, "fit", fit)
+        self._patch(trainer.Trainer, "eval_epoch", timed(self.eval_ms))
+        self._patch(base.BatchLoader, "__iter__", loader_iter)
+        self._patch(synthetic_ds, "build_synthetic_cache",
+                    timed(self.cache_ms))
+        self._patch(cli, "auto_bucket", auto_bucket)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._undo):
+            setattr(owner, name, original)
+        return False
+
+    def check_steps(self, phase: str) -> None:
+        """Every step finite (checked as it ran) and through the flagship's
+        kernel launches; every parameter on the card."""
+        expect = {"segment_csr": FORWARD_LAUNCHES,
+                  "segment_csr_bwd": BACKWARD_LAUNCHES}
+        bad = [d for d in self.step_launches if d != expect]
+        if not self.losses or bad:
+            raise AssertionError(f"{phase}: {len(self.losses)} steps, "
+                                 f"launches {bad[:2]} (expected {expect})")
+        off = [k for k, p in self.trainer.model.named_parameters()
+               if p.device.type != "cuda"]
+        if off:
+            raise AssertionError(f"{phase}: parameters off the card {off[:5]}")
+
+    def summary(self) -> dict:
+        waits = self.wait_ms
+        return {
+            "steps": len(self.losses),
+            "first_step_ms": f"{self.step_ms[0]:.1f}",
+            "mean_step_ms": f"{np.mean(self.step_ms[1:]):.1f}"
+            if len(self.step_ms) > 1 else "n/a",
+            "loader_wait_ms_first": f"{waits[0]:.1f}",
+            "loader_wait_ms_mean_rest": f"{np.mean(waits[1:]):.1f}"
+            if len(waits) > 1 else "n/a",
+            "voxels_per_batch": f"{min(self.train_voxels)}-"
+                                f"{max(self.train_voxels)} (mean "
+                                f"{np.mean(self.train_voxels):.0f})",
+            "eval_epoch_ms": "/".join(f"{t:.1f}" for t in self.eval_ms),
+            "eval_batches": self.eval_batches,
+            "first_loss": f"{self.losses[0]:.6f}",
+            "last_loss": f"{self.losses[-1]:.6f}",
+        }
+
+
+def read_records(run_dir: Path) -> list:
+    return [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def state_matches(trainer, saved: dict) -> list:
+    """Names of the model and optimizer tensors of ``trainer`` that differ
+    from a saved checkpoint payload, bit for bit."""
+    bad = [k for k, v in trainer.model.state_dict().items()
+           if not torch.equal(v.cpu(), saved["model"][k])]
+    tx = trainer.state.tx.state_dict()
+    for i, (group, want) in enumerate(zip(tx["groups"],
+                                          saved["optimizer"]["groups"])):
+        for key in set(group) | set(want):
+            if len(group.get(key, [])) != len(want.get(key, [])) or not all(
+                    torch.equal(a.cpu(), b) for a, b in zip(group[key],
+                                                            want[key])):
+                bad.append(f"optimizer/{i}/{key}")
+    for key in ("count", "mini_step"):
+        if tx[key] != saved["optimizer"][key]:
+            bad.append(f"optimizer/{key}")
+    if trainer.state.step != saved["step"]:
+        bad.append("step")
+    return bad
+
+
+def loop_quick(cli, tmp: Path) -> dict:
+    """9a: ``conf/synthetic.yaml`` (the Quick start) for two epochs with an
+    eval each, then one resumed epoch."""
+    run_dir = tmp / "quick_run"
+    args = ["--config", str(CONF / "synthetic.yaml"),
+            f"data.root={tmp / 'quick_data'}", f"training.run_dir={run_dir}",
+            "training.eval_frequency=1", "training.tensorboard=false"]
+    zero_launches()
+    with LoopProbe() as probe:
+        cli.main(args + [f"training.epochs={QUICK_EPOCHS}"])
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9a quick start")
+    records = read_records(run_dir)
+    if len(records) != QUICK_EPOCHS or not all("val_miou" in r
+                                                for r in records):
+        raise AssertionError(f"metrics.jsonl: {records}")
+    for name in ("latest.pt", "best_val_miou.pt", "run.json", "best.json"):
+        if not (run_dir / name).exists():
+            raise AssertionError(f"{name} missing from the run dir")
+    still = [k for k, p in probe.trainer.model.named_parameters()
+             if torch.equal(p.detach(), probe.start[k])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still[:5]}")
+    if not (launches["segment_csr"] > 0 and launches["segment_csr_bwd"] > 0):
+        raise AssertionError(f"kernel launches did not rise: {launches}")
+    log("9a quick start", model=probe.trainer.model.spec.backbone,
+        params=sum(p.numel() for p in probe.trainer.model.parameters()),
+        images=probe.train_images[0], **probe.summary(),
+        val_miou="/".join(f"{r['val_miou']:.2f}" for r in records),
+        launches=launches)
+
+    saved = torch.load(run_dir / "latest.pt", map_location="cpu",
+                       weights_only=True)
+    restored = []
+
+    def check_restored(trainer):
+        restored.append(state_matches(trainer, saved))
+
+    zero_launches()
+    with LoopProbe(on_fit=check_restored) as resumed:
+        cli.main(args + ["training.epochs=1", "training.resume=true"])
+    resumed.check_steps("9a resume")
+    if restored != [[]]:
+        raise AssertionError(f"restored state differs from the saved one: "
+                             f"{restored}")
+    after = torch.load(run_dir / "latest.pt", map_location="cpu",
+                       weights_only=True)["step"]
+    if after != saved["step"] + len(resumed.losses):
+        raise AssertionError(f"step {after} after resuming at "
+                             f"{saved['step']} for {len(resumed.losses)} "
+                             "steps")
+    log("9a resume", restored_bit_equal=True, saved_step=saved["step"],
+        steps=len(resumed.losses), step_after=after,
+        launches=dict(seg.LAUNCHES))
+    return launches
+
+
+def loop_recipe(cli, tmp: Path) -> dict:
+    """9b: ``conf/s3dis_benchmark.yaml`` on synthetic rooms: the recipe's
+    model at its published widths, its batch, image slots and 2D size; then
+    every sorted-segment call of the first train step's batch (forward in
+    eval mode, backward in training mode, through the trained model) held
+    against its plain version and timed as in phases 2 / 2b."""
+    run_dir = tmp / "recipe_run"
+    args = ["--config", str(CONF / "s3dis_benchmark.yaml"), *RECIPE_LOOP,
+            f"data.root={tmp / 'recipe_data'}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9b recipe loop")
+    spec = probe.trainer.model.spec
+    (_, branch), = spec.branches
+    if not (spec.backbone == "Res16UNet34" and branch.tower == "resnet18_l4"
+            and branch.tower_deep_stem and branch.out_channels == 512
+            and branch.num_groups == 4 and branch.fusion_mode == "concat"):
+        raise AssertionError(f"not the recipe's model: {spec}")
+    if any(shape[1:3] != RECIPE_IMAGE_SIZE for shape in probe.train_images):
+        raise AssertionError(f"image batches {probe.train_images}")
+    records = read_records(run_dir)
+    if len(records) != 2 or not all("val_miou" in r for r in records):
+        raise AssertionError(f"metrics.jsonl: {records}")
+    b = probe.bucket
+    log("9b recipe loop", model=probe.trainer.run_config["model"]["name"],
+        params=sum(p.numel() for p in probe.trainer.model.parameters()),
+        images=probe.train_images[0],
+        cache_build_ms="/".join(f"{t:.0f}" for t in probe.cache_ms),
+        probe_ms=f"{probe.probe_ms[0]:.0f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches,
+        val_miou="/".join(f"{r['val_miou']:.2f}" for r in records))
+
+    model, batch = probe.trainer.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one forward")
+    fwd = measure_forward_calls(calls, "9b recipe loop kernels",
+                                "calls_per_forward")
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != BACKWARD_LAUNCHES:
+        raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
+                             "step")
+    bwd = measure_backward_calls(bwd_calls, "9b recipe loop kernels")
+    del bwd_calls, model, batch
+    return {"launches": launches, "forward": fwd, "backward": bwd}
+
+
+def phase_loop() -> dict:
+    """Phase 9: the experiment loop on the card, through the entry point a
+    user calls (``cli.train.main``), in this process; data and run dirs
+    under a temporary directory that is deleted afterwards."""
+    from deepviewagg_tpu_torch.cli import train as cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    try:
+        quick = loop_quick(cli, tmp)
+        torch.cuda.empty_cache()
+        recipe = loop_recipe(cli, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"quick": quick, "recipe": recipe}
+
+
 def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the trace summary."""
     low = name.lower()
@@ -1170,20 +1531,26 @@ def main() -> None:
     recipe = phase_recipe(model, trace)
     if trace:
         trace_forward_and_train(model, train_model, requests[0][0])
+    del train_model
+    torch.cuda.empty_cache()
+    loop = phase_loop()
 
-    def entry(name, source, replaces, totals, recipe_totals, **counts):
+    def entry(name, source, replaces, totals, recipe_totals, loop_totals,
+              **counts):
+        keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+                "max_abs_err")
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts,
             "max_abs_err": max(totals["max_abs_err"],
-                               recipe_totals["max_abs_err"]),
+                               recipe_totals["max_abs_err"],
+                               loop_totals["max_abs_err"]),
             "ms": totals["ms"], "call_ms": totals["call_ms"],
             "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "bytes",
             "library_ms": totals["library_ms"], "checked": True,
-            "recipe": {k: recipe_totals[k] for k in (
-                "ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
-                "max_abs_err")},
+            "recipe": {k: recipe_totals[k] for k in keys},
+            "loop_recipe": {k: loop_totals[k] for k in keys},
         }
 
     # ``launches``: the kernel's count over the path that drives it first
@@ -1191,19 +1558,30 @@ def main() -> None:
     # over the calls of one forward / one train step: ``ms`` on the device,
     # ``call_ms`` through the wrapper; ``recipe``: the same sums over the
     # calls of one recipe forward / train step, ``launches_recipe_*``: the
-    # counts over the recipe's serving and training runs
+    # counts over the recipe's serving and training runs;
+    # ``loop_recipe``: the same sums over the calls of one forward / train
+    # step of phase 9b's first batch, ``launches_loop_*``: the counts over
+    # the first run of phase 9a (two epochs with evals) and over phase 9b
+    loop_recipe = loop["recipe"]
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
-              recipe["forward"], launches=launches["segment_csr"],
+              recipe["forward"], loop_recipe["forward"],
+              launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
-              launches_recipe_training=recipe["train_launches"]["segment_csr"]),
+              launches_recipe_training=recipe["train_launches"]["segment_csr"],
+              launches_loop_quick=loop["quick"]["segment_csr"],
+              launches_loop_recipe=loop_recipe["launches"]["segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
-              recipe["backward"], launches=train_launches["segment_csr_bwd"],
+              recipe["backward"], loop_recipe["backward"],
+              launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
+                  "segment_csr_bwd"],
+              launches_loop_quick=loop["quick"]["segment_csr_bwd"],
+              launches_loop_recipe=loop_recipe["launches"][
                   "segment_csr_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

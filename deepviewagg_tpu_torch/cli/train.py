@@ -1,0 +1,235 @@
+"""Train a model: ``python -m deepviewagg_tpu_torch.cli.train --config
+conf/x.yaml [--device cpu] [k=v ...]``.
+
+The port of the root ``train.py`` (the reference's ``train.py``: Hydra @main
+-> Trainer(cfg).train()), on one card unless ``--device cpu`` is given:
+
+    python -m deepviewagg_tpu_torch.cli.train --config conf/synthetic.yaml \\
+        training.epochs=5 model.name=Res16UNet34-L4-early
+
+Config groups (``deepviewagg_tpu_torch/config/run.py``): model / data /
+training.  ``training.resume=true`` restores the run dir's ``latest``
+checkpoint before training.  Only the synthetic dataset is ported
+(``data.dataset`` s3dis / scannet / kitti360 raise: ROADMAP A.2.4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config.run import load_run_config
+from ..config.zoo import resolve_spec_from_cfg
+from ..data.collate import Bucket
+from ..data.datasets.base import BatchLoader
+from ..models.segmentation import build_model
+from ..ops import voxel as _voxel
+from ..train.trainer import Trainer, TrainerConfig
+
+__all__ = ["build_dataset", "auto_bucket", "main"]
+
+
+def build_dataset(cfg, train: bool, device="cuda"):
+    """The train or eval dataset of a run config; the cache is preprocessed
+    on ``device``."""
+    # the reference evaluates under its own pixel budget
+    # (test_pixel_credit -> data.eval_image_slots)
+    if not train and cfg.data.eval_image_slots:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, image_slots=cfg.data.eval_image_slots))
+    if cfg.data.dataset == "synthetic":
+        from ..data.datasets.synthetic_ds import make_synthetic_dataset
+
+        return make_synthetic_dataset(
+            cfg.data.root, train=train, radius=cfg.data.radius,
+            voxel_size=cfg.data.voxel_size, image_slots=cfg.data.image_slots,
+            samples_per_epoch=cfg.data.samples_per_epoch,
+            image_size=tuple(cfg.data.image_size), device=device,
+            **cfg.data.kwargs,
+        )
+    if cfg.data.dataset in ("s3dis", "scannet", "kitti360"):
+        raise NotImplementedError(
+            f"data.dataset={cfg.data.dataset!r}: the loader is not ported yet "
+            "(ROADMAP A.2.4); data.dataset=synthetic is")
+    raise KeyError(cfg.data.dataset)
+
+
+def auto_bucket(cfg, dataset, branch_levels, probe: int = 8):
+    """Measure capacities from a few samples when not pinned in config."""
+    if cfg.data.level_caps:
+        return Bucket(
+            level_caps=list(cfg.data.level_caps),
+            num_batches=cfg.data.batch_size,
+            view_cap=cfg.data.view_cap, pix_cap=cfg.data.pix_cap,
+            image_cap=cfg.data.image_cap,
+            image_size=tuple(cfg.data.image_size),
+        )
+    views, pix = [], []
+    bucket_pix = None      # per-ladder-bucket pixel/image maxima
+    bucket_imgs = None
+    ladder = None
+    if cfg.data.crop_ladder_min > 0:
+        from ..data.crop_groups import crop_ladder
+
+        ladder = crop_ladder(tuple(cfg.data.image_size),
+                             min_size=cfg.data.crop_ladder_min)
+        bucket_pix = [0] * len(ladder)
+        bucket_imgs = [0] * len(ladder)
+    counts_levels = None
+    rng = np.random.default_rng(0)
+    for _ in range(probe):
+        s = dataset[int(rng.integers(len(dataset)))]
+        if s is None:
+            continue
+        if s.mapping is not None:
+            views.append(s.mapping.num_views)
+            pix.append(s.mapping.num_pixels)
+            if ladder is not None and s.images is not None:
+                from ..data.crop_groups import (assign_crop_groups,
+                                                split_mapping_by_bucket)
+
+                ass = assign_crop_groups(
+                    {"mapping": s.mapping, "images": s.images}, ladder
+                )
+                mmp = split_mapping_by_bucket(ass, ladder,
+                                              include_images=False)
+                for bi, bk in enumerate(mmp["buckets"]):
+                    bucket_pix[bi] = max(bucket_pix[bi], len(bk["pix_view"]))
+                    bucket_imgs[bi] = max(
+                        bucket_imgs[bi],
+                        int((ass["image_bucket"] == bi).sum()),
+                    )
+        coords = np.concatenate(
+            [np.zeros((len(s.coords), 1), np.int32), s.coords], axis=1
+        )
+        cur, stride, counts = coords, 1, [len(coords)]
+        for _ in range(4):
+            cur, _ = _voxel.downsample_coords(cur, stride * 2)
+            stride *= 2
+            counts.append(len(cur))
+        counts = np.array(counts)
+        counts_levels = counts if counts_levels is None else np.maximum(
+            counts_levels, counts
+        )
+    b = cfg.data.batch_size
+    margin = 1.3
+
+    def cap(x, m=256):
+        return int(-(-int(x * margin) // m) * m)
+
+    ladder_icaps = None
+    ladder_qcaps = None
+    if ladder is not None and views:
+        # measured per-bucket maxima from the probe; per-bucket distribution
+        # varies a lot between samples, so use a generous margin (the
+        # BatchLoader only enforces the GLOBAL pixel cap when grouping)
+        ladder_icaps = [
+            max(1, min(int(m * b) + 2, b * cfg.data.image_slots))
+            for m in bucket_imgs
+        ]
+        ladder_qcaps = [max(cap(m * b * 2.5), 512) for m in bucket_pix]
+
+    return Bucket(
+        level_caps=[cap(c * b) for c in counts_levels],
+        num_batches=b,
+        view_cap=cap(max(views) * b) if views else 0,
+        pix_cap=cap(max(pix) * b) if pix else 0,
+        image_cap=b * cfg.data.image_slots,
+        image_size=tuple(cfg.data.image_size),
+        image_ladder=ladder,
+        ladder_image_caps=ladder_icaps,
+        ladder_pix_caps=ladder_qcaps,
+    )
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m deepviewagg_tpu_torch.cli.train")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                             "versions of the kernels)")
+    parser.add_argument("overrides", nargs="*")
+    # options may stand between or after the overrides
+    args = parser.parse_intermixed_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to run "
+                           "on the CPU")
+
+    cfg = load_run_config(args.config, args.overrides)
+    train_ds = build_dataset(cfg, train=True, device=device)
+    val_ds = build_dataset(cfg, train=False, device=device)
+    num_classes = getattr(train_ds, "num_classes", cfg.data.num_classes)
+
+    spec = resolve_spec_from_cfg(cfg.model, num_classes)
+    freeze_paths = None
+    if cfg.model.tower_frozen:
+        freeze_paths = tuple((name, "tower")
+                             for name, b in _branch_names(spec) if b.frozen)
+    branch_levels = sorted(dict(spec.branches))
+    bucket = auto_bucket(cfg, train_ds, branch_levels)
+    print(f"bucket: levels={list(bucket.level_caps)} views={bucket.view_cap} "
+          f"pix={bucket.pix_cap} imgs={bucket.image_cap}")
+
+    model = build_model(spec, device=device, seed=cfg.training.seed)
+    train_loader = BatchLoader(
+        train_ds, bucket, cfg.data.batch_size, branch_levels, shuffle=True,
+        seed=cfg.training.seed, conv0_kernel=spec.stem_kernel,
+    )
+    val_loader = BatchLoader(
+        val_ds, bucket, cfg.data.batch_size, branch_levels, shuffle=False,
+        conv0_kernel=spec.stem_kernel,
+    )
+    tcfg = TrainerConfig(
+        epochs=cfg.training.epochs,
+        eval_frequency=cfg.training.eval_frequency,
+        lovasz_weight=cfg.training.lovasz_weight,
+        view_loss_weight=cfg.training.view_loss_weight,
+        base_lr=cfg.training.base_lr,
+        lr_schedule=cfg.training.lr_schedule,
+        lr_milestones=tuple(cfg.training.lr_milestones),
+        lr_gamma=cfg.training.lr_gamma,
+        optimizer=cfg.training.optimizer,
+        momentum=cfg.training.momentum,
+        weight_decay=cfg.training.weight_decay,
+        grad_clip=cfg.training.grad_clip,
+        grad_accumulate=cfg.training.grad_accumulate,
+        freeze_paths=freeze_paths,
+        run_dir=cfg.training.run_dir,
+        num_batches_cap=cfg.training.num_batches_cap
+        if not cfg.training.early_break else 2,
+        data_parallel=cfg.training.data_parallel,
+        view_parallel=cfg.training.view_parallel,
+        tensorboard=cfg.training.tensorboard,
+        wandb=cfg.training.wandb,
+        wandb_project=cfg.training.wandb_project,
+    )
+    # pin the resolved stem kernel into the stored run config so restoring
+    # this checkpoint can never rebuild a different stem shape
+    cfg.model.overrides.setdefault("stem_kernel", spec.stem_kernel)
+    trainer = Trainer(model, num_classes, tcfg, seed=cfg.training.seed,
+                      run_config=cfg.to_dict())
+    if cfg.training.resume and trainer.checkpoint and trainer.checkpoint.has("latest"):
+        trainer.state = trainer.checkpoint.restore_state("latest", trainer.state)
+        print("resumed from latest checkpoint")
+    metrics = trainer.fit(lambda: iter(train_loader), lambda: iter(val_loader))
+    print("final:", {k: round(v, 3) for k, v in metrics.items()})
+    return metrics
+
+
+def _branch_names(spec):
+    """``(module name, BranchSpec)`` of every image branch, as
+    ``MultimodalSeg`` names them."""
+    k_at: dict = {}
+    for level, b in spec.branches:
+        k = k_at.get(level, 0)
+        k_at[level] = k + 1
+        yield (f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"), b
+
+
+if __name__ == "__main__":
+    main()

@@ -199,6 +199,149 @@ class MultiViewMapping:
             num_images=self.num_images,
         )
 
+    def select_points(self, indices: np.ndarray) -> "MultiViewMapping":
+        """Restrict to a point subset, renumbering points to 0..len(indices)-1
+        (the reference's ``select_points(idx, mode='pick')``, image.py:2167 —
+        used by sphere sampling / SelectMappingFromPointId).
+
+        ``indices`` must be sorted ascending (a boolean-mask subset keeps
+        order), so the view table stays point-sorted after renumbering.
+        Capacities are unchanged; dropped views/pixels become padding.
+        """
+        indices = np.asarray(indices, np.int64)
+        assert np.all(np.diff(indices) > 0), "indices must be sorted unique"
+        remap = np.full(self.num_points + 1, -1, np.int64)
+        remap[indices] = np.arange(len(indices))
+        new_pid = remap[np.minimum(self.point_id, self.num_points)]
+        view_valid = self.view_valid & (new_pid >= 0)
+        n_new = len(indices)
+        new_pid = np.where(view_valid, new_pid, n_new)
+        order = np.argsort(new_pid, kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(len(order))
+        vc = self.view_capacity
+        pix_ok = self.pix_valid & view_valid[np.minimum(self.pix_view, vc - 1)]
+        new_pix_view = np.where(pix_ok, inv[np.minimum(self.pix_view, vc - 1)], vc)
+        pix_order = np.argsort(new_pix_view, kind="stable")
+        return MultiViewMapping(
+            point_id=new_pid[order].astype(np.int32),
+            image_id=self.image_id[order],
+            view_feats=self.view_feats[order],
+            view_valid=view_valid[order],
+            pix_view=new_pix_view[pix_order].astype(np.int32),
+            pix_x=self.pix_x[pix_order],
+            pix_y=self.pix_y[pix_order],
+            pix_valid=pix_ok[pix_order],
+            num_points=n_new,
+            num_images=self.num_images,
+        )
+
+    def compact(self, view_margin: int = 0, pix_margin: int = 0) -> "MultiViewMapping":
+        """Shrink capacities to live rows (+margins) — keeps host memory and
+        downstream pad costs bounded after select_* ops."""
+        nv, nq = self.num_views, self.num_pixels
+        # pads carry point_id == num_points (sorts last) and every reindex op
+        # re-sorts, so valid rows are always the prefix
+        assert self.view_valid[:nv].all(), "valid views not contiguous"
+        assert self.pix_valid[:nq].all(), "valid pixels not contiguous"
+        m = MultiViewMapping(
+            point_id=self.point_id[:nv],
+            image_id=self.image_id[:nv],
+            view_feats=self.view_feats[:nv],
+            view_valid=self.view_valid[:nv],
+            pix_view=np.where(self.pix_valid, self.pix_view, nv)[:nq],
+            pix_x=self.pix_x[:nq],
+            pix_y=self.pix_y[:nq],
+            pix_valid=self.pix_valid[:nq],
+            num_points=self.num_points,
+            num_images=self.num_images,
+        )
+        if view_margin or pix_margin:
+            m = m.pad(nv + view_margin, nq + pix_margin)
+        return m
+
+    def select_images(self, keep: Sequence[int]) -> "MultiViewMapping":
+        """Restrict to a subset of images, renumbering them 0..len(keep)-1
+        (the reference's ``select_images``, image.py:2029).  Dropped views and
+        their pixels become padding (capacities unchanged)."""
+        keep = np.asarray(keep, np.int64)
+        remap = np.full(self.num_images, -1, np.int64)
+        remap[keep] = np.arange(len(keep))
+        new_img = remap[np.minimum(self.image_id, self.num_images - 1)]
+        view_valid = self.view_valid & (new_img >= 0)
+        vc = self.view_capacity
+        # compact: surviving views first (stable), pads after
+        order = np.argsort(~view_valid, kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(len(order))
+        pid = np.where(view_valid, self.point_id, self.num_points)[order]
+        # keep view-level sort by point id among valid
+        sub_order = np.argsort(pid, kind="stable")
+        order2 = order[sub_order]
+        inv2 = np.empty_like(order2)
+        inv2[order2] = np.arange(len(order2))
+        pix_ok = self.pix_valid & view_valid[np.minimum(self.pix_view, vc - 1)]
+        new_pix_view = np.where(pix_ok, inv2[np.minimum(self.pix_view, vc - 1)], vc)
+        pix_order = np.argsort(new_pix_view, kind="stable")
+        return MultiViewMapping(
+            point_id=np.where(view_valid, self.point_id, self.num_points)[order2],
+            image_id=np.where(new_img >= 0, new_img, 0)[order2].astype(np.int32),
+            view_feats=self.view_feats[order2],
+            view_valid=view_valid[order2],
+            pix_view=new_pix_view[pix_order].astype(np.int32),
+            pix_x=self.pix_x[pix_order],
+            pix_y=self.pix_y[pix_order],
+            pix_valid=pix_ok[pix_order],
+            num_points=self.num_points,
+            num_images=len(keep),
+        )
+
+    def drop_pixels(self, keep: np.ndarray) -> "MultiViewMapping":
+        """Invalidate the pixels where ``keep`` is False and restore the
+        invariants: views that lose every pixel become invalid (every valid
+        view owns >= 1 pixel), and both tables re-sort so valid rows are
+        sorted contiguous prefixes.  The single home of this dance — static
+        masks, visibility edits and future pixel filters all route here."""
+        vc = self.view_capacity
+        ok = self.pix_valid & np.asarray(keep, bool)
+        owned = np.zeros(vc + 1, np.int64)
+        np.add.at(owned, np.minimum(self.pix_view, vc), ok.astype(np.int64))
+        view_valid = self.view_valid & (owned[:vc] > 0)
+        pid = np.where(view_valid, self.point_id, self.num_points)
+        order = np.argsort(pid, kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(len(order))
+        pix_ok = ok & view_valid[np.minimum(self.pix_view, vc - 1)]
+        new_pv = np.where(pix_ok, inv[np.minimum(self.pix_view, vc - 1)], vc)
+        pix_order = np.argsort(new_pv, kind="stable")
+        return dataclasses.replace(
+            self,
+            point_id=pid[order].astype(np.int32),
+            image_id=self.image_id[order],
+            view_feats=self.view_feats[order],
+            view_valid=view_valid[order],
+            pix_view=new_pv[pix_order].astype(np.int32),
+            pix_x=self.pix_x[pix_order],
+            pix_y=self.pix_y[pix_order],
+            pix_valid=pix_ok[pix_order],
+        )
+
+    def drop_views(self, keep: np.ndarray) -> "MultiViewMapping":
+        """Invalidate views where ``keep`` is False (their pixels go too) —
+        the reference's ``select_views`` used by mapping-feature threshold
+        filters (image.py:877-933 PickMappingsFromMappingFeatures)."""
+        vc = self.view_capacity
+        keep = np.asarray(keep, bool)
+        pix_keep = keep[np.minimum(self.pix_view, vc - 1)]
+        return self.drop_pixels(pix_keep)
+
+    def points_seen(self) -> np.ndarray:
+        """bool [num_points]: which points have at least one valid view."""
+        seen = np.zeros(self.num_points + 1, bool)
+        seen[np.minimum(self.point_id, self.num_points)] |= self.view_valid
+        return seen[: self.num_points]
+
+
     def to_device(self) -> dict:
         """The dict the branch consumes.
 

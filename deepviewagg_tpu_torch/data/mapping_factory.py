@@ -55,14 +55,25 @@ def build_mappings(
     pos: np.ndarray,
     cams: Sequence[_cam.Camera],
     params: Optional[VisibilityParams] = None,
+    geometric: Optional[dict] = None,
+    nn_idx=None,
     device="cuda",
 ) -> MultiViewMapping:
     """Build the full mapping for one sample (unpadded capacities); the
-    geometric features, z-buffers and kNN run on ``device``."""
+    geometric features, z-buffers and kNN run on ``device``.
+
+    ``geometric`` optionally provides precomputed ``{linearity, planarity,
+    scattering, normal}`` (tensors or arrays; else computed here by
+    :func:`deepviewagg_tpu_torch.data.geometric.pca_features` with k = 50);
+    ``nn_idx`` optionally reuses a SELF-INCLUSIVE kNN index table ``[N,
+    >=knn_k]`` (column 0 = self) for the density / occlusion features, as
+    the JAX package's signature does."""
     params = params or VisibilityParams()
     pos = np.asarray(pos, np.float32)
     n = len(pos)
-    geometric = _geo.pca_features(pos, k=min(50, max(4, n - 1)), device=device)
+    if geometric is None:
+        geometric = _geo.pca_features(pos, k=min(50, max(4, n - 1)),
+                                      device=device)
 
     # pad points to a size bucket like the JAX package; pads sit beyond
     # r_max and are never valid
@@ -77,8 +88,9 @@ def build_mappings(
         out[:n] = x
         return out
 
-    geo_dev = {key: _padf(geometric[key]) for key in
-               ("linearity", "planarity", "scattering", "normal")}
+    geo_dev = {key: _padf(torch.as_tensor(geometric[key], dtype=torch.float32,
+                                          device=device))
+               for key in ("linearity", "planarity", "scattering", "normal")}
 
     per_image = [None] * len(cams)
     seen_matrix = np.zeros((n, len(cams)), bool)
@@ -116,10 +128,17 @@ def build_mappings(
     # plus a baseline 1 for the point itself, normalized by k+1
     # (image.py:586-600)
     k = min(params.knn_k, n)
-    pos_t = torch.as_tensor(pos, device=device)
-    d2, nn_idx = _knn.knn(pos_t, pos_t, k=k)
-    d2_max = d2[:, -1].cpu().numpy()
-    nn_idx = nn_idx.cpu().numpy()
+    if nn_idx is not None and nn_idx.shape[1] >= k:
+        if isinstance(nn_idx, torch.Tensor):
+            nn_idx = nn_idx.cpu().numpy()
+        nn_idx = np.asarray(nn_idx)[:, :k]
+        diffs = pos[nn_idx[:, -1]] - pos
+        d2_max = np.sum(diffs * diffs, axis=1)
+    else:
+        pos_t = torch.as_tensor(pos, device=device)
+        d2, nn_idx = _knn.knn(pos_t, pos_t, k=k)
+        d2_max = d2[:, -1].cpu().numpy()
+        nn_idx = nn_idx.cpu().numpy()
     # ref: v_sphere = 3.1416 * d2_max; non-finite densities -> 1
     # (image.py:537-543, guarded like the JAX package)
     with np.errstate(divide="ignore", invalid="ignore"):

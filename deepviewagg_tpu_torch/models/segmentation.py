@@ -31,10 +31,10 @@ from torch import nn
 from ..modules import image_encoders as towers
 from ..modules.branch import UnimodalBranch, soft_dropout
 from ..modules.multibucket import MultiBucketBranch
-from ..nn.res16unet import RES16_PRESETS, DownStage, Stem, UpStage
+from ..nn.res16unet import RES16_PRESETS, DownStage, Res16UNet, Stem, UpStage
 
-__all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "make_tower",
-           "init_parameters"]
+__all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "SparseConv3dSeg",
+           "build_model", "make_tower", "init_parameters"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,20 +97,33 @@ class ModelSpec:
         return out
 
 
+def backbone_plan(spec: ModelSpec):
+    """``(layers, planes, block)`` of a spec's Res16UNet: its own plan, else
+    the named preset's."""
+    if spec.backbone_layers is not None:
+        return spec.backbone_layers, spec.backbone_planes, spec.backbone_block
+    return RES16_PRESETS[spec.backbone]
+
+
 def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
                device=None):
     """Tower registry -> (module, out_channels) for the ported towers:
-    ``resnet18_ppm`` and the ``resnet18_l<level>`` truncations."""
-    if norm != "group" or deep_stem:
+    ``resnet18_ppm`` and the ``resnet18_l<level>`` truncations, with the
+    7x7 or the deep stem."""
+    if norm != "group":
         raise NotImplementedError(
-            "only group-norm towers with the 7x7 stem are ported yet")
+            f"tower_norm={norm!r}: only group-norm towers are ported yet "
+            "(ROADMAP A.2.3)")
     if name == "resnet18_ppm":
-        return towers.ResNet18PPM(out_channels=128, device=device), 128
+        return towers.ResNet18PPM(out_channels=128, deep_stem=deep_stem,
+                                  device=device), 128
     if name.startswith("resnet18_l"):
         lvl = int(name[-1])
-        return (towers.ResNet18(out_level=lvl, device=device),
-                towers.OUT_CHANNELS[lvl])
-    raise NotImplementedError(f"tower {name!r} is not ported yet")
+        # the deep stem widens layer0 to 128 (MIT resnet.py)
+        return (towers.ResNet18(out_level=lvl, deep_stem=deep_stem,
+                                device=device),
+                128 if deep_stem and lvl == 0 else towers.OUT_CHANNELS[lvl])
+    raise NotImplementedError(f"tower {name!r} is not ported yet (ROADMAP A.6)")
 
 
 def _check_branch(spec: BranchSpec) -> None:
@@ -137,11 +150,7 @@ class MultimodalSeg(nn.Module):
                                       "these options is not ported yet")
         self.spec = spec
         self._ladder: Dict[str, nn.Module] = {}   # see _ladder_branch
-        if spec.backbone_layers is not None:
-            layers, planes = spec.backbone_layers, spec.backbone_planes
-            block = spec.backbone_block
-        else:
-            layers, planes, block = RES16_PRESETS[spec.backbone]
+        layers, planes, block = backbone_plan(spec)
         self.n_down = n_down = len(layers) // 2
         branch_at = spec.branch_levels()
 
@@ -259,6 +268,43 @@ class MultimodalSeg(nn.Module):
         if x_seen is not None:
             out["x_seen"] = x_seen
         return out
+
+
+class SparseConv3dSeg(nn.Module):
+    """3D-only sparse UNet + linear classification head (the reference's
+    ``sparseconv3d.APIModel``, models/segmentation/sparseconv3d.py:15-59);
+    ``forward(batch, generator=None)`` returns ``{"logits"}``."""
+
+    def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
+        super().__init__()
+        self.spec = spec
+        self.backbone = Res16UNet(spec.in_channels, *backbone_plan(spec),
+                                  stem_kernel=spec.stem_kernel, device=device)
+        self.head = nn.Linear(self.backbone.out_channels, spec.num_classes,
+                              device=device)
+        if seed is not None:
+            init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        x = self.backbone(batch["feats"], batch["graph"])
+        # the generator's presence (not the training flag) gates the head
+        # dropout, so MC-dropout voting works at eval
+        x = soft_dropout(x, self.spec.head_dropout, generator)
+        return {"logits": self.head(x)}
+
+
+def build_model(spec: ModelSpec, device="cuda",
+                seed: Optional[int] = 0) -> nn.Module:
+    """The model of a spec: ``SparseConv3dSeg`` without branches, else
+    ``MultimodalSeg``; the ``no3d`` and ``late_*`` families raise."""
+    if not spec.branches:
+        return SparseConv3dSeg(spec, device=device, seed=seed)
+    if spec.family != "unet":
+        raise NotImplementedError(
+            f"model family {spec.family!r} is not ported yet (ROADMAP A.6)")
+    return MultimodalSeg(spec, device=device, seed=seed)
 
 
 @torch.no_grad()

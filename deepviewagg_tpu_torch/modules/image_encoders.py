@@ -27,7 +27,8 @@ from torch import nn
 __all__ = ["Conv2dWS", "ResNet18", "PPM", "ResNet18PPM", "OUT_CHANNELS",
            "f32_convs", "run_tower"]
 
-# channels of each tap level for ResNet18: stem, layer1..layer4
+# channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
+# stem gives 128 at level 0)
 OUT_CHANNELS = (64, 64, 128, 256, 512)
 
 # Test-scoped switch: run every Conv2dWS with float32 operands (exact math)
@@ -124,13 +125,28 @@ class ResNet18(nn.Module):
     """Torchvision-topology ResNet18 trunk (7x7 stem), truncated after
     ``out_level`` (0 stem .. 4 layer4); ``dilated8`` is the MIT-semseg
     stride-8 trunk with the ``_nostride_dilate`` first-conv rule.
+    ``deep_stem`` is the MIT-semseg stem (the ADE20K / Cityscapes encoders):
+    three 3x3 conv + norm + relu of ``width``, ``width`` and ``2 * width``
+    channels (strides 2, 1, 1) in place of the 7x7, before the same max-pool;
+    layer1's first block then projects its ``2 * width`` input channels.
     Channels-first in and out."""
 
     def __init__(self, out_level: int = 4, dilated8: bool = False,
-                 width: int = 64, device=None):
+                 width: int = 64, deep_stem: bool = False, device=None):
         super().__init__()
-        self.Conv2dWS_0 = Conv2dWS(3, width, (7, 7), (2, 2), device=device)
-        self._Norm_0 = _Norm(width, device=device)
+        if deep_stem:
+            stem = ((3, width, (2, 2)), (width, width, (1, 1)),
+                    (width, width * 2, (1, 1)))
+            for i, (cin, f, st) in enumerate(stem):
+                setattr(self, f"Conv2dWS_{i}", Conv2dWS(
+                    cin, f, (3, 3), st, device=device))
+                setattr(self, f"_Norm_{i}", _Norm(f, device=device))
+        else:
+            stem = ((3, width, (2, 2)),)
+            self.Conv2dWS_0 = Conv2dWS(3, width, (7, 7), (2, 2),
+                                       device=device)
+            self._Norm_0 = _Norm(width, device=device)
+        self.num_stem = len(stem)
         plan = [  # (features, first-stride, dilation) per layer
             (width, (1, 1), (1, 1)),
             (width * 2, (2, 2), (1, 1)),
@@ -139,7 +155,7 @@ class ResNet18(nn.Module):
             (width * 8, (1, 1) if dilated8 else (2, 2),
              (4, 4) if dilated8 else (1, 1)),
         ]
-        c, blocks = width, []
+        c, blocks = stem[-1][1], []
         for f, s, d in plan[:out_level]:
             # MIT _nostride_dilate: the de-strided conv of a dilated stage
             # runs at d/2 — dilation 1 in layer3, 2 in layer4
@@ -154,7 +170,9 @@ class ResNet18(nn.Module):
         self.out_channels = c
 
     def forward(self, x):
-        x = F.relu(self._Norm_0(self.Conv2dWS_0(x)))
+        for i in range(self.num_stem):
+            x = F.relu(getattr(self, f"_Norm_{i}")(
+                getattr(self, f"Conv2dWS_{i}")(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(self.num_blocks):
             x = getattr(self, f"_BasicBlock2d_{i}")(x)
@@ -214,9 +232,11 @@ class ResNet18PPM(nn.Module):
     """Dilated-8 ResNet18 trunk + PPM (``ADE20KResNet18PPM``,
     image.py:721-792)."""
 
-    def __init__(self, out_channels: int = 128, device=None):
+    def __init__(self, out_channels: int = 128, deep_stem: bool = False,
+                 device=None):
         super().__init__()
-        self.ResNet18_0 = ResNet18(out_level=4, dilated8=True, device=device)
+        self.ResNet18_0 = ResNet18(out_level=4, dilated8=True,
+                                   deep_stem=deep_stem, device=device)
         self.PPM_0 = PPM(self.ResNet18_0.out_channels, out_channels,
                          device=device)
 

@@ -1,7 +1,7 @@
 """The Res16UNet sparse-voxel UNet stages — the paper's 3D backbone.
 
 The port of ``deepviewagg_tpu/nn/res16unet.py`` (``RES16_PRESETS``,
-``Stem``, ``DownStage``, ``UpStage``; the reference's
+``Stem``, ``DownStage``, ``UpStage``, ``Res16UNet``; the reference's
 modules/MinkowskiEngine/res16unet.py): a stem conv, stride-2 encoder stages
 of residual blocks and transpose-conv decoder stages with skip
 concatenation.  All spatial indexing comes precomputed in the batch's
@@ -16,7 +16,7 @@ from torch import nn
 
 from .sparse_blocks import ResBlock, SparseConvNormRelu
 
-__all__ = ["Stem", "DownStage", "UpStage", "RES16_PRESETS"]
+__all__ = ["Stem", "DownStage", "UpStage", "Res16UNet", "RES16_PRESETS"]
 
 # (layers, planes, block) per named variant — the JAX package's table
 # (modules/MinkowskiEngine/res16unet.py:246-588 and the DeepViewAgg compact
@@ -124,4 +124,42 @@ class UpStage(nn.Module):
         x = torch.cat([x, skip], dim=-1)
         for i in range(self.num_blocks):
             x = getattr(self, f"ResBlock_{i}")(x, dst["sub_nbr"], dst["valid"])
+        return x
+
+
+class Res16UNet(nn.Module):
+    """The whole encoder / decoder (flax ``Res16UNet``, sub-modules under its
+    auto-names ``Stem_0``, ``DownStage_<i>``, ``UpStage_<j>``): per-voxel
+    features at level 0, ``planes[-1]`` channels."""
+
+    def __init__(self, in_channels: int, layers, planes, block: str = "basic",
+                 init_dim: int = 32, stem_kernel: int = 3, device=None):
+        super().__init__()
+        self.n_down = n_down = len(layers) // 2
+        self.Stem_0 = Stem(in_channels, init_dim, stem_kernel, device=device)
+        c, skip_c = init_dim, [init_dim]
+        for i in range(n_down):
+            setattr(self, f"DownStage_{i}", DownStage(
+                c, planes[i], layers[i], block, device=device))
+            c = planes[i]
+            if i < n_down - 1:
+                skip_c.append(c)
+        for j in range(n_down):
+            setattr(self, f"UpStage_{j}", UpStage(
+                c, skip_c[n_down - 1 - j], planes[n_down + j],
+                layers[n_down + j], block, device=device))
+            c = planes[n_down + j]
+        self.out_channels = c
+
+    def forward(self, feats, graph):
+        x = self.Stem_0(feats, graph)
+        skips = [x]
+        for i in range(self.n_down):
+            x = getattr(self, f"DownStage_{i}")(x, graph, i)
+            if i < self.n_down - 1:
+                skips.append(x)
+        for j in range(self.n_down):
+            lvl_out = self.n_down - 1 - j
+            x = getattr(self, f"UpStage_{j}")(x, skips[lvl_out], graph,
+                                               lvl_out)
         return x

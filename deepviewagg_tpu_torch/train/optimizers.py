@@ -16,7 +16,12 @@ optax chains of the JAX package, not ``torch.optim``'s habits:
     adamw's decay is decoupled and scaled by the learning rate;
   * with ``lr_scales`` / ``freeze_paths`` each label group runs its own
     chain, so the clip norm is taken per group, and frozen subtrees get no
-    update at all, not even weight decay.
+    update at all, not even weight decay;
+  * ``grad_accumulate=k`` is ``optax.MultiSteps(chain, k)``: the gradients
+    are a running mean ``acc + (g - acc) / (n + 1)`` over ``k`` mini-steps,
+    parameters and optimizer state do not move on the first ``k - 1``, and
+    the schedule and Adam's bias correction count real updates only (the
+    inner chain's own count), not mini-steps.
 """
 
 from __future__ import annotations
@@ -109,14 +114,21 @@ class _Group:
 class Optimizer:
     """One update rule over named parameter groups (see the module
     docstring).  :meth:`init` binds it to a model's named parameters (the
-    counterpart of ``tx.init(params)``); :meth:`update` applies one step
-    from the parameters' ``.grad`` (None counts as zero) at schedule
-    position ``step``."""
+    counterpart of ``tx.init(params)``); :meth:`update` takes one mini-step
+    from the parameters' ``.grad`` (None counts as zero);
+    :meth:`state_dict` / :meth:`load_state_dict` save and restore the
+    momentum or Adam moments per group, the counts and the accumulator."""
 
     def __init__(self, schedule, optimizer, momentum, weight_decay, grad_clip,
-                 lr_scales, freeze_paths):
+                 lr_scales, freeze_paths, grad_accumulate: int = 1):
         if optimizer not in ("sgd", "adam", "adamw"):
             raise ValueError(optimizer)
+        if int(grad_accumulate) < 1:
+            raise ValueError(f"grad_accumulate must be >= 1, got "
+                             f"{grad_accumulate}")
+        self.grad_accumulate = int(grad_accumulate)
+        self.count = 0        # real updates taken: the schedule's position
+        self.mini_step = 0    # mini-steps accumulated toward the next one
         self.schedule = schedule
         self.optimizer = optimizer
         self.momentum = momentum
@@ -141,14 +153,64 @@ class Optimizer:
         return self
 
     @torch.no_grad()
-    def update(self, step: int) -> None:
-        for group in self.groups:
-            self._update_group(group, step)
+    def update(self) -> bool:
+        """One mini-step; returns whether the parameters moved.  A real
+        update runs at schedule position ``count``, the real updates taken
+        before it."""
+        grads = [[torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                  for p in group.params] for group in self.groups]
+        if self.grad_accumulate > 1:
+            n = self.mini_step
+            for group, gs in zip(self.groups, grads):
+                acc = group.zeros("acc")
+                torch._foreach_add_(acc, torch._foreach_div(
+                    torch._foreach_sub(gs, acc), float(n + 1)))
+            if n < self.grad_accumulate - 1:
+                self.mini_step += 1
+                return False
+            # the mean goes through the chain (which may scale it in
+            # place); then the accumulator starts again from zero
+            grads = [[a.clone() for a in group.state["acc"]]
+                     for group in self.groups]
+            for group in self.groups:
+                torch._foreach_zero_(group.state["acc"])
+            self.mini_step = 0
+        for group, gs in zip(self.groups, grads):
+            self._update_group(group, gs, self.count)
+        self.count += 1
+        return True
 
-    def _update_group(self, group: _Group, step: int) -> None:
+    def state_dict(self) -> dict:
+        """``{"count", "mini_step", "groups": [{key: [tensor per
+        parameter]}]}``, copies of the state."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "groups": [{k: [t.detach().clone() for t in v]
+                            for k, v in g.state.items()}
+                           for g in self.groups]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` into an optimizer bound to the same
+        parameters (same groups, same shapes)."""
+        if len(state["groups"]) != len(self.groups):
+            raise ValueError(f"{len(state['groups'])} groups saved, "
+                             f"{len(self.groups)} here")
+        for group, saved in zip(self.groups, state["groups"]):
+            for key, tensors in saved.items():
+                if len(tensors) != len(group.params) or any(
+                        t.shape != p.shape
+                        for t, p in zip(tensors, group.params)):
+                    raise ValueError(f"optimizer state {key!r} does not fit "
+                                     "the parameters")
+            group.state = {
+                key: [t.to(device=p.device, dtype=p.dtype).clone()
+                      for t, p in zip(tensors, group.params)]
+                for key, tensors in saved.items()}
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
+    def _update_group(self, group: _Group, grads: List[torch.Tensor],
+                      step: int) -> None:
         params = group.params
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
-                 for p in params]
         lr = self.schedule(step) * group.scale
         if self.grad_clip:
             norm = global_norm(grads)
@@ -197,6 +259,7 @@ def make_optimizer(
     grad_clip: Optional[float] = None,
     lr_scales: Optional[Dict[str, float]] = None,
     freeze_paths: Optional[Sequence[Sequence[str]]] = None,
+    grad_accumulate: int = 1,
 ) -> Optimizer:
     """An unbound :class:`Optimizer`; ``TrainState.create`` binds it to the
     model's parameters, keyed by their names (the flax paths the modules
@@ -210,6 +273,8 @@ def make_optimizer(
     whose parameters receive NO updates at all — not even weight decay,
     which would otherwise shrink frozen pretrained towers despite their zero
     gradients (ref 'frozen' tower option, modalities/image.py:737).
+
+    ``grad_accumulate``: mini-steps per real update (``optax.MultiSteps``).
     """
     return Optimizer(schedule, optimizer, momentum, weight_decay, grad_clip,
-                     lr_scales, freeze_paths)
+                     lr_scales, freeze_paths, grad_accumulate)

@@ -76,7 +76,9 @@ def make_train_step(
         loss.backward()
         grad_norm = global_norm([p.grad for p in model.parameters()
                                  if p.grad is not None])
-        state.tx.update(state.step)
+        # the schedule counts the optimizer's real updates (with gradient
+        # accumulation, fewer than the mini-steps counted by state.step)
+        state.tx.update()
         state.step += 1
         metrics = {
             "loss": loss.detach(),

@@ -43,6 +43,22 @@ def test_training_modules_are_covered():
     assert (PKG / "csrc" / "segment_csr_bwd.cu").exists()
 
 
+@pytest.mark.parametrize("rel", [
+    "config/run.py", "config/yaml_subset.py", "config/zoo.py",
+    "data/transforms2d.py", "data/transforms3d.py",
+    "data/datasets/base.py", "data/datasets/synthetic_ds.py",
+    "metrics/confusion.py", "metrics/tracker.py", "train/checkpoint.py",
+    "train/trainer.py", "utils/logging.py", "cli/train.py"])
+def test_experiment_loop_modules_are_covered(rel):
+    """The experiment-loop files exist, are among the files the import
+    check walks, and import neither package's counterpart, nor PyYAML (the
+    card's machine has none), nor the root ``train.py``."""
+    path = PKG / rel
+    assert path in sorted(PKG.rglob("*.py"))
+    roots = {name for name, _ in _imported_roots(path)}
+    assert not roots & (set(FORBIDDEN) | {"yaml", "train"})
+
+
 @pytest.mark.parametrize("rel", ["data/crop_groups.py",
                                  "modules/multibucket.py"])
 def test_crop_ladder_modules_are_covered(rel):
@@ -137,11 +153,16 @@ def test_segment_csr_raises_instead_of_falling_back():
 
 
 def test_entry_points_default_to_the_card():
+    from deepviewagg_tpu_torch.cli import train as cli
     from deepviewagg_tpu_torch.data import collate, geometric, mapping_factory, toy
-    from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg
+    from deepviewagg_tpu_torch.data.datasets import synthetic_ds
+    from deepviewagg_tpu_torch.models import segmentation
 
     for fn in (toy.toy_batch, toy.toy_samples, toy.recipe_batch,
                mapping_factory.build_mappings,
                geometric.pca_features, collate.batch_to_torch,
-               MultimodalSeg.__init__):
+               segmentation.MultimodalSeg.__init__,
+               segmentation.SparseConv3dSeg.__init__,
+               segmentation.build_model, synthetic_ds.build_synthetic_cache,
+               synthetic_ds.make_synthetic_dataset, cli.build_dataset):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -117,7 +117,7 @@ def test_three_updates_match_optax(optimizer, grad_scale, groups):
         ref = optax.apply_updates(ref, updates)
         for name, p in flat_leaves(_torch_tree(net)).items():
             p.grad = torch.from_numpy(flat_leaves(g)[name].copy())
-        opt.update(step)
+        opt.update()
         got = {k: v.detach().numpy()
                for k, v in flat_leaves(_torch_tree(net)).items()}
         for name, want in flat_leaves(ref).items():
@@ -139,7 +139,7 @@ def test_missing_gradient_counts_as_zero_and_still_decays():
     opt = topt.make_optimizer(topt.make_schedule("constant", 0.1),
                               momentum=0.0, weight_decay=0.5).init(
         net.named_parameters())
-    opt.update(0)
+    opt.update()
     for name, p in flat_leaves(_torch_tree(net)).items():
         want = flat_leaves(params)[name] * (1 - 0.1 * 0.5)
         assert rel_err(p.detach().numpy(), want) <= _TOL
