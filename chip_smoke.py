@@ -96,13 +96,39 @@ exit) on any fault:
                   published widths (deep-stem 512-d L4 tower, group-4 pool,
                   concat before the stem, trained from scratch), batch 4,
                   4 image slots of 1024 x 512, 2 m spheres at 5 cm, two
-                  epochs of 48 spheres with an eval each; prints cache
-                  build ms, bucket probe ms and capacities, step ms, loader
-                  wait ms and valid voxels per batch, eval-epoch ms, peak
-                  memory and launches per step; then every sorted-segment
-                  forward and backward call of the first train batch
-                  (the atomic pool and the view pool at 512 channels) held
-                  against its plain version and timed as in phases 2 / 2b
+                  epochs of 48 spheres with an eval each, with the recipe's
+                  augmentations (centre roll, flip 0.5, mapping jitter 0.02,
+                  colour jitter (0.6, 0.6, 0.7): each must be called, on
+                  raw cached images) and the raw clouds kept in the cache;
+                  prints cache build ms, bucket probe ms and capacities,
+                  step ms, loader wait ms and valid voxels per batch,
+                  eval-epoch ms, peak memory and launches per step; then
+                  every sorted-segment forward and backward call of the
+                  first train batch (the atomic pool and the view pool at
+                  512 channels) held against its plain version and timed as
+                  in phases 2 / 2b
+              9c  ``cli.eval.main`` on 9b's run (``--weight best_val_miou
+                  --voting_runs 2 --full_res``): 6 forward and no backward
+                  launches per eval batch; finite votes; test, vote and
+                  full-resolution mIoU; one prediction per raw point; the
+                  model has no dropout, so the second voting run's logits
+                  equal the first's bit for bit and the votes double; eval
+                  ms per batch and per voting run, remap ms and sizes, peak
+                  memory, the eval bucket's capacities; then every
+                  sorted-segment call of one forward of the first eval batch
+                  (eval buckets, images by coverage, centre roll) held
+                  against its plain version and timed as in phase 2
+              9c' MC dropout: 9a's run with ``head_dropout = 0.5``, three
+                  voting runs on one room: the runs differ, are finite, and
+                  the same seed repeats them bit for bit
+              9c'' 9a's run evaluated on the card and on the CPU, one room:
+                  argmax agreement >= 99%, metrics within 1e-2 (fractions)
+              9d  ``cli.predict.main`` with a 3D-only Res16UNet34 trained by
+                  ``cli.train`` on 9b's rooms at 5 cm (one epoch of 8
+                  spheres), on one of those rooms' raw cloud (about 66k
+                  points) as ``.npz`` and as ``.ply``: equal
+                  labels, one per voxel; forward ms, voxels/s, peak memory,
+                  segment launches (none: no image branch)
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -113,8 +139,9 @@ line ``{"kernels": [...]}`` before it holds each kernel's launches, error
 and times (``ms``: device time of the kernel alone, summed over the calls of
 one forward or one train step; ``call_ms``: the same calls through the
 wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
-same for phase 9b's first train batch; ``launches_loop_*``: the counts over
-phase 9's runs).  Needs a CUDA card,
+same for phase 9b's first train batch; ``loop_eval`` (forward only): the
+same for phase 9c's first eval batch; ``launches_loop_*``: the counts over
+phase 9's runs, 9c's eval and 9d's predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
 
@@ -193,9 +220,25 @@ REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
 # about as many voxels as the cache's 6 cm grid gives
 CONF = Path(__file__).resolve().parent / "conf"
 QUICK_EPOCHS = 2
+# 9b takes the recipe's published augmentations (s3dis.py:272-275: centre
+# roll at train and eval, flip, mapping jitter, colour jitter at train) and
+# keeps the raw clouds for 9c's full-resolution remap
 RECIPE_LOOP = ("data.dataset=synthetic", "data.samples_per_epoch=48",
                "training.epochs=2", "training.eval_frequency=1",
-               "data.kwargs={n_areas: 2, density: 600.0, n_cameras: 6}")
+               "data.kwargs={n_areas: 2, density: 600.0, n_cameras: 6, "
+               "keep_raw: true, aug_params: {center_roll: true, flip_p: 0.5, "
+               "jitter_mapping: 0.02, color_jitter: [0.6, 0.6, 0.7]}}")
+AUGMENTS = ("center_roll", "random_horizontal_flip", "jitter_mapping_features",
+            "color_jitter")
+# phase 9c-9d: eval with two voting runs and the full-resolution remap on
+# 9b's run; MC dropout with three voting runs on 9a's, one room of it; the
+# card vs CPU eval on 9a's run, one room; predict with a 3D-only
+# Res16UNet34 trained on 9b's rooms (5 cm) for one epoch of 8 spheres
+EVAL_VOTING_RUNS, MC_VOTING_RUNS = 2, 3
+ONE_ROOM = "data.kwargs.n_areas=1"
+EVAL_METRIC_ATOL = 1e-2            # card vs CPU, metrics as fractions
+VOTE_RTOL = 1e-6                   # two sums of the same logits, reordered
+PREDICT_SPHERES = 8
 
 
 def log(phase: str, **fields) -> None:
@@ -1100,22 +1143,11 @@ def phase_recipe(model, trace: bool) -> dict:
             "train_launches": train_launches}
 
 
-class LoopProbe:
-    """The seams of one ``cli.train.main`` run, patched for that run only:
-    every train step (closed by a synchronisation: ms, loss, launches of
-    each kernel), the consumer's wait in ``next()`` on the train loader and
-    the batch's valid voxels, every eval epoch (ms), the cache build and the
-    bucket probe (ms), the ``Trainer`` (its model's parameters as built)
-    and the first train step's batch on the card (``batch``).
-    ``on_fit(trainer)`` runs just before ``Trainer.fit``."""
+class Seams:
+    """Attributes of the package replaced for one run (``with``), put
+    back on exit."""
 
-    def __init__(self, on_fit=None):
-        self.on_fit = on_fit
-        self.losses, self.step_ms, self.step_launches = [], [], []
-        self.wait_ms, self.train_images, self.eval_batches = [], [], 0
-        self.train_voxels = []
-        self.eval_ms, self.cache_ms, self.probe_ms = [], [], []
-        self.bucket = self.trainer = self.start = self.batch = None
+    def __init__(self):
         self._undo = []
 
     def _patch(self, owner, name, make):
@@ -1123,8 +1155,35 @@ class LoopProbe:
         self._undo.append((owner, name, original))
         setattr(owner, name, make(original))
 
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._undo):
+            setattr(owner, name, original)
+        return False
+
+
+class LoopProbe(Seams):
+    """The seams of one ``cli.train.main`` run, patched for that run only:
+    every train step (closed by a synchronisation: ms, loss, launches of
+    each kernel), the consumer's wait in ``next()`` on the train loader and
+    the batch's valid voxels, every eval epoch (ms), the cache build and the
+    bucket probe (ms), the calls of each of the recipe's 2D augmentations,
+    the ``Trainer`` (its model's parameters as built) and the first train
+    step's batch on the card (``batch``).  ``on_fit(trainer)`` runs just
+    before ``Trainer.fit``."""
+
+    def __init__(self, on_fit=None):
+        super().__init__()
+        self.on_fit = on_fit
+        self.losses, self.step_ms, self.step_launches = [], [], []
+        self.wait_ms, self.train_images, self.eval_batches = [], [], 0
+        self.train_voxels = []
+        self.eval_ms, self.cache_ms, self.probe_ms = [], [], []
+        self.augments = dict.fromkeys(AUGMENTS, 0)
+        self.bucket = self.trainer = self.start = self.batch = None
+
     def __enter__(self):
         from deepviewagg_tpu_torch.cli import train as cli
+        from deepviewagg_tpu_torch.data import transforms2d
         from deepviewagg_tpu_torch.data.datasets import base, synthetic_ds
         from deepviewagg_tpu_torch.train import trainer
 
@@ -1219,13 +1278,18 @@ class LoopProbe:
         self._patch(base.BatchLoader, "__iter__", loader_iter)
         self._patch(synthetic_ds, "build_synthetic_cache",
                     timed(self.cache_ms))
-        self._patch(cli, "auto_bucket", auto_bucket)
-        return self
+        def counted(name):
+            def make(fn):
+                def run(*args, **kwargs):
+                    probe.augments[name] += 1
+                    return fn(*args, **kwargs)
+                return run
+            return make
 
-    def __exit__(self, *exc):
-        for owner, name, original in reversed(self._undo):
-            setattr(owner, name, original)
-        return False
+        self._patch(cli, "auto_bucket", auto_bucket)
+        for name in AUGMENTS:
+            self._patch(transforms2d, name, counted(name))
+        return self
 
     def check_steps(self, phase: str) -> None:
         """Every step finite (checked as it ran) and through the flagship's
@@ -1372,8 +1436,22 @@ def loop_recipe(cli, tmp: Path) -> dict:
     records = read_records(run_dir)
     if len(records) != 2 or not all("val_miou" in r for r in records):
         raise AssertionError(f"metrics.jsonl: {records}")
+    # colour jitter runs on raw (uint8 or non-negative float) caches only
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    area = load_area(str(tmp / "recipe_data" / "area_0.npz"))
+    images = np.asarray(area["images"][:1])
+    if not (images.dtype == np.uint8 or images.min() >= -0.01) \
+            or "raw_pos" not in area:
+        raise AssertionError(f"cache: images {images.dtype} min "
+                             f"{images.min()}, keys {sorted(area)}")
+    if not all(probe.augments.values()):
+        raise AssertionError(f"augmentations not called: {probe.augments}")
     b = probe.bucket
     log("9b recipe loop", model=probe.trainer.run_config["model"]["name"],
+        augments=probe.augments, cached_images=f"{images.dtype} "
+        f"min={images.min():.3f} max={images.max():.3f}",
+        raw_points=len(area["raw_pos"]), voxels=len(area["pos"]),
         params=sum(p.numel() for p in probe.trainer.model.parameters()),
         images=probe.train_images[0],
         cache_build_ms="/".join(f"{t:.0f}" for t in probe.cache_ms),
@@ -1402,10 +1480,329 @@ def loop_recipe(cli, tmp: Path) -> dict:
     return {"launches": launches, "forward": fwd, "backward": bwd}
 
 
+class EvalProbe(Seams):
+    """The seams of one ``cli.eval.main`` run, patched for that run only:
+    every eval step (closed by a synchronisation where the model is on the
+    card: ms, launches of each kernel), the model and the first eval batch
+    as the step got them (``model``, ``batch``), the eval bucket
+    (``bucket``), every pass over the loader (one per voting run: ms),
+    every vote added (cloud, size, ids and logits, copied), the vote
+    accumulator and every full-resolution remap (ms, raw and voted points;
+    one prediction per raw point is checked)."""
+
+    def __init__(self):
+        super().__init__()
+        self.step_ms, self.step_launches, self.pass_ms = [], [], []
+        self.adds, self.remaps = [], []
+        self.votes = self.model = self.batch = self.bucket = None
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.cli import eval as cli_eval
+        from deepviewagg_tpu_torch.data.datasets import base
+
+        probe = self
+
+        def make_eval_step(original):
+            def build(model, *args, **kwargs):
+                step = original(model, *args, **kwargs)
+
+                def run(state, batch, generator=None):
+                    if probe.batch is None:
+                        probe.model, probe.batch = model, batch
+                    before = dict(seg.LAUNCHES)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(state, batch, generator)
+                    torch.cuda.synchronize()
+                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    probe.step_launches.append(
+                        {k: seg.LAUNCHES[k] - before[k] for k in before})
+                    return out
+                return run
+            return build
+
+        def loader_iter(original):
+            def run(loader):
+                t0 = time.perf_counter()
+                yield from original(loader)
+                probe.pass_ms.append((time.perf_counter() - t0) * 1e3)
+            return run
+
+        def votes(cls):
+            class Recorded(cls):
+                def __init__(self, *args, **kwargs):
+                    super().__init__(*args, **kwargs)
+                    probe.votes = self
+
+                def add(self, cloud, size, ids, logits):
+                    probe.adds.append((cloud, size, np.array(ids),
+                                       np.array(logits, np.float32)))
+                    super().add(cloud, size, ids, logits)
+
+                def full_res_preds(self, cloud, vote_pos, raw_pos, **kwargs):
+                    t0 = time.perf_counter()
+                    out = super().full_res_preds(cloud, vote_pos, raw_pos,
+                                                 **kwargs)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    if out.shape != (len(raw_pos),):
+                        raise AssertionError(f"full_res_preds {out.shape} "
+                                             f"for {len(raw_pos)} raw points")
+                    probe.remaps.append(dict(
+                        ms=ms, raw=len(raw_pos),
+                        voted=int(self.preds(cloud)[1].sum())))
+                    return out
+            return Recorded
+
+        def auto_bucket(original):
+            def run(*args, **kwargs):
+                probe.bucket = original(*args, **kwargs)
+                return probe.bucket
+            return run
+
+        self._patch(cli_eval, "make_eval_step", make_eval_step)
+        self._patch(cli_eval, "auto_bucket", auto_bucket)
+        self._patch(cli_eval, "VoteAccumulator", votes)
+        self._patch(base.BatchLoader, "__iter__", loader_iter)
+        return self
+
+    def run_logits(self, runs: int) -> list:
+        """The logits of each voting run, concatenated in add order."""
+        n = len(self.adds) // runs
+        if not n or n * runs != len(self.adds):
+            raise AssertionError(f"{len(self.adds)} adds over {runs} runs")
+        return [np.concatenate([a[3] for a in self.adds[r * n:(r + 1) * n]])
+                for r in range(runs)]
+
+    def summary(self) -> dict:
+        return {
+            "batches": len(self.step_ms),
+            "eval_ms_per_batch": f"{np.mean(self.step_ms):.1f}",
+            "voting_run_ms": "/".join(f"{t:.1f}" for t in self.pass_ms),
+            "remaps": "/".join(f"{r['raw']}->{r['voted']}:{r['ms']:.1f}ms"
+                               for r in self.remaps),
+        }
+
+
+def run_eval(cli_eval, args, device="cuda"):
+    """``cli.eval.main(args)`` on ``device`` under an ``EvalProbe``, launch
+    counts zeroed just before and read just after, peak memory reset;
+    every eval step checked for 6 forward and no backward launches on the
+    card.  Returns ``(metrics, probe, launches)``; ``probe.resident_gib``:
+    device memory allocated before the run (held by earlier phases)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with EvalProbe() as probe:
+        probe.resident_gib = torch.cuda.memory_allocated() / 2**30
+        metrics = cli_eval.main([*args, "--device", device])
+    launches = dict(seg.LAUNCHES)
+    expect = ({"segment_csr": FORWARD_LAUNCHES, "segment_csr_bwd": 0}
+              if device == "cuda" else dict.fromkeys(seg.LAUNCHES, 0))
+    bad = [d for d in probe.step_launches if d != expect]
+    if not probe.step_ms or bad:
+        raise AssertionError(f"eval: {len(probe.step_ms)} batches, launches "
+                             f"{bad[:2]} (expected {expect})")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"eval metrics {metrics}")
+    return metrics, probe, launches
+
+
+def check_doubled(probe, num_classes: int) -> float:
+    """Two voting runs without dropout: the second run's logits are the
+    first's bit for bit, so every count doubles and every vote doubles,
+    exactly where one sphere holds the point and to float32 rounding of the
+    reordered sums elsewhere; returns the largest such rounding."""
+    from deepviewagg_tpu_torch.metrics.tracker import VoteAccumulator
+
+    first, second = probe.run_logits(EVAL_VOTING_RUNS)
+    if not np.array_equal(first, second):
+        raise AssertionError("the second voting run's logits differ: "
+                             f"{np.abs(first - second).max()}")
+    single = VoteAccumulator(num_classes)
+    for add in probe.adds[:len(probe.adds) // 2]:
+        single.add(*add)
+    worst = 0.0
+    for cloud in single.clouds():
+        v1, n1 = single.votes(cloud)
+        v2, n2 = probe.votes.votes(cloud)
+        once = n1 == 1
+        if not (np.array_equal(n2, 2 * n1) and once.any()
+                and np.array_equal(v2[once], 2 * v1[once])):
+            raise AssertionError(f"{cloud}: votes of two runs are not twice "
+                                 "one run's")
+        err = float(np.abs(v2 - 2 * v1).max() / np.abs(v1).max())
+        if err > VOTE_RTOL:
+            raise AssertionError(f"{cloud}: votes off twice by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def loop_eval(cli_eval, tmp: Path) -> dict:
+    """9c: ``cli.eval`` on 9b's run (the recipe's model at full width), its
+    best-val-mIoU checkpoint, two voting runs and the full-resolution
+    remap; then every sorted-segment call of one forward of the first eval
+    batch (eval buckets sized from the eval data, images by coverage,
+    ``center_roll``) held against its plain version and timed as in phase
+    2."""
+    metrics, probe, launches = run_eval(cli_eval, [
+        "--run_dir", str(tmp / "recipe_run"), "--weight", "best_val_miou",
+        "--voting_runs", str(EVAL_VOTING_RUNS), "--full_res"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for key in ("test_miou", "vote_miou", "full_res_miou"):
+        if key not in metrics:
+            raise AssertionError(f"{key} missing from {sorted(metrics)}")
+    clouds = probe.votes.clouds()
+    if not all(np.isfinite(probe.votes.votes(c)[0]).all() for c in clouds):
+        raise AssertionError("non-finite votes")
+    if len(probe.remaps) != len(clouds):
+        raise AssertionError(f"{len(probe.remaps)} remaps, {len(clouds)} "
+                             "clouds")
+    worst = check_doubled(probe, probe.votes.num_classes)
+    b = probe.bucket
+    log("9c eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
+        peak_mem_gib=f"{peak:.2f}", resident_gib=f"{probe.resident_gib:.2f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        launches_per_batch=probe.step_launches[0],
+        launches=launches, second_run_bit_equal=True,
+        votes_twice_rel_err=f"{worst:.2e}",
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+
+    model, batch = probe.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one eval "
+                             "forward")
+    fwd = measure_forward_calls(calls, "9c eval kernels", "calls_per_forward")
+    del calls, model, batch
+    return {"launches": launches, "forward": fwd}
+
+
+def loop_mc_dropout(cli_eval, tmp: Path) -> None:
+    """9c': MC dropout on the card: 9a's run with ``head_dropout = 0.5``,
+    three voting runs on one room, twice with the same seed."""
+    args = ["--run_dir", str(tmp / "quick_run"), "--voting_runs",
+            str(MC_VOTING_RUNS), "model.overrides.head_dropout=0.5", ONE_ROOM]
+    runs = []
+    for _ in range(2):
+        _, probe, _ = run_eval(cli_eval, args)
+        runs.append(probe.run_logits(MC_VOTING_RUNS))
+    first, again = runs
+    if not all(np.isfinite(x).all() for x in first):
+        raise AssertionError("non-finite MC-dropout logits")
+    if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("one seed did not repeat the MC-dropout runs")
+    for i in range(MC_VOTING_RUNS):
+        for j in range(i):
+            if np.array_equal(first[i], first[j]):
+                raise AssertionError(f"voting runs {j} and {i} are equal")
+    log("9c' mc dropout", head_dropout=0.5, voting_runs=MC_VOTING_RUNS,
+        **probe.summary(), repeat_bit_equal=True, runs_differ=True,
+        run_diff_max="/".join(f"{np.abs(first[i] - first[0]).max():.3f}"
+                              for i in range(1, MC_VOTING_RUNS)))
+
+
+def loop_eval_card_vs_cpu(cli_eval, tmp: Path) -> None:
+    """9c'': 9a's run evaluated on the card and on the CPU (plain versions),
+    one room, with the remap: argmax of the logits and the metrics to the
+    bounds of phase 4."""
+    args = ["--run_dir", str(tmp / "quick_run"), "--full_res", ONE_ROOM]
+    card, card_probe, _ = run_eval(cli_eval, args, "cuda")
+    cpu, cpu_probe, _ = run_eval(cli_eval, args, "cpu")
+    a, b = card_probe.run_logits(1)[0], cpu_probe.run_logits(1)[0]
+    agree = float((a.argmax(1) == b.argmax(1)).mean())
+    worst = max(abs(card[k] - cpu[k]) / 100 for k in cpu)
+    if sorted(card) != sorted(cpu) or agree < ARGMAX_AGREE \
+            or worst > EVAL_METRIC_ATOL:
+        raise AssertionError(f"eval card vs cpu: argmax {agree}, metrics "
+                             f"{card} vs {cpu}")
+    log("9c'' eval card vs cpu", voxels=len(a), argmax_agree=f"{agree:.5f}",
+        logits_rel_err=f"{rel_err(torch.from_numpy(a), torch.from_numpy(b)):.3e}",
+        metric_max_abs_diff=f"{worst:.5f}",
+        card_ms_per_batch=card_probe.summary()["eval_ms_per_batch"],
+        cpu_ms_per_batch=cpu_probe.summary()["eval_ms_per_batch"])
+
+
+def loop_predict(tmp: Path) -> dict:
+    """9d: ``cli.predict`` with a 3D-only Res16UNet34 (full width) trained by
+    ``cli.train`` on 9b's rooms at the recipe's 5 cm for one epoch of 8
+    spheres, on one room's raw cloud written as ``.npz`` and as ``.ply``:
+    equal labels, one per voxel."""
+    from deepviewagg_tpu_torch.cli import predict as cli_predict
+    from deepviewagg_tpu_torch.cli import train as cli_train
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.data.transforms3d import quantize_cloud
+    from deepviewagg_tpu_torch.models import segmentation
+    from deepviewagg_tpu_torch.utils.ply import read_ply, write_ply
+
+    run_dir = tmp / "predict_run"
+    cli_train.main(["--config", str(CONF / "s3dis_benchmark.yaml"),
+                    *RECIPE_LOOP, f"data.root={tmp / 'recipe_data'}",
+                    f"training.run_dir={run_dir}", "model.name=Res16UNet34",
+                    f"data.samples_per_epoch={PREDICT_SPHERES}",
+                    "training.epochs=1", "training.eval_frequency=2",
+                    "training.tensorboard=false"])
+    stored = json.loads((run_dir / "run.json").read_text())
+    kw = stored["data"]["kwargs"]
+    scene = synthetic.make_scene(seed=0, density=kw["density"],
+                                 n_cameras=kw["n_cameras"],
+                                 image_size=tuple(stored["data"]["image_size"]))
+    rgb = np.round(scene.rgb * 255).astype(np.uint8)
+    npz, ply = tmp / "room.npz", tmp / "room.ply"
+    np.savez(npz, pos=scene.pos, rgb=rgb)
+    write_ply(str(ply), {"x": scene.pos[:, 0], "y": scene.pos[:, 1],
+                         "z": scene.pos[:, 2], "red": rgb[:, 0],
+                         "green": rgb[:, 1], "blue": rgb[:, 2]})
+    voxels = len(quantize_cloud({"pos": scene.pos},
+                                stored["data"]["voxel_size"])["coords"])
+    forwards, params = [], []
+
+    class Timed(Seams):
+        def __enter__(self):
+            def make(fn):
+                def run(model, *args, **kwargs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(model, *args, **kwargs)
+                    torch.cuda.synchronize()
+                    forwards.append((time.perf_counter() - t0) * 1e3)
+                    params.append(sum(p.numel() for p in model.parameters()))
+                    return out
+                return run
+            self._patch(segmentation.SparseConv3dSeg, "forward", make)
+            return self
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    zero_launches()
+    with Timed():
+        outs = [cli_predict.main(["--run_dir", str(run_dir), "--input",
+                                  str(src), "--output",
+                                  str(tmp / f"pred_{src.suffix[1:]}.ply")])
+                for src in (npz, ply)]
+    launches = dict(seg.LAUNCHES)
+    labels = [read_ply(out)["label"] for out in outs]
+    if not (np.array_equal(*labels) and len(labels[0]) == voxels):
+        raise AssertionError(f"predict: {[len(x) for x in labels]} labels, "
+                             f"{voxels} voxels, equal "
+                             f"{np.array_equal(*labels)}")
+    log("9d predict", model="Res16UNet34", params=params[0],
+        raw_points=len(scene.pos), voxels=voxels,
+        forward_ms="/".join(f"{t:.1f}" for t in forwards),
+        voxels_per_s="/".join(f"{voxels / t * 1e3:.0f}" for t in forwards),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        resident_gib=f"{resident:.2f}", labels_equal=True, classes=len(np.unique(labels[0])),
+        launches=launches)
+    return launches
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
     under a temporary directory that is deleted afterwards."""
+    from deepviewagg_tpu_torch.cli import eval as cli_eval
     from deepviewagg_tpu_torch.cli import train as cli
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
@@ -1413,10 +1810,17 @@ def phase_loop() -> dict:
         quick = loop_quick(cli, tmp)
         torch.cuda.empty_cache()
         recipe = loop_recipe(cli, tmp)
+        torch.cuda.empty_cache()
+        evaluation = loop_eval(cli_eval, tmp)
+        torch.cuda.empty_cache()
+        loop_mc_dropout(cli_eval, tmp)
+        loop_eval_card_vs_cpu(cli_eval, tmp)
+        predict = loop_predict(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
-    return {"quick": quick, "recipe": recipe}
+    return {"quick": quick, "recipe": recipe, "eval": evaluation,
+            "predict": predict}
 
 
 def kernel_family(name: str) -> str:
@@ -1535,22 +1939,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     loop = phase_loop()
 
-    def entry(name, source, replaces, totals, recipe_totals, loop_totals,
-              **counts):
+    def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts,
-            "max_abs_err": max(totals["max_abs_err"],
-                               recipe_totals["max_abs_err"],
-                               loop_totals["max_abs_err"]),
+            "max_abs_err": max([totals["max_abs_err"]] + [
+                t["max_abs_err"] for t in paths.values()]),
             "ms": totals["ms"], "call_ms": totals["call_ms"],
             "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "bytes",
             "library_ms": totals["library_ms"], "checked": True,
-            "recipe": {k: recipe_totals[k] for k in keys},
-            "loop_recipe": {k: loop_totals[k] for k in keys},
+            **{path: {k: t[k] for k in keys} for path, t in paths.items()},
         }
 
     # ``launches``: the kernel's count over the path that drives it first
@@ -1560,29 +1961,39 @@ def main() -> None:
     # calls of one recipe forward / train step, ``launches_recipe_*``: the
     # counts over the recipe's serving and training runs;
     # ``loop_recipe``: the same sums over the calls of one forward / train
-    # step of phase 9b's first batch, ``launches_loop_*``: the counts over
-    # the first run of phase 9a (two epochs with evals) and over phase 9b
-    loop_recipe = loop["recipe"]
+    # step of phase 9b's first batch, ``loop_eval``: over the calls of one
+    # forward of phase 9c's first eval batch; ``launches_loop_*``: the counts
+    # over the first run of phase 9a (two epochs with evals), over phase 9b
+    # and over phase 9c's eval; ``launches_predict``: over phase 9d's two
+    # predictions (a 3D-only model: none)
+    loop_recipe, loop_eval = loop["recipe"], loop["eval"]
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
-              recipe["forward"], loop_recipe["forward"],
+              {"recipe": recipe["forward"],
+               "loop_recipe": loop_recipe["forward"],
+               "loop_eval": loop_eval["forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
               launches_recipe_training=recipe["train_launches"]["segment_csr"],
               launches_loop_quick=loop["quick"]["segment_csr"],
-              launches_loop_recipe=loop_recipe["launches"]["segment_csr"]),
+              launches_loop_recipe=loop_recipe["launches"]["segment_csr"],
+              launches_loop_eval=loop_eval["launches"]["segment_csr"],
+              launches_predict=loop["predict"]["segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
-              recipe["backward"], loop_recipe["backward"],
+              {"recipe": recipe["backward"],
+               "loop_recipe": loop_recipe["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
               launches_loop_quick=loop["quick"]["segment_csr_bwd"],
               launches_loop_recipe=loop_recipe["launches"][
-                  "segment_csr_bwd"]),
+                  "segment_csr_bwd"],
+              launches_loop_eval=loop_eval["launches"]["segment_csr_bwd"],
+              launches_predict=loop["predict"]["segment_csr_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

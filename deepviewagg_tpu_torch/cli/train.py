@@ -29,7 +29,25 @@ from ..models.segmentation import build_model
 from ..ops import voxel as _voxel
 from ..train.trainer import Trainer, TrainerConfig
 
-__all__ = ["build_dataset", "auto_bucket", "main"]
+__all__ = ["setup_device", "build_dataset", "auto_bucket", "main"]
+
+
+def setup_device(name: str) -> torch.device:
+    """The entry points' device: ``name`` (``cuda`` unless the caller asks
+    for ``cpu``); raises where CUDA is asked for and absent.  Pins TF32 off
+    for float32 matmuls and cuDNN convolutions (PyTorch leaves the cuDNN
+    one on), so that a run computes what ``chip_smoke.py`` measures and the
+    sparse convs' float32 GEMMs stay float32, and prints both flags."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to run "
+                           "on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {device} allow_tf32_matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} allow_tf32_cudnn="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    return device
 
 
 def build_dataset(cfg, train: bool, device="cuda"):
@@ -155,10 +173,7 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*")
     # options may stand between or after the overrides
     args = parser.parse_intermixed_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to run "
-                           "on the CPU")
+    device = setup_device(args.device)
 
     cfg = load_run_config(args.config, args.overrides)
     train_ds = build_dataset(cfg, train=True, device=device)

@@ -3,8 +3,8 @@
 The port of ``deepviewagg_tpu/config/run.py``: the same dataclass tree, the
 same merge and override rules.  YAML is read by :mod:`.yaml_subset` (the
 card's machine has no PyYAML), for the files and for the override values
-alike.  Merging a stored run config first (the JAX ``load_run_config``'s
-``base=``, for eval) comes with eval (ROADMAP A.2.1):
+alike.  ``base=`` merges a stored run config first (a run dir's
+``run.json``, for eval and predict):
 
     python -m deepviewagg_tpu_torch.cli.train --config conf/synthetic.yaml \\
         training.epochs=10 'data.kwargs={n_areas: 2}'
@@ -134,9 +134,24 @@ def apply_overrides(cfg: RunConfig, overrides: List[str]) -> RunConfig:
 
 
 def load_run_config(path: Optional[str] = None,
-                    overrides: Optional[List[str]] = None) -> RunConfig:
-    """The defaults, then the YAML file at ``path``, then ``overrides``."""
+                    overrides: Optional[List[str]] = None,
+                    base: Optional[Dict] = None) -> RunConfig:
+    """The defaults, then ``base``, then the YAML file at ``path``, then
+    ``overrides``.
+
+    ``base``: a stored run-config dict (a run dir's ``run.json``) merged
+    first, so that evaluating a saved run reproduces its training config
+    unless the YAML or the CLI override it (ref trainer.py:84,
+    model_checkpoint.py:241-253).  Two branches of the JAX function are
+    left out: it skips stored keys that its schema lacks, and it migrates a
+    stored config without ``stem_kernel`` to the old kernel-5 stem.  Every
+    ``run.json`` the port reads is one it wrote from this schema, with
+    ``stem_kernel`` pinned (``cli/train.py``, ``CheckpointManager``), and
+    the port cannot read a JAX checkpoint; so an unknown stored key
+    raises, as it does in a YAML file."""
     cfg = RunConfig()
+    if base:
+        _merge(cfg, base)
     if path:
         with open(path) as f:
             _merge(cfg, safe_load(f.read()) or {})

@@ -10,14 +10,15 @@ fixed-capacity buckets greedily, splits over-cap samples and prefetches one
 batch on a worker thread.  Everything here is host numpy; batches leave as
 numpy and :func:`~deepviewagg_tpu_torch.data.collate.batch_to_torch` moves
 them.  The same ``seed`` gives the same samples and batches as the JAX
-package.  ``SphereDataset``'s roll, flip, mapping-jitter and radiometric
-options raise until those transforms are ported (ROADMAP A.2.2).
+package, the recipe's roll, flip, mapping-jitter and radiometric
+augmentations included.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -238,18 +239,10 @@ class SphereDataset:
     blur_p: float = 0.0                      # GaussianBlur probability
 
     def __post_init__(self):
-        unported = {"center_roll": self.center_roll, "flip_p": self.flip_p > 0,
-                    "jitter_mapping": self.jitter_mapping > 0,
-                    "color_jitter": self.color_jitter is not None,
-                    "blur_p": self.blur_p > 0}
-        bad = [k for k, on in unported.items() if on]
-        if bad:
-            raise NotImplementedError(
-                f"SphereDataset options {bad}: their transforms are not "
-                "ported yet (ROADMAP A.2.2)")
         self._rng = np.random.default_rng(self.seed)
         self._centers = None          # eval: (area_idx, center) list
         self._class_centers = None    # train: per-class candidate centers
+        self._warned_normalized_cache = False
 
     # -- center selection ---------------------------------------------------
     def _build_eval_centers(self):
@@ -300,28 +293,62 @@ class SphereDataset:
         if self.train and self.augment is not None:
             sub = self.augment(sub, self._rng)
         sub = transforms3d.quantize_cloud(sub, self.voxel_size)
-        # Cache taxonomy (ref chain order: ToFloatImage -> Normalize): uint8
-        # and non-negative float caches are RAW and get ImageNet
-        # normalization at the END of the 2D chain; a float cache holding
-        # already-NORMALIZED stacks (negative values) does not.  Only float
-        # caches pay the min() scan; uint8 (the mmap'd format) classifies by
-        # dtype.
+        # Cache taxonomy (ref chain order: ColorJitter -> flip ->
+        # ToFloatImage -> Normalize): uint8 and non-negative float caches
+        # are RAW — radiometric augments apply and ImageNet normalization
+        # runs at the END of the 2D chain; a float cache holding already-
+        # NORMALIZED stacks (negative values) gets neither (re-normalizing
+        # or jittering it would corrupt the statistics).  Only float caches
+        # pay the min() scan; uint8 (the mmap'd format) classifies by dtype.
         imgs0 = sub.get("images")
         already_normalized = (
             imgs0 is not None and imgs0.dtype != np.uint8
             and imgs0.size > 0 and float(imgs0.min()) < -0.01
         )
         needs_normalize = imgs0 is not None and not already_normalized
+        radiometric_ok = needs_normalize
+        if (already_normalized and self.train
+                and (self.color_jitter is not None or self.blur_p > 0)
+                and not self._warned_normalized_cache):
+            print("[dataset] images are cached pre-normalized: skipping "
+                  "color_jitter/gaussian_blur (re-preprocess with the uint8 "
+                  "cache to enable them)", file=sys.stderr)
+            self._warned_normalized_cache = True
         if sub.get("mapping") is not None:
             sub = transforms2d.pick_images_by_area(
                 sub, min_points=self.min_points_per_image,
                 use_bbox=self.use_bbox_area_pick,
             )
+            if self.center_roll and sub.get("images") is not None:
+                # panoramas: circular-roll so mapped pixels center (enables
+                # tight crop-ladder buckets)
+                sub = transforms2d.center_roll(
+                    sub, angular_res=self.roll_angular_res)
             if self.train:
                 sub = transforms2d.pick_images_by_credit(
                     sub, n_slots=self.image_slots,
                     k_coverage=self.k_coverage, rng=self._rng
                 )
+                if self.flip_p > 0:
+                    sub = transforms2d.random_horizontal_flip(
+                        sub, self._rng, p=self.flip_p
+                    )
+                if self.jitter_mapping > 0:
+                    sub = transforms2d.jitter_mapping_features(
+                        sub, sigma=self.jitter_mapping,
+                        clip=self.jitter_clip, rng=self._rng
+                    )
+                if (self.color_jitter is not None and radiometric_ok
+                        and sub.get("images") is not None):
+                    sub["images"] = transforms2d.color_jitter(
+                        sub["images"], self._rng, *self.color_jitter
+                    )
+                if self.blur_p > 0 and radiometric_ok \
+                        and sub.get("images") is not None \
+                        and self._rng.uniform() < self.blur_p:
+                    sub["images"] = transforms2d.gaussian_blur(
+                        sub["images"], self._rng
+                    )
             else:
                 # eval: deterministic max-coverage selection under the
                 # PIXEL budget (the reference applies its memory credit at

@@ -8,16 +8,22 @@ __getitem__-time 2D chain, core/data_transform/multimodal/image.py):
   * :func:`pick_images_by_credit` — ``PickImagesFromMemoryCredit`` (:765),
     the train-time stochastic knapsack, and :func:`select_images_by_credit`
     / :func:`select_images_by_coverage`, its deterministic eval-time form;
-  * :func:`normalize_images` (``ToFloatImage`` + ``Normalize``).
+  * :func:`normalize_images` (``ToFloatImage`` + ``Normalize``);
+  * :func:`center_roll` (``CenterRoll``, :962), :func:`random_horizontal_flip`
+    (``RandomHorizontalFlip``, :1195), :func:`jitter_mapping_features`
+    (``JitterMappingFeatures``, :934), and the radiometric
+    :func:`color_jitter` / :func:`gaussian_blur` (:1249-1269): the S3DIS
+    recipe's options.
 
-Copied so that the same ``np.random.Generator`` draws give the same arrays.
-The roll, flip, mapping jitter and radiometric transforms are not ported
-(``SphereDataset`` refuses the options that would call them).
+Copied so that the same ``np.random.Generator`` draws give the same arrays
+(the draws are made in the same order).  The other transforms of the JAX
+module (crops, static masks, grid and feature picks) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,6 +35,11 @@ __all__ = [
     "select_images_by_coverage",
     "select_images_by_credit",
     "normalize_images",
+    "jitter_mapping_features",
+    "center_roll",
+    "random_horizontal_flip",
+    "color_jitter",
+    "gaussian_blur",
 ]
 
 
@@ -213,6 +224,173 @@ def pick_images_by_credit(
     picked = np.sort(np.array(picked, np.int64))
     return _select_cloud_images(cloud, picked)
 
+
+def jitter_mapping_features(
+    cloud: dict, sigma: float = 0.02, clip: float = 0.03,
+    rng: Optional[np.random.Generator] = None
+) -> dict:
+    """Clamped gaussian jitter on the viewing-condition features
+    (JitterMappingFeatures, image.py:934-957: sigma=0.02, noise clamped to
+    +-clip=0.03)."""
+    m: MultiViewMapping = cloud["mapping"]
+    out = dict(cloud)
+    noise = rng.normal(0, sigma, m.view_feats.shape)
+    feats = m.view_feats + np.clip(noise, -clip, clip).astype(
+        np.float32
+    )
+    out["mapping"] = dataclasses.replace(m, view_feats=feats)
+    return out
+
+
+def center_roll(cloud: dict, angular_res: int = 16) -> dict:
+    """Circular-roll each equirectangular image so its mapped pixels are
+    centered (``CenterRoll``, data_transform/multimodal/image.py:962-1037):
+    among ``angular_res`` candidate rolls (256-bin coordinates), pick the one
+    minimizing ``span + |center - 128|`` of the mapped x coordinates; roll
+    pixel mappings and the image columns accordingly.  Enables tight crops
+    on panoramas."""
+    m: MultiViewMapping = cloud["mapping"]
+    if cloud.get("images") is None or m.num_pixels == 0:
+        return cloud
+    images = cloud["images"]
+    w = images.shape[1]
+    vc = m.view_capacity
+    pv = np.minimum(m.pix_view, vc - 1)
+    pix_img = np.where(m.pix_valid, m.image_id[pv], -1)
+
+    new_x = m.pix_x.copy()
+    new_images = images.copy()
+    candidates = (np.arange(angular_res) * 256) // angular_res
+    for i in range(m.num_images):
+        sel = pix_img == i
+        if not sel.any():
+            continue
+        bins = (m.pix_x[sel].astype(np.int64) * 256) // w
+        best_cost, best_r = None, 0
+        for r in candidates:
+            rolled = (bins + r) % 256
+            lo, hi = rolled.min(), rolled.max()
+            cost = (hi - lo) + abs((hi + lo) / 2 - 128)
+            if best_cost is None or cost < best_cost:
+                best_cost, best_r = cost, int(r)
+        shift = (best_r * w) // 256
+        if shift == 0:
+            continue
+        new_x[sel] = (m.pix_x[sel].astype(np.int64) + shift) % w
+        new_images[i] = np.roll(images[i], shift, axis=0)
+    out = dict(cloud)
+    out["mapping"] = dataclasses.replace(m, pix_x=new_x.astype(np.int32))
+    out["images"] = new_images
+    return out
+
+
+def random_horizontal_flip(cloud: dict, rng: np.random.Generator,
+                           p: float = 0.5) -> dict:
+    """Flip images along x and mirror the pixel mappings
+    (``RandomHorizontalFlip``, image.py:1195-1219)."""
+    if rng.random() > p or cloud.get("images") is None:
+        return cloud
+    m: MultiViewMapping = cloud["mapping"]
+    w = cloud["images"].shape[1]
+    out = dict(cloud)
+    out["images"] = cloud["images"][:, ::-1].copy()
+    out["mapping"] = dataclasses.replace(
+        m, pix_x=np.where(m.pix_valid, w - 1 - m.pix_x, m.pix_x).astype(np.int32)
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
+# Radiometric augmentations (reference TorchvisionTransform family,
+# image.py:1249-1269 — flagship recipes use ColorJitter(0.6, 0.6, 0.7))
+# --------------------------------------------------------------------------
+
+def _to_unit_float(images: np.ndarray) -> np.ndarray:
+    img = np.asarray(images, np.float32)
+    if img.size and img.min() < -0.01:
+        # ImageNet-normalized stacks reach here only through a caller bug —
+        # dividing them by 255 silently collapses them to near-black
+        raise ValueError(
+            "radiometric transform applied to already-normalized images "
+            "(negative values present); apply it before normalize_images"
+        )
+    if np.issubdtype(np.asarray(images).dtype, np.integer) or (
+        img.size and img.max() > 1.5
+    ):
+        img = img / 255.0
+    return img
+
+
+def _grayscale(img: np.ndarray) -> np.ndarray:
+    # ITU-R 601 luma, matching torchvision rgb_to_grayscale
+    return (0.299 * img[..., 0] + 0.587 * img[..., 1]
+            + 0.114 * img[..., 2])[..., None]
+
+
+def color_jitter(
+    images: np.ndarray,
+    rng: np.random.Generator,
+    brightness: float = 0.6,
+    contrast: float = 0.6,
+    saturation: float = 0.7,
+) -> np.ndarray:
+    """torchvision-semantics ColorJitter on a [I, W, H, 3] stack in [0, 1]
+    (ref image.py:1249: per call one factor per property, uniform in
+    [max(0, 1-s), 1+s], applied in random order).  Factors are drawn PER
+    IMAGE here — strictly more augmentation diversity at equal cost."""
+    img = _to_unit_float(images)
+    n = img.shape[0]
+
+    def f(strength):
+        return rng.uniform(max(0.0, 1.0 - strength), 1.0 + strength,
+                           size=(n, 1, 1, 1)).astype(np.float32)
+
+    ops = []
+    if brightness > 0:
+        ops.append(lambda x: x * f(brightness))
+    if contrast > 0:
+        def _contrast(x):
+            mean = _grayscale(x).mean(axis=(1, 2, 3), keepdims=True)
+            return (x - mean) * f(contrast) + mean
+        ops.append(_contrast)
+    if saturation > 0:
+        def _saturate(x):
+            g = _grayscale(x)
+            fac = f(saturation)
+            return x * fac + g * (1.0 - fac)
+        ops.append(_saturate)
+    for i in rng.permutation(len(ops)):
+        img = ops[i](img)
+    return np.clip(img, 0.0, 1.0)
+
+
+def gaussian_blur(
+    images: np.ndarray,
+    rng: np.random.Generator,
+    kernel_size: int = 9,
+    sigma: Tuple[float, float] = (0.1, 2.0),
+) -> np.ndarray:
+    """Separable Gaussian blur with a per-call random sigma
+    (ref GaussianBlur, image.py:1262: torchvision T.GaussianBlur)."""
+    img = _to_unit_float(images)
+    s = float(rng.uniform(*sigma))
+    half = kernel_size // 2
+    xs = np.arange(-half, half + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (xs / s) ** 2)
+    k /= k.sum()
+
+    def conv_axis(x, axis):
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (half, half)
+        xp = np.pad(x, pad, mode="edge")
+        out = np.zeros_like(x)
+        for i, w in enumerate(k):
+            sl = [slice(None)] * x.ndim
+            sl[axis] = slice(i, i + x.shape[axis])
+            out += w * xp[tuple(sl)]
+        return out
+
+    return conv_axis(conv_axis(img, 1), 2)
 
 
 def normalize_images(

@@ -144,6 +144,19 @@ def test_overrides_match_jax():
     assert not spec.branches[0][1].tower_bf16
 
 
+def test_head_dropout_override_is_the_one_difference_from_jax():
+    """The port's spec takes ``head_dropout`` from ``model.overrides``; the
+    JAX ``_to_spec`` drops it.  Every other field stays equal."""
+    for name in ("Res16UNet34-L4-early-ade20k-interpolate", "Res16UNet34"):
+        got = dataclasses.asdict(tzoo.get_model_spec(
+            name, 13, 4, {"head_dropout": 0.5}))
+        want = dataclasses.asdict(jzoo.get_model_spec(
+            name, 13, 4, {"head_dropout": 0.5}))
+        assert got.pop("head_dropout") == 0.5
+        assert want.pop("head_dropout") == 0.0
+        assert got == want
+
+
 def test_bad_names_raise_like_jax():
     for mod in (tzoo, jzoo):
         with pytest.raises(KeyError):

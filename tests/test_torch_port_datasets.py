@@ -28,35 +28,12 @@ from deepviewagg_tpu_torch.data import transforms2d as tt2
 from deepviewagg_tpu_torch.data import transforms3d as tt3
 from deepviewagg_tpu_torch.data.datasets import base as tbase
 from deepviewagg_tpu_torch.data.datasets import synthetic_ds as tsds
-from torch_port_util import _torch_threads, jax_tiny_batch  # noqa: F401
+from torch_port_util import (_torch_threads, assert_identical,  # noqa: F401
+                             jax_tiny_batch)
 
 CACHE = dict(n_areas=2, density=30.0, n_cameras=3, image_size=(64, 32))
 AUG = dict(noise_sigma=0.01, rotate_axis=2, scales=[0.9, 1.1],
            symmetry_axes=[True, False, False])
-
-
-def assert_identical(a, b, path=""):
-    """Same structure; arrays of the same dtype, shape and bytes; mappings
-    and samples field by field (the two packages' classes differ)."""
-    if dataclasses.is_dataclass(a) and not isinstance(a, type):
-        assert type(a).__name__ == type(b).__name__, path
-        for f in dataclasses.fields(a):
-            assert_identical(getattr(a, f.name), getattr(b, f.name),
-                             f"{path}.{f.name}")
-    elif isinstance(a, dict):
-        assert isinstance(b, dict) and sorted(a) == sorted(b), path
-        for k in a:
-            assert_identical(a[k], b[k], f"{path}/{k}")
-    elif isinstance(a, (list, tuple)):
-        assert len(a) == len(b), path
-        for i, (x, y) in enumerate(zip(a, b)):
-            assert_identical(x, y, f"{path}/{i}")
-    elif isinstance(a, np.ndarray):
-        b = np.asarray(b)
-        assert a.dtype == b.dtype and a.shape == b.shape, path
-        assert a.tobytes() == b.tobytes(), path
-    else:
-        assert a == b, path
 
 
 def _to_torch_mapping(m):
@@ -331,8 +308,32 @@ def test_augment_params_match_jax():
 
 @pytest.mark.parametrize("option", [
     dict(center_roll=True), dict(flip_p=0.5), dict(jitter_mapping=0.01),
-    dict(color_jitter=(0.6, 0.6, 0.7)), dict(blur_p=0.1)],
+    dict(color_jitter=(0.6, 0.6, 0.7)), dict(blur_p=0.5)],
     ids=lambda o: next(iter(o)))
 def test_sphere_dataset_refuses_unported_options(jax_cache, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.2"):
-        _datasets(jax_cache, True, tbase, **option)
+    """The options ``SphereDataset`` once refused, now ported: train and eval
+    samples byte-identical to the JAX ``SphereDataset``'s under one seed, and
+    the option changes some train sample against a run without it (so that
+    a skipped transform, e.g. colour jitter on a cache wrongly classed as
+    normalised, cannot pass unseen; the cache's images are uint8).  Only
+    ``center_roll`` acts at eval."""
+    for train in (True, False):
+        jds = _datasets(jax_cache, train, jbase, **option)
+        tds = _datasets(jax_cache, train, tbase, **option)
+        plain = _datasets(jax_cache, train, tbase)
+        assert len(jds) == len(tds) > 1
+        changed = 0
+        for i in range(len(jds)):
+            ref, got, base = jds[i], tds[i], plain[i]
+            if ref is None:
+                assert got is None and base is None
+                continue
+            assert_identical(ref, got)
+            try:
+                assert_identical(got, base)
+            except AssertionError:
+                changed += 1
+        if train or "center_roll" in option:
+            assert changed, (option, train)
+        else:
+            assert not changed, (option, train)

@@ -59,6 +59,20 @@ def test_experiment_loop_modules_are_covered(rel):
     assert not roots & (set(FORBIDDEN) | {"yaml", "train"})
 
 
+@pytest.mark.parametrize("rel", [
+    "cli/eval.py", "cli/predict.py", "data/inference_transform.py",
+    "utils/ply.py"])
+def test_eval_and_predict_modules_are_covered(rel):
+    """The evaluation and prediction files exist, are among the files the
+    import check walks, and import neither package's counterpart, nor
+    PyYAML, nor the root ``eval.py`` / ``predict.py`` / ``train.py``."""
+    path = PKG / rel
+    assert path in sorted(PKG.rglob("*.py"))
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN)
+                                  | {"yaml", "eval", "predict", "train"})
+
+
 @pytest.mark.parametrize("rel", ["data/crop_groups.py",
                                  "modules/multibucket.py"])
 def test_crop_ladder_modules_are_covered(rel):
@@ -156,6 +170,8 @@ def test_entry_points_default_to_the_card():
     from deepviewagg_tpu_torch.cli import train as cli
     from deepviewagg_tpu_torch.data import collate, geometric, mapping_factory, toy
     from deepviewagg_tpu_torch.data.datasets import synthetic_ds
+    from deepviewagg_tpu_torch.data.inference_transform import ModelInference
+    from deepviewagg_tpu_torch.metrics.tracker import VoteAccumulator
     from deepviewagg_tpu_torch.models import segmentation
 
     for fn in (toy.toy_batch, toy.toy_samples, toy.recipe_batch,
@@ -164,5 +180,21 @@ def test_entry_points_default_to_the_card():
                segmentation.MultimodalSeg.__init__,
                segmentation.SparseConv3dSeg.__init__,
                segmentation.build_model, synthetic_ds.build_synthetic_cache,
-               synthetic_ds.make_synthetic_dataset, cli.build_dataset):
+               synthetic_ds.make_synthetic_dataset, cli.build_dataset,
+               ModelInference.__init__, VoteAccumulator.full_res_preds):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("entry", ["train", "eval", "predict"])
+def test_cli_device_flags_default_to_the_card(entry):
+    """Each CLI's ``--device`` defaults to ``cuda``."""
+    import importlib
+
+    mod = importlib.import_module(f"deepviewagg_tpu_torch.cli.{entry}")
+    tree = ast.parse(inspect.getsource(mod))
+    defaults = [kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--device"
+                for kw in node.keywords if kw.arg == "default"]
+    assert defaults == ["cuda"]

@@ -3,6 +3,7 @@ inputs go through the JAX package and the PyTorch port on the CPU."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -175,6 +176,30 @@ def flat_leaves(tree, prefix=()):
         else:
             out["/".join(prefix + (k,))] = v
     return out
+
+
+def assert_identical(a, b, path=""):
+    """Same structure; arrays of the same dtype, shape and bytes; mappings
+    and samples field by field (the two packages' classes differ)."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            assert_identical(getattr(a, f.name), getattr(b, f.name),
+                             f"{path}.{f.name}")
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), path
+        for k in a:
+            assert_identical(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_identical(x, y, f"{path}/{i}")
+    elif isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+    else:
+        assert a == b, path
 
 
 def rel_err(a, b) -> float:
