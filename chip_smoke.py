@@ -48,7 +48,23 @@ exit) on any fault:
               steps from the same weights (step ms and peak memory without
               the default ``'convs'`` remat, same first loss)
   7. card vs CPU, one train step  from identical weights on the smaller
-              request: loss within 1e-2 relative, gradient norm within 3e-2
+              request: loss within 1e-2 relative, gradient norm within 3e-2;
+              then the same check on the step's other paths: 7a head
+              dropout 0.5 (one dropout generator on both), 7b Adam, 7c
+              AdamW (each one update and the step after it), 7d a frozen
+              tower (its parameters do not move), 7e gradient accumulation
+              over 2 (nothing moves until the second mini-step), 7f float32
+              tower activations, 7g float32 everywhere (every convolution's
+              operands too); every loss within 1e-2, the gradient norm within 3e-2
+              at the start weights and 1e-1 after an update; 7e and 7f
+              compare both devices' max routing (ties, near ties, pairs
+              routed apart) and run the CPU once more with the card's
+              routing imposed (gaps logged), and split the update's
+              card-vs-CPU difference by parameter (as phase 7 and 8e do);
+              7g (float32 everywhere) holds the loss within 1e-4, the
+              gradient norm within 2e-3 and the whole update within 5e-2,
+              and runs the CPU once more on half its threads (the same
+              step's spread on one device)
   8. recipe request  the crop-ladder batch at the S3DIS recipe's 2D size
               (``recipe_batch()``: 2 samples, 4 panoramas of 1024 x 512 in
               the ladder's largest bucket, about 934k pixel rows; three
@@ -95,8 +111,8 @@ exit) on any fault:
                   synthetic`` (``RECIPE_LOOP``): the recipe's model at its
                   published widths (deep-stem 512-d L4 tower, group-4 pool,
                   concat before the stem, trained from scratch), batch 4,
-                  4 image slots of 1024 x 512, 2 m spheres at 5 cm, two
-                  epochs of 48 spheres with an eval each, with the recipe's
+                  4 image slots of 1024 x 512, 2 m spheres at 5 cm, one
+                  epoch of 48 spheres with an eval, with the recipe's
                   augmentations (centre roll, flip 0.5, mapping jitter 0.02,
                   colour jitter (0.6, 0.6, 0.7): each must be called, on
                   raw cached images) and the raw clouds kept in the cache;
@@ -129,6 +145,19 @@ exit) on any fault:
                   points) as ``.npz`` and as ``.ply``: equal
                   labels, one per voxel; forward ms, voxels/s, peak memory,
                   segment launches (none: no image branch)
+              9e  the S3DIS loader from a 2D-3D-S raw layout written here
+                  (Area_1 with two rooms, Area_5 with one, three panoramas
+                  of 2048 x 1024 a room): ``cli.train`` with
+                  ``conf/s3dis_benchmark.yaml`` for one epoch and an eval
+                  (the preprocess timed in its parts; exact mappings, no
+                  pixel on the static band; the four augmentations called;
+                  the first train batch's segment calls held against their
+                  plain versions and timed), one exact z-buffer card vs CPU
+                  (>= 99.9% of the seen pixels), then ``cli.eval
+                  --voting_runs 2 --full_res``: 6 + 0 launches a batch,
+                  votes doubled, one prediction per raw point of Area_5,
+                  the eval bucket's caps, and the first eval batch's
+                  segment calls held against their plain versions and timed
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -140,13 +169,16 @@ and times (``ms``: device time of the kernel alone, summed over the calls of
 one forward or one train step; ``call_ms``: the same calls through the
 wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
 same for phase 9b's first train batch; ``loop_eval`` (forward only): the
-same for phase 9c's first eval batch; ``launches_loop_*``: the counts over
-phase 9's runs, 9c's eval and 9d's predictions).  Needs a CUDA card,
+same for phase 9c's first eval batch; ``loop_s3dis`` and
+``loop_s3dis_eval``: for 9e's first train and eval batches;
+``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
+predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -168,6 +200,8 @@ from deepviewagg_tpu_torch.data.toy import (  # noqa: E402
 from deepviewagg_tpu_torch.models.losses import segmentation_loss  # noqa: E402
 from deepviewagg_tpu_torch.models.segmentation import MultimodalSeg  # noqa: E402
 from deepviewagg_tpu_torch.modules import gather as pixel_gather  # noqa: E402
+from deepviewagg_tpu_torch.modules.image_encoders import (  # noqa: E402
+    f32_convs, run_tower)
 from deepviewagg_tpu_torch.nn.norm import MaskedBatchNorm  # noqa: E402
 from deepviewagg_tpu_torch.ops import segment as seg  # noqa: E402
 from deepviewagg_tpu_torch.train.optimizers import (  # noqa: E402
@@ -198,6 +232,27 @@ TUNE_TILES = (32, 64, 128, 256, 512, 1024, 2048)
 # gather's scatter-add differ
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 3e-2
+# after an update the two devices' weights differ as well: the gradient
+# norm's gap read 4.9e-3 and 5.8e-3 after an Adam / AdamW update and 7.3e-2
+# after an accumulated SGD one (7e) on an H100
+TRAIN_GRAD_NORM_AFTER_RTOL = 1e-1
+UPDATE_GAP_TOP = 5                 # parameters named by ``log_update_gap``
+# 7g, float32 everywhere: no bf16 rounding to amplify, so card and CPU must
+# agree closely in the whole update, not only in its norm (an H100 read a
+# loss gap of 0, 2.2e-4 in the gradient norm and 7.1e-3 in the update; with
+# bf16 operands the update differs by 0.59)
+ALL_F32_LOSS_RTOL = 1e-4
+ALL_F32_GRAD_NORM_RTOL = 2e-3
+ALL_F32_UPDATE_RTOL = 5e-2
+# phase 7's variants: Adam and AdamW at a learning rate where one step
+# moves the loss without leaving the basin (the second call's loss is
+# compared too)
+VARIANT_ADAM_LR = 1e-3
+# the accumulated step at a tenth of phase 7's LR: at 0.1 one update takes
+# the check request's loss from 1.77 to 0.64, and the loss after it
+# differed between an H100 and the CPU by 8.7e-3, most of the 1e-2 bound
+ACCUMULATE_LR = 1e-2
+MOVED_SHARE = 0.99
 # the recipe request: recipe_batch()'s defaults; the card vs CPU check takes
 # the flat check's request as a ladder batch (ladder (64, 32), (128, 64)),
 # so that the same bounds apply: at 64 x 32 images the tower's maps are 8 x 4
@@ -214,8 +269,9 @@ VIEW_POOL_FORWARD, VIEW_POOL_BACKWARD = 5, 4
 REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
 # phase 9: the experiment loop through ``deepviewagg_tpu_torch.cli.train``;
 # the S3DIS recipe (conf/s3dis_benchmark.yaml) on synthetic rooms, cut to
-# two epochs of 48 spheres (12 batches) with an eval every epoch (the
-# recipe: 200 x 2000, eval every 5); rooms of 6 x 4 x 2.6 m at 600 points
+# one epoch of 48 spheres (12 batches) with an eval (the recipe: 200 x 2000,
+# eval every 5; two epochs before 9e came, which needs their time); rooms
+# of 6 x 4 x 2.6 m at 600 points
 # per m^2, six 1024 x 512 panoramas each, so that a 2 m sphere at 5 cm holds
 # about as many voxels as the cache's 6 cm grid gives
 CONF = Path(__file__).resolve().parent / "conf"
@@ -224,7 +280,7 @@ QUICK_EPOCHS = 2
 # roll at train and eval, flip, mapping jitter, colour jitter at train) and
 # keeps the raw clouds for 9c's full-resolution remap
 RECIPE_LOOP = ("data.dataset=synthetic", "data.samples_per_epoch=48",
-               "training.epochs=2", "training.eval_frequency=1",
+               "training.epochs=1", "training.eval_frequency=1",
                "data.kwargs={n_areas: 2, density: 600.0, n_cameras: 6, "
                "keep_raw: true, aug_params: {center_roll: true, flip_p: 0.5, "
                "jitter_mapping: 0.02, color_jitter: [0.6, 0.6, 0.7]}}")
@@ -239,6 +295,29 @@ ONE_ROOM = "data.kwargs.n_areas=1"
 EVAL_METRIC_ATOL = 1e-2            # card vs CPU, metrics as fractions
 VOTE_RTOL = 1e-6                   # two sums of the same logits, reordered
 PREDICT_SPHERES = 8
+# phase 9e: the S3DIS loader end to end, from a synthetic 2D-3D-S raw layout
+# written here (the card's machine has neither PIL nor the release):
+# Area_1 with two rooms, Area_5 (the eval fold) with one, each room made by
+# data/synthetic.py as in 9b (6 x 4 x 2.6 m at 600 points per m^2, the
+# second room of an area 8 m along x), split by label into S3DIS class
+# names, with three panoramas at the release's 2048 x 1024 (the preprocess
+# resizes them to its 1024 x 512) whose rows cycle through the five PNG
+# filter types and whose bottom 64 rows are one static band (a capture rig,
+# for the non-static mask); cli.train with conf/s3dis_benchmark.yaml for
+# one epoch of 24 spheres and an eval, then cli.eval with two voting runs
+# and the full-resolution remap
+S3DIS_AREAS = {1: 2, 5: 1}             # area -> rooms
+S3DIS_PANORAMAS = 3                    # per room
+S3DIS_PANORAMA = (2048, 1024)
+S3DIS_DENSITY = 600.0                  # points per m^2
+S3DIS_RIG_ROWS = 64
+S3DIS_CLASS_NAMES = ("floor", "ceiling", "wall", "table")  # synthetic labels
+S3DIS_LOOP = ("data.samples_per_epoch=24", "training.epochs=1",
+              "training.eval_frequency=1",
+              "data.kwargs={fold: 5, keep_raw: true}")
+S3DIS_PARTS = ("txt", "voxel", "pca_knn", "mapping", "zbuffer", "png",
+               "mask", "cache_write")
+ZBUFFER_AGREE = 0.999                  # card vs CPU, of the seen pixels
 
 
 def log(phase: str, **fields) -> None:
@@ -299,6 +378,12 @@ def kernel_ms(launch, tries: int = 3) -> tuple:
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``|a - b| / |b|`` in the 2-norm."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
 def valid_voxels(batch) -> int:
@@ -879,27 +964,452 @@ def phase_training(model, np_batch, check_batch) -> dict:
 
 
 def phase_train_card_vs_cpu(model, np_batch, phase="7 train card vs cpu"
-                            ) -> None:
-    """One train step from identical weights on the card and on the CPU."""
-    got = {}
-    for device in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(device)
-        state = TrainState.create(m, make_optimizer(
-            make_schedule("constant", 0.1), grad_clip=10.0))
-        _, metrics = make_train_step(m)(
-            state, batch_to_torch(np_batch, device), None)
-        got[device] = (float(metrics["loss"]), float(metrics["grad_norm"]))
-        del m, state
-    (loss, gnorm), (ref_loss, ref_gnorm) = got["cuda"], got["cpu"]
+                            ) -> dict:
+    """One train step from identical weights on the card and on the CPU
+    (``variant_steps`` with phase 7's optimizer); returns the loss and the
+    relative errors of the loss and of the gradient norm."""
+    got = variant_steps(model, np_batch, 1)
+    (loss,), (ref_loss,) = got["cuda"]["losses"], got["cpu"]["losses"]
+    (gnorm,), (ref_gnorm,) = got["cuda"]["norms"], got["cpu"]["norms"]
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     gnorm_err = abs(gnorm - ref_gnorm) / abs(ref_gnorm)
     log(phase, voxels=valid_voxels(np_batch),
         loss=f"{loss:.6f}", cpu_loss=f"{ref_loss:.6f}",
         loss_rel_err=f"{loss_err:.3e}", grad_norm=f"{gnorm:.5f}",
         cpu_grad_norm=f"{ref_gnorm:.5f}", grad_norm_rel_err=f"{gnorm_err:.3e}")
+    log_update_gap(phase, got["cuda"]["params"], got["cpu"]["params"], 0)
     if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GRAD_NORM_RTOL):
         raise AssertionError(
             f"card and CPU train steps disagree: {loss_err}, {gnorm_err}")
+    return {"loss": loss, "loss_rel_err": loss_err,
+            "grad_norm_rel_err": gnorm_err}
+
+
+@contextlib.contextmanager
+def f32_everywhere():
+    """Float32 operands in every convolution: the towers'
+    (``f32_convs``) and the sparse UNet's, which round them to bf16
+    otherwise."""
+    from deepviewagg_tpu_torch.nn import sparse_blocks as blocks
+
+    saved = plain, subm, pair = (blocks.sparse_conv,
+                                 blocks.sparse_conv_submanifold,
+                                 blocks.sparse_conv_pair)
+    blocks.sparse_conv = lambda f, w, n, bias=None, compute_dtype=None: \
+        plain(f, w, n, bias, torch.float32)
+    blocks.sparse_conv_submanifold = lambda f, w, n, cd=None: subm(
+        f, w, n, torch.float32)
+    blocks.sparse_conv_pair = lambda f, w, n, nt, cd=None: pair(
+        f, w, n, nt, torch.float32)
+    try:
+        with f32_convs():
+            yield
+    finally:
+        (blocks.sparse_conv, blocks.sparse_conv_submanifold,
+         blocks.sparse_conv_pair) = saved
+
+
+class MaxRouting:
+    """A seam on ``seg.segment_csr_bwd`` for one run.  Every 'max' call
+    records which elements attain their segment's max, i.e. where its
+    cotangent goes (``segment_csr_bwd_plain`` of a cotangent of ones), and,
+    over the (segment, channel) pairs that hold a valid row, how many
+    attaining rows each has (``counts``: two or more is a tie, each of whose
+    rows gets the whole cotangent) and how many have a runner-up exactly one
+    ulp below the max (``near``).  With ``impose`` (the ``masks`` of another
+    run, in call order) the i-th 'max' call routes its cotangent by
+    ``impose[i]`` instead, in plain torch; 'sum' calls pass through."""
+
+    def __init__(self, impose=None):
+        self.impose = impose
+        self.masks, self.ids, self.counts, self.near = [], [], [], []
+
+    def __enter__(self):
+        self.inner = inner = seg.segment_csr_bwd
+
+        def route(g, x, out, ptr, valid, reduce, num_rows=None):
+            if reduce != "max":
+                return inner(g, x, out, ptr, valid, reduce, num_rows)
+            mask = seg.segment_csr_bwd_plain(torch.ones_like(g), x, out, ptr,
+                                             valid, "max") != 0
+            ids, keep = seg._row_segments(ptr, x.shape[0])
+            if valid is not None:
+                keep = keep & valid
+            below = torch.nextafter(out, torch.full_like(out, -np.inf))
+            near = keep[:, None] & ~mask & (x == below[ids]) \
+                & (x > seg._NEG / 2)
+
+            def per_pair(m):
+                return torch.zeros_like(g).index_add_(0, ids, m.float())
+
+            self.counts.append(per_pair(mask).cpu())
+            self.near.append(int((per_pair(near) > 0).sum()))
+            self.masks.append(mask.cpu())
+            self.ids.append(ids.cpu())
+            if self.impose is None:
+                return inner(g, x, out, ptr, valid, reduce, num_rows)
+            imposed = self.impose[len(self.masks) - 1].to(g.device)
+            if imposed.shape != mask.shape:
+                raise AssertionError(f"imposed routing {imposed.shape} for "
+                                     f"{mask.shape}")
+            return torch.where(imposed, g[ids], 0.0)
+
+        seg.segment_csr_bwd = route
+        return self
+
+    def __exit__(self, *exc):
+        seg.segment_csr_bwd = self.inner
+
+
+def routing_differences(card: MaxRouting, cpu: MaxRouting) -> list:
+    """Per 'max' call of two runs of the same step: the pairs that hold a
+    row, the tied and near-tied pairs on each, and the pairs whose attaining
+    rows differ between them (``differ``), ``differ_tied`` of them tied on
+    one side or both."""
+    out = []
+    for i, (a, b) in enumerate(zip(card.masks, cpu.masks)):
+        n_a, n_b = card.counts[i], cpu.counts[i]
+        differ = torch.zeros_like(n_a).index_add_(
+            0, card.ids[i], (a ^ b).float()) > 0
+        tied = (n_a > 1) | (n_b > 1)
+        out.append({"rows": a.shape[0], "channels": a.shape[1],
+                    "pairs": int((n_a > 0).sum()),
+                    "tied": f"{int((n_a > 1).sum())}/{int((n_b > 1).sum())}",
+                    "near": f"{card.near[i]}/{cpu.near[i]}",
+                    "differ": int(differ.sum()),
+                    "differ_tied": int((differ & tied).sum())})
+    return out
+
+
+def variant_steps(model, np_batch, calls: int, spec_changes=None,
+                  branch_changes=None, dropout_seed=None, lr: float = 0.1,
+                  routing: bool = False, all_f32: bool = False,
+                  **opt) -> dict:
+    """``calls`` train steps of a variant of ``model`` (its spec changed,
+    its weights as they are) from identical weights on the card and on the
+    CPU.  ``dropout_seed``: one CPU generator of that seed on each device,
+    so that both draw the same dropout masks (``_uniform`` moves the draws
+    to the card).  Returns per device the losses, the gradient norms and
+    the parameters before and after every call (on the host).  With
+    ``routing``, both runs record their max routing (``MaxRouting``) and
+    the CPU runs once more with the card's routing imposed on every call
+    (``got["cpu_card_routing"]``; the recorders under ``"routing"``); each
+    of the three runs also keeps its tower's outputs and the cotangents that
+    reached them (``TowerSeam``, under ``"tower"``).
+    ``all_f32``: every convolution takes float32 operands on both devices
+    (``f32_everywhere``), and the CPU runs once more on half its threads
+    (``got["cpu_threads"]``, recorded as the routing runs are): the same
+    step in another summation order on the same device."""
+    spec = model.spec
+    if branch_changes:
+        spec = dataclasses.replace(spec, branches=tuple(
+            (level, dataclasses.replace(b, **branch_changes))
+            for level, b in spec.branches))
+    if spec_changes:
+        spec = dataclasses.replace(spec, **spec_changes)
+
+    def run_on(device, router):
+        m = MultimodalSeg(spec, device=device, seed=0)
+        m.load_state_dict(model.state_dict())
+        state = TrainState.create(m, make_optimizer(
+            make_schedule("constant", lr), grad_clip=10.0, **opt))
+        step = make_train_step(m)
+        batch = batch_to_torch(np_batch, device)
+        gen = None if dropout_seed is None else \
+            torch.Generator().manual_seed(dropout_seed)
+
+        def params():
+            return {k: p.detach().cpu().clone()
+                    for k, p in m.named_parameters()}
+
+        run = {"losses": [], "norms": [], "params": [params()]}
+        seam = TowerSeam() if router else contextlib.nullcontext()
+        with router or contextlib.nullcontext(), seam, \
+                f32_everywhere() if all_f32 else contextlib.nullcontext():
+            for _ in range(calls):
+                _, metrics = step(state, batch, gen)
+                run["losses"].append(float(metrics["loss"]))
+                run["norms"].append(float(metrics["grad_norm"]))
+                run["params"].append(params())
+        if router:
+            run["tower"] = (seam.outputs, seam.cotangents)
+        return run
+
+    routers = {d: MaxRouting() for d in ("cuda", "cpu")} if routing else {}
+    got = {d: run_on(d, routers.get(d)) for d in ("cuda", "cpu")}
+    if routing:
+        imposed = MaxRouting(impose=routers["cuda"].masks)
+        got["cpu_card_routing"] = run_on("cpu", imposed)
+        got["routing"] = routers
+    if all_f32:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            router = MaxRouting()
+            got["cpu_threads"] = run_on("cpu", router)
+            got["cpu_threads"]["router"] = router
+        finally:
+            torch.set_num_threads(threads)
+    return got
+
+
+def moved(before: dict, after: dict) -> set:
+    return {k for k in before if not torch.equal(before[k], after[k])}
+
+
+def log_update_gap(phase: str, card: list, cpu: list, call: int,
+                   against: str = "cpu") -> float:
+    """Where two runs' updates at ``call`` differ (parameters before and
+    after each call, as ``variant_steps`` keeps them; the same weights
+    before it).  SGD's first update is linear in the gradient and the weight
+    decay term is equal on both, so this splits the gradients' difference:
+    its norm relative to the CPU's update, the tower's share of its square,
+    and the ``UPDATE_GAP_TOP`` parameters with the largest shares, each with
+    its own relative difference; returns the first of these."""
+    diff, base = {}, {}
+    for k in card[call]:
+        a = (card[call + 1][k] - card[call][k]).double()
+        b = (cpu[call + 1][k] - cpu[call][k]).double()
+        diff[k], base[k] = float((a - b).square().sum()), float(
+            b.square().sum())
+    total = sum(diff.values())
+    tower = sum(v for k, v in diff.items() if k.startswith("branch_l0.tower."))
+    rel = (total / sum(base.values())) ** 0.5
+    log(phase, against=against, update_rel_diff=f"{rel:.3e}",
+        tower_share=f"{tower / total:.3f}" if total else "none")
+    for k in sorted(diff, key=diff.get, reverse=True)[:UPDATE_GAP_TOP]:
+        if diff[k]:
+            log(phase, against=against, param=k,
+                share=f"{diff[k] / total:.3f}",
+                rel_diff=f"{(diff[k] / base[k]) ** 0.5:.3e}" if base[k]
+                else "inf")
+    return rel
+
+
+def rel_errs(a: list, b: list) -> list:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def log_routing(phase: str, got: dict, calls: int, moves: list) -> float:
+    """The routing split of a ``variant_steps(..., routing=True)`` run:
+    per 'max' call of each step, the pairs the two devices route apart
+    (``routing_differences``); per step, the tower's output and the
+    cotangent reaching it, card against the CPU and against the CPU with
+    the card's routing imposed; at the first update, where it differs by
+    parameter against either (``log_update_gap``); with ``"cpu_threads"``,
+    the same for the CPU against itself on half its threads.  Returns
+    the card's update difference from the CPU's."""
+    routers = got["routing"]
+    per_call = len(routers["cuda"].masks) // calls
+    for i, diff in enumerate(routing_differences(routers["cuda"],
+                                                 routers["cpu"])):
+        log(phase, routing="card/cpu", call=i // per_call,
+            max_call=i % per_call, **diff)
+    (out, cot), (cpu_out, cpu_cot), (_, imposed_cot) = (
+        got[k]["tower"] for k in ("cuda", "cpu", "cpu_card_routing"))
+    for i in range(calls):
+        log(phase, call=i, tower_output_rel_diff=(
+            f"{norm_rel(out[i], cpu_out[i]):.3e}"),
+            cotangent_rel_diff=f"{norm_rel(cot[i], cpu_cot[i]):.3e}",
+            routed_cotangent_rel_diff=(
+                f"{norm_rel(cot[i], imposed_cot[i]):.3e}"))
+    first = next(i for i, m in enumerate(moves) if m)
+    rel = log_update_gap(phase, got["cuda"]["params"], got["cpu"]["params"],
+                         first)
+    log_update_gap(phase, got["cuda"]["params"],
+                   got["cpu_card_routing"]["params"], first,
+                   "cpu_card_routing")
+    if "cpu_threads" in got:
+        other = got["cpu_threads"]
+        for i, diff in enumerate(routing_differences(routers["cpu"],
+                                                     other["router"])):
+            log(phase, routing="cpu/cpu_half_threads", call=i // per_call,
+                max_call=i % per_call, **diff)
+        (t_out, t_cot) = other["tower"]
+        for i in range(calls):
+            log(phase, call=i, against="cpu_half_threads",
+                tower_output_rel_diff=f"{norm_rel(t_out[i], cpu_out[i]):.3e}",
+                cotangent_rel_diff=f"{norm_rel(t_cot[i], cpu_cot[i]):.3e}")
+        log_update_gap(phase + " cpu", other["params"], got["cpu"]["params"],
+                       first, "cpu_half_threads")
+    return rel
+
+
+def phase_train_variants(model, np_batch, plain: dict) -> None:
+    """Phase 7's card vs CPU check on the paths of the train step that the
+    flagship step leaves out (ROADMAP C): dropout, Adam, AdamW, a frozen
+    tower, gradient accumulation, and the flat step with float32 towers
+    (7f: float32 activations, the convolutions' operands still bf16) and
+    with float32 everywhere (7g: the towers' and the sparse UNet's
+    convolution operands too).
+    Every call's loss to phase 7's bound, the gradient norm to phase 7's
+    bound at the start weights and to ``TRAIN_GRAD_NORM_AFTER_RTOL`` after
+    an update, and the parameters that must (not) move.  7e-7g also split
+    the gap by cause (``log_routing``): both devices' max routing (ties,
+    near ties, pairs routed apart), the CPU again with the card's routing
+    imposed (loss and gradient norm gaps as ``routed_*``), the cotangent
+    reaching the tower, the update by parameter.  7g, with no bf16 rounding
+    to amplify, holds loss, gradient norm and the whole update to the
+    ``ALL_F32_*`` bounds, beside the CPU against itself on half its
+    threads."""
+    names = [k for k, _ in model.named_parameters()]
+    tower = {k for k in names if k.startswith("branch_l0.tower.")}
+    variants = [
+        ("7a dropout", dict(spec_changes={"head_dropout": 0.5},
+                            dropout_seed=0), 1),
+        ("7b adam", dict(optimizer="adam", lr=VARIANT_ADAM_LR), 2),
+        ("7c adamw", dict(optimizer="adamw", lr=VARIANT_ADAM_LR), 2),
+        ("7d frozen tower", dict(branch_changes={"frozen": True},
+                                 freeze_paths=(("branch_l0", "tower"),)), 1),
+        ("7e accumulate 2", dict(grad_accumulate=2, lr=ACCUMULATE_LR,
+                                 routing=True), 3),
+        ("7f tower f32", dict(branch_changes={"tower_bf16": False},
+                              routing=True), 1),
+        ("7g all f32", dict(branch_changes={"tower_bf16": False},
+                            all_f32=True, routing=True), 1),
+    ]
+    for phase, kw, calls in variants:
+        t0 = time.perf_counter()
+        got = variant_steps(model, np_batch, calls, **kw)
+        card, cpu = got["cuda"], got["cpu"]
+        loss_err = rel_errs(card["losses"], cpu["losses"])
+        norm_err = rel_errs(card["norms"], cpu["norms"])
+        moves = {d: [moved(got[d]["params"][i], got[d]["params"][i + 1])
+                     for i in range(calls)] for d in ("cuda", "cpu")}
+        fields = {}
+        # per call: the parameters that must not move, and the least share
+        # of the others that must (a parameter whose gradient is exactly
+        # zero may stay, as under Adam)
+        rules = [(set(), MOVED_SHARE)] * calls
+        if phase == "7a dropout":
+            # the masks acted: not the loss of phase 7's plain step
+            fields["plain_loss"] = f"{plain['loss']:.6f}"
+            if abs(card["losses"][0] - plain["loss"]) <= 1e-6 * abs(
+                    plain["loss"]):
+                raise AssertionError(f"{phase}: dropout changed no loss")
+        elif phase == "7d frozen tower":
+            rules = [(tower, MOVED_SHARE)]
+            fields["frozen_params"] = len(tower)
+        elif phase == "7e accumulate 2":
+            # the first mini-step moves nothing, the second the rest; the
+            # third (the loss after the update) starts a new accumulation
+            rules = [(set(names), 0.0), (set(), MOVED_SHARE),
+                     (set(names), 0.0)]
+        elif phase.startswith("7f") or phase.startswith("7g"):
+            fields.update(bf16_loss_rel_err=f"{plain['loss_rel_err']:.3e}",
+                          bf16_grad_norm_rel_err=(
+                              f"{plain['grad_norm_rel_err']:.3e}"))
+        for device, runs in moves.items():
+            for i, (run, (still, share)) in enumerate(zip(runs, rules)):
+                free = set(names) - still
+                if run & still or len(run) < share * len(free):
+                    raise AssertionError(
+                        f"{phase} on {device}, call {i}: {len(run)} of "
+                        f"{len(names)} parameters moved, "
+                        f"{len(run & still)} of them must not")
+        routed = None
+        if "cpu_card_routing" in got:
+            imposed = got["cpu_card_routing"]
+            routed = (rel_errs(card["losses"], imposed["losses"]),
+                      rel_errs(card["norms"], imposed["norms"]))
+            fields.update(
+                routed_loss_rel_err="/".join(f"{x:.3e}" for x in routed[0]),
+                routed_grad_norm_rel_err="/".join(
+                    f"{x:.3e}" for x in routed[1]))
+        log(phase, calls=calls,
+            loss="/".join(f"{x:.6f}" for x in card["losses"]),
+            cpu_loss="/".join(f"{x:.6f}" for x in cpu["losses"]),
+            loss_rel_err="/".join(f"{x:.3e}" for x in loss_err),
+            grad_norm_rel_err="/".join(f"{x:.3e}" for x in norm_err),
+            moved="/".join(str(len(r)) for r in moves["cuda"]),
+            seconds=f"{time.perf_counter() - t0:.1f}", **fields)
+        if routed is not None:
+            update_rel = log_routing(phase, got, calls, moves["cuda"])
+        # phase 7's gradient-norm bound holds at the start weights; after an
+        # update the two devices' weights differ too
+        at_start = [not any(moves["cuda"][:i]) for i in range(calls)]
+        norm_bad = [e > (TRAIN_GRAD_NORM_RTOL if start
+                         else TRAIN_GRAD_NORM_AFTER_RTOL)
+                    for e, start in zip(norm_err, at_start)]
+        if max(loss_err) > TRAIN_LOSS_RTOL or any(norm_bad):
+            raise AssertionError(f"{phase}: card and CPU disagree: "
+                                 f"{loss_err}, {norm_err}")
+        if kw.get("all_f32") and not (
+                loss_err[0] <= ALL_F32_LOSS_RTOL
+                and norm_err[0] <= ALL_F32_GRAD_NORM_RTOL
+                and update_rel <= ALL_F32_UPDATE_RTOL):
+            raise AssertionError(f"{phase}: card and CPU disagree in float32: "
+                                 f"{loss_err}, {norm_err}, {update_rel}")
+        del got
+
+
+class TowerSeam:
+    """A seam on the branch's ``run_tower`` for one run: every call's output
+    and the cotangent that reaches it (on the host), in call order."""
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.modules import branch
+
+        self.outputs, self.cotangents = [], []
+        self.owner, self.inner = branch, branch.run_tower
+
+        def run(*args, **kwargs):
+            y = self.inner(*args, **kwargs)
+            self.outputs.append(y.detach().cpu())
+            if y.requires_grad:
+                y.register_hook(lambda g: self.cotangents.append(g.cpu()))
+            return y
+
+        branch.run_tower = run
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.run_tower = self.inner
+
+
+def phase_tower_card_vs_cpu(model, np_batch) -> None:
+    """7h: the tower alone on each device from the same images and the
+    same seeded cotangent on its output, float32 operands and activations
+    (``f32_convs``), train mode, with its input as the branch hands it (an
+    NHWC tensor permuted to NCHW: channels-last strides) or contiguous, and
+    with remat off or the branch's: each parameter gradient against the
+    CPU's contiguous, remat-off one (all of them as one vector, and the
+    worst parameter)."""
+    phase = "7h tower alone card vs cpu"
+    images = {d: batch_to_torch(np_batch, d)["images"] for d in ("cpu", "cuda")}
+    with torch.no_grad():
+        shape = run_tower(copy.deepcopy(model.branch_l0.tower).cpu(),
+                          images["cpu"], bf16=False).shape
+    cotangent = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    remat = model.branch_l0.remat_tower
+    grads, names = {}, [k for k, _ in model.branch_l0.tower.named_parameters()]
+    for device in ("cpu", "cuda"):
+        nchw = images[device].permute(0, 3, 1, 2)
+        for layout in ("contiguous", "channels_last"):
+            # run_tower permutes NHWC to NCHW: hand it the NHWC view of the
+            # layout wanted
+            x = nchw.contiguous() if layout == "contiguous" else \
+                nchw.contiguous(memory_format=torch.channels_last)
+            for mode in (False, remat):
+                tower = copy.deepcopy(model.branch_l0.tower).to(device)
+                with f32_convs():
+                    y = run_tower(tower, x.permute(0, 2, 3, 1), True,
+                                  remat=mode, bf16=False)
+                    y.backward(cotangent.to(device))
+                grads[device, layout, mode] = (
+                    y.detach().cpu(),
+                    [p.grad.detach().cpu() for p in tower.parameters()])
+                del tower, y
+    ref_y, ref = grads["cpu", "contiguous", False]
+    ref_flat = torch.cat([g.reshape(-1) for g in ref])
+    for (device, layout, mode), (y, g) in grads.items():
+        flat = torch.cat([t.reshape(-1) for t in g])
+        per = [norm_rel(a, b) for a, b in zip(g, ref)]
+        worst = int(np.argmax(per))
+        log(phase, tower_alone=device, layout=layout, remat=mode,
+            output_rel_diff=f"{norm_rel(y, ref_y):.3e}",
+            grad_rel_diff=f"{norm_rel(flat, ref_flat):.3e}",
+            worst_param=names[worst], worst_rel_diff=f"{per[worst]:.3e}")
 
 
 def phase_card_vs_cpu(model, np_batch, phase="4 card vs cpu") -> None:
@@ -1434,7 +1944,7 @@ def loop_recipe(cli, tmp: Path) -> dict:
     if any(shape[1:3] != RECIPE_IMAGE_SIZE for shape in probe.train_images):
         raise AssertionError(f"image batches {probe.train_images}")
     records = read_records(run_dir)
-    if len(records) != 2 or not all("val_miou" in r for r in records):
+    if len(records) != 1 or "val_miou" not in records[0]:
         raise AssertionError(f"metrics.jsonl: {records}")
     # colour jitter runs on raw (uint8 or non-negative float) caches only
     from deepviewagg_tpu_torch.data.datasets.base import load_area
@@ -1798,6 +2308,309 @@ def loop_predict(tmp: Path) -> dict:
     return launches
 
 
+def s3dis_panorama(pos, rgb, camera, rig, seed: int) -> np.ndarray:
+    """``uint8 [H, W, 3]``: a smooth background with noise, each point's
+    colour at its projected pixel (the nearest point wins), the static rig
+    band at the bottom."""
+    from deepviewagg_tpu_torch.core.cameras import project
+
+    w, h = camera.size
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = (np.sin(x / (40.0 + seed))[..., None] * 50
+           + np.cos(y / 23.0)[..., None] * 40 + 110
+           + rng.normal(0, 6, (h, w, 3)).astype(np.float32))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    px, py, dist, valid = (t.numpy() for t in project(
+        torch.from_numpy(pos), camera))
+    order = np.argsort(-dist[valid], kind="stable")  # the nearest last
+    xi = px[valid].astype(np.int64)[order]
+    yi = py[valid].astype(np.int64)[order]
+    img[yi, xi] = np.round(rgb[valid][order] * 255).astype(np.uint8)
+    img[h - len(rig):] = rig
+    return img
+
+
+def write_s3dis_layout(root: Path) -> dict:
+    """The 9e layout (see ``S3DIS_AREAS``); returns the raw points per area
+    and the decode ms of one panorama written with the per-row heuristic
+    filters instead (what an encoder picks)."""
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.utils.image_io import read_png, write_png
+
+    w, h = S3DIS_PANORAMA
+    filters = [r % 5 for r in range(h)]
+    rig = np.random.default_rng(0).integers(0, 256, (S3DIS_RIG_ROWS, w, 3),
+                                            dtype=np.uint8)
+    raw, img = {}, None
+    for area, rooms in S3DIS_AREAS.items():
+        area_dir = root / f"Area_{area}"
+        pose_dir, rgb_dir = area_dir / "data" / "pose", area_dir / "data" / "rgb"
+        pose_dir.mkdir(parents=True)
+        rgb_dir.mkdir(parents=True)
+        raw[area] = 0
+        for r in range(rooms):
+            scene = synthetic.make_scene(seed=10 * area + r,
+                                         density=S3DIS_DENSITY,
+                                         n_cameras=S3DIS_PANORAMAS,
+                                         image_size=S3DIS_PANORAMA)
+            shift = np.array([8.0 * r, 0.0, 0.0], np.float32)
+            pos = (scene.pos + shift).astype(np.float32)
+            room = f"office_{r + 1}"
+            ann = area_dir / room / "Annotations"
+            ann.mkdir(parents=True)
+            rgb255 = np.round(scene.rgb * 255).astype(np.float32)
+            for label, name in enumerate(S3DIS_CLASS_NAMES):
+                sel = scene.labels == label
+                np.savetxt(ann / f"{name}_1.txt",
+                           np.concatenate([pos[sel], rgb255[sel]], axis=1),
+                           fmt="%.4f")
+            raw[area] += len(pos)
+            for i, cam in enumerate(scene.cameras):
+                cam = dataclasses.replace(cam, pos=cam.pos + shift)
+                stem = f"camera_{i}_{room}"
+                (pose_dir / f"{stem}_pose.json").write_text(json.dumps({
+                    "camera_location": [float(v) for v in cam.pos],
+                    "final_camera_rotation": [float(v) for v in cam.opk]}))
+                img = s3dis_panorama(pos, scene.rgb, cam, rig, seed=i)
+                write_png(str(rgb_dir / f"{stem}_rgb.png"), img,
+                          filters=filters, level=1)
+    probe = root / "heuristic_filters.png"
+    write_png(str(probe), img, level=1)
+    t0 = time.perf_counter()
+    read_png(str(probe))
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    probe.unlink()
+    return {"raw": raw, "decode_ms_heuristic": decode_ms}
+
+
+class S3disProbe(Seams):
+    """The parts of each area's preprocess (``S3DIS_PARTS``, ms closed by a
+    synchronisation, summed per area; ``zbuffer`` is inside ``mapping``),
+    patched for one run: ``areas[k] = {part: ms, "total": ms}``."""
+
+    def __init__(self):
+        super().__init__()
+        self.areas: dict = {}
+
+    def __enter__(self):
+        import types
+
+        from deepviewagg_tpu_torch.core import visibility
+        from deepviewagg_tpu_torch.data.datasets import s3dis
+
+        probe, current = self, {}
+
+        def timed(part):
+            def make(fn):
+                def run(*args, **kwargs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    into = probe.areas.setdefault(current["area"], {})
+                    into[part] = into.get(part, 0.0) + (
+                        time.perf_counter() - t0) * 1e3
+                    return out
+                return run
+            return make
+
+        def area(original):
+            def run(root, area, *args, **kwargs):
+                current["area"] = area
+                return timed("total")(original)(root, area, *args, **kwargs)
+            return run
+
+        self._patch(s3dis, "preprocess_s3dis_area", area)
+        self._patch(s3dis, "load_s3dis_room", timed("txt"))
+        self._patch(s3dis, "_voxel", lambda mod: types.SimpleNamespace(
+            grid_sample=timed("voxel")(mod.grid_sample)))
+        self._patch(s3dis, "pca_features", timed("pca_knn"))
+        self._patch(s3dis, "build_mappings", timed("mapping"))
+        self._patch(visibility, "splat_zbuffer_batch", timed("zbuffer"))
+        self._patch(s3dis, "load_image", timed("png"))
+        self._patch(s3dis, "_apply_non_static_mask", timed("mask"))
+        self._patch(s3dis, "save_area", timed("cache_write"))
+        return self
+
+
+def check_s3dis_caches(root: Path, layout: dict, parts: dict) -> dict:
+    """Each area's cache: exact mappings (at most one pixel per view), no
+    mapped pixel on the static band, the raw cloud kept, uint8 panoramas at
+    1024 x 512; logs the preprocess split; returns the caches' sizes."""
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    sizes = {}
+    for area, rooms in S3DIS_AREAS.items():
+        cache = load_area(str(root / "processed_dva" / f"area_{area}.npz"))
+        m, images = cache["mapping"], cache["images"]
+        per_view = np.bincount(m.pix_view[m.pix_valid])
+        # the band after the 2x resize, but its first row: that one's
+        # filter still reads a row above the band
+        band = RECIPE_IMAGE_SIZE[1] - S3DIS_RIG_ROWS // 2 + 1
+        n_img = rooms * S3DIS_PANORAMAS
+        if per_view.max() != 1:
+            raise AssertionError(f"area {area}: {per_view.max()} pixels in "
+                                 "one exact view")
+        if m.pix_y[m.pix_valid].max() >= band:
+            raise AssertionError(f"area {area}: a pixel on the static band")
+        if images.shape != (n_img, *RECIPE_IMAGE_SIZE, 3) \
+                or images.dtype != np.uint8:
+            raise AssertionError(f"area {area}: images {images.shape} "
+                                 f"{images.dtype}")
+        if len(cache["raw_pos"]) != layout["raw"][area]:
+            raise AssertionError(f"area {area}: {len(cache['raw_pos'])} raw "
+                                 f"points, {layout['raw'][area]} written")
+        t = parts[area]
+        rest = t["total"] - sum(t[p] for p in S3DIS_PARTS if p != "zbuffer")
+        log("9e s3dis preprocess", area=area, rooms=rooms, panoramas=n_img,
+            raw_points=len(cache["raw_pos"]), voxels=len(cache["pos"]),
+            views=int(m.view_valid.sum()),
+            mapped_pixels=int(m.pix_valid.sum()),
+            total_ms=f"{t['total']:.0f}",
+            **{f"{p}_ms": f"{t[p]:.0f}" for p in S3DIS_PARTS},
+            png_ms_per_panorama=f"{t['png'] / n_img:.0f}",
+            rest_ms=f"{rest:.0f}")
+        sizes[area] = len(cache["raw_pos"])
+    return sizes
+
+
+def s3dis_zbuffer_card_vs_cpu(root: Path) -> None:
+    """One camera's exact z-buffer over the eval area's voxels on the card
+    and on the CPU (plain torch both): the same winner on >= 99.9% of the
+    pixels either one sees (ties of float ``dist`` may break apart)."""
+    from deepviewagg_tpu_torch.core.visibility import splat_zbuffer_batch
+    from deepviewagg_tpu_torch.data.datasets import s3dis
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    pos = load_area(str(root / "processed_dva" / "area_5.npz"))["pos"]
+    cam = s3dis.area_cameras(str(root / "Area_5"),
+                             RECIPE_IMAGE_SIZE)[0]["camera"]
+    maps, ms = {}, {}
+    for device in ("cuda", "cpu"):
+        xyz = torch.as_tensor(pos, device=device)
+        splat_zbuffer_batch([cam], xyz, voxel=0.05, exact=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = splat_zbuffer_batch([cam], xyz, voxel=0.05, exact=True)[0][0]
+        torch.cuda.synchronize()
+        ms[device] = (time.perf_counter() - t0) * 1e3
+        maps[device] = out.cpu().numpy()
+    (a, card_ms), (b, cpu_ms) = ((maps[d], ms[d]) for d in ("cuda", "cpu"))
+    seen = (a >= 0) | (b >= 0)
+    agree = float((a == b)[seen].mean())
+    log("9e s3dis zbuffer card vs cpu", voxels=len(pos),
+        image=f"{RECIPE_IMAGE_SIZE[0]}x{RECIPE_IMAGE_SIZE[1]}",
+        seen_pixels=int(seen.sum()), agree=f"{agree:.5f}",
+        card_ms=f"{card_ms:.1f}", cpu_ms=f"{cpu_ms:.1f}")
+    if agree < ZBUFFER_AGREE:
+        raise AssertionError(f"exact z-buffer card vs cpu: {agree}")
+
+
+def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
+    """9e: ``cli.train`` with ``conf/s3dis_benchmark.yaml`` on the S3DIS
+    raw layout (the recipe's model at its published widths; the areas
+    preprocessed with exact splatting and the non-static mask), the first
+    train batch's segment calls held against their plain versions, one
+    exact z-buffer card vs CPU, then ``cli.eval --voting_runs 2
+    --full_res``."""
+    root = tmp / "s3dis_raw"
+    t0 = time.perf_counter()
+    layout = write_s3dis_layout(root)
+    log("9e s3dis layout", areas=dict(S3DIS_AREAS),
+        panoramas=f"{S3DIS_PANORAMAS} a room, {S3DIS_PANORAMA[0]}x"
+                  f"{S3DIS_PANORAMA[1]}, rows cycling filters 0-4",
+        raw_points=layout["raw"],
+        write_s=f"{time.perf_counter() - t0:.1f}",
+        decode_ms_heuristic_filters=f"{layout['decode_ms_heuristic']:.0f}")
+    run_dir = tmp / "s3dis_run"
+    args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", *S3DIS_LOOP]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe, S3disProbe() as pre:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9e s3dis loop")
+    spec = probe.trainer.model.spec
+    (_, branch), = spec.branches
+    if not (spec.backbone == "Res16UNet34" and branch.tower == "resnet18_l4"
+            and branch.tower_deep_stem and branch.out_channels == 512
+            and spec.num_classes == 13):
+        raise AssertionError(f"not the recipe's model: {spec}")
+    if any(shape[1:3] != RECIPE_IMAGE_SIZE for shape in probe.train_images):
+        raise AssertionError(f"image batches {probe.train_images}")
+    if not all(probe.augments.values()):
+        raise AssertionError(f"augmentations not called: {probe.augments}")
+    records = read_records(run_dir)
+    if len(records) != 1 or "val_miou" not in records[0]:
+        raise AssertionError(f"metrics.jsonl: {records}")
+    raw = check_s3dis_caches(root, layout, pre.areas)
+    b = probe.bucket
+    log("9e s3dis loop", params=sum(
+        p.numel() for p in probe.trainer.model.parameters()),
+        augments=probe.augments, images=probe.train_images[0],
+        probe_ms=f"{probe.probe_ms[0]:.0f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches,
+        val_miou=f"{records[0]['val_miou']:.2f}")
+
+    model, batch = probe.trainer.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one forward")
+    fwd = measure_forward_calls(calls, "9e s3dis loop kernels",
+                                "calls_per_forward")
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != BACKWARD_LAUNCHES:
+        raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
+                             "step")
+    bwd = measure_backward_calls(bwd_calls, "9e s3dis loop kernels")
+    del bwd_calls, model, batch
+    torch.cuda.empty_cache()
+    s3dis_zbuffer_card_vs_cpu(root)
+
+    metrics, probe, eval_launches = run_eval(cli_eval, [
+        "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
+        "--full_res"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for key in ("test_miou", "vote_miou", "full_res_miou"):
+        if key not in metrics:
+            raise AssertionError(f"{key} missing from {sorted(metrics)}")
+    if [r["raw"] for r in probe.remaps] != [raw[5]]:
+        raise AssertionError(f"remaps {probe.remaps}: Area_5 holds {raw[5]} "
+                             "raw points")
+    worst = check_doubled(probe, probe.votes.num_classes)
+    b = probe.bucket
+    log("9e s3dis eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
+        peak_mem_gib=f"{peak:.2f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        launches_per_batch=probe.step_launches[0], launches=eval_launches,
+        votes_twice_rel_err=f"{worst:.2e}",
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+
+    # the eval bucket is sized from Area_5, not from the train bucket
+    model, batch = probe.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one eval "
+                             "forward")
+    eval_fwd = measure_forward_calls(calls, "9e s3dis eval kernels",
+                                     "calls_per_forward")
+    del calls, model, batch
+    return {"launches": launches, "eval_launches": eval_launches,
+            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -1806,21 +2619,28 @@ def phase_loop() -> dict:
     from deepviewagg_tpu_torch.cli import train as cli
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+
+    def part(name, fn, *args):
+        """``fn(*args)``, its seconds on the host clock logged."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        log("9 loop", part=name, seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
+
     try:
-        quick = loop_quick(cli, tmp)
-        torch.cuda.empty_cache()
-        recipe = loop_recipe(cli, tmp)
-        torch.cuda.empty_cache()
-        evaluation = loop_eval(cli_eval, tmp)
-        torch.cuda.empty_cache()
-        loop_mc_dropout(cli_eval, tmp)
-        loop_eval_card_vs_cpu(cli_eval, tmp)
-        predict = loop_predict(tmp)
+        quick = part("9a", loop_quick, cli, tmp)
+        recipe = part("9b", loop_recipe, cli, tmp)
+        evaluation = part("9c", loop_eval, cli_eval, tmp)
+        part("9c'", loop_mc_dropout, cli_eval, tmp)
+        part("9c''", loop_eval_card_vs_cpu, cli_eval, tmp)
+        predict = part("9d", loop_predict, tmp)
+        s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
-            "predict": predict}
+            "predict": predict, "s3dis": s3dis}
 
 
 def kernel_family(name: str) -> str:
@@ -1909,6 +2729,7 @@ def trace_forward_and_train(model, train_model, np_batch) -> None:
 
 
 def main() -> None:
+    start = time.perf_counter()
     trace = "--trace" in sys.argv[1:]
     tune = "--tune" in sys.argv[1:]
     device = phase_card()
@@ -1931,7 +2752,9 @@ def main() -> None:
         train_model, batch_to_torch(requests[0][0], "cuda"))
     train_launches = phase_training(train_model, requests[0][0],
                                     requests[1][0])
-    phase_train_card_vs_cpu(model, check_request)
+    plain_step = phase_train_card_vs_cpu(model, check_request)
+    phase_train_variants(model, check_request, plain_step)
+    phase_tower_card_vs_cpu(model, check_request)
     recipe = phase_recipe(model, trace)
     if trace:
         trace_forward_and_train(model, train_model, requests[0][0])
@@ -1965,14 +2788,21 @@ def main() -> None:
     # forward of phase 9c's first eval batch; ``launches_loop_*``: the counts
     # over the first run of phase 9a (two epochs with evals), over phase 9b
     # and over phase 9c's eval; ``launches_predict``: over phase 9d's two
-    # predictions (a 3D-only model: none)
+    # predictions (a 3D-only model: none); ``loop_s3dis``: the sums over the
+    # calls of one forward / train step of phase 9e's first S3DIS batch,
+    # ``loop_s3dis_eval``: over the calls of one forward of its first eval
+    # batch, ``launches_loop_s3dis``: the counts over 9e's train run (one epoch and
+    # an eval), ``launches_loop_s3dis_eval``: over its ``cli.eval`` run
     loop_recipe, loop_eval = loop["recipe"], loop["eval"]
+    s3dis_run = loop["s3dis"]
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
               {"recipe": recipe["forward"],
                "loop_recipe": loop_recipe["forward"],
-               "loop_eval": loop_eval["forward"]},
+               "loop_eval": loop_eval["forward"],
+               "loop_s3dis": s3dis_run["forward"],
+               "loop_s3dis_eval": s3dis_run["eval_forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -1980,12 +2810,16 @@ def main() -> None:
               launches_loop_quick=loop["quick"]["segment_csr"],
               launches_loop_recipe=loop_recipe["launches"]["segment_csr"],
               launches_loop_eval=loop_eval["launches"]["segment_csr"],
-              launches_predict=loop["predict"]["segment_csr"]),
+              launches_predict=loop["predict"]["segment_csr"],
+              launches_loop_s3dis=s3dis_run["launches"]["segment_csr"],
+              launches_loop_s3dis_eval=s3dis_run["eval_launches"][
+                  "segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
               {"recipe": recipe["backward"],
-               "loop_recipe": loop_recipe["backward"]},
+               "loop_recipe": loop_recipe["backward"],
+               "loop_s3dis": s3dis_run["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -1993,8 +2827,12 @@ def main() -> None:
               launches_loop_recipe=loop_recipe["launches"][
                   "segment_csr_bwd"],
               launches_loop_eval=loop_eval["launches"]["segment_csr_bwd"],
-              launches_predict=loop["predict"]["segment_csr_bwd"]),
+              launches_predict=loop["predict"]["segment_csr_bwd"],
+              launches_loop_s3dis=s3dis_run["launches"]["segment_csr_bwd"],
+              launches_loop_s3dis_eval=s3dis_run["eval_launches"][
+                  "segment_csr_bwd"]),
     ]
+    log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

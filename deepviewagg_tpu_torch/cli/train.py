@@ -9,8 +9,11 @@ The port of the root ``train.py`` (the reference's ``train.py``: Hydra @main
 
 Config groups (``deepviewagg_tpu_torch/config/run.py``): model / data /
 training.  ``training.resume=true`` restores the run dir's ``latest``
-checkpoint before training.  Only the synthetic dataset is ported
-(``data.dataset`` s3dis / scannet / kitti360 raise: ROADMAP A.2.4).
+checkpoint before training.  The synthetic and S3DIS datasets are ported
+(``data.dataset`` scannet / kitti360 raise: ROADMAP A.2.4, A.4):
+
+    python -m deepviewagg_tpu_torch.cli.train \
+        --config conf/s3dis_benchmark.yaml data.root=<2D-3D-S layout>
 """
 
 from __future__ import annotations
@@ -68,10 +71,27 @@ def build_dataset(cfg, train: bool, device="cuda"):
             image_size=tuple(cfg.data.image_size), device=device,
             **cfg.data.kwargs,
         )
-    if cfg.data.dataset in ("s3dis", "scannet", "kitti360"):
+    if cfg.data.dataset == "s3dis":
+        from ..data.datasets.s3dis import make_s3dis_dataset
+
+        # no image_size: the preprocess runs at its own 1024 x 512, as the
+        # JAX CLI's does
+        return make_s3dis_dataset(
+            cfg.data.root, train=train, radius=cfg.data.radius,
+            voxel_size=cfg.data.voxel_size, image_slots=cfg.data.image_slots,
+            samples_per_epoch=cfg.data.samples_per_epoch, device=device,
+            **cfg.data.kwargs,
+        )
+    if cfg.data.dataset == "scannet":
         raise NotImplementedError(
-            f"data.dataset={cfg.data.dataset!r}: the loader is not ported yet "
-            "(ROADMAP A.2.4); data.dataset=synthetic is")
+            "data.dataset='scannet': the loader is not ported yet (ROADMAP "
+            "A.2.4; it needs the pinhole camera of A.4); data.dataset="
+            "synthetic and s3dis are")
+    if cfg.data.dataset == "kitti360":
+        raise NotImplementedError(
+            "data.dataset='kitti360': the loader is not ported yet (ROADMAP "
+            "A.2.4; it needs the pinhole and MEI-fisheye cameras of A.4); "
+            "data.dataset=synthetic and s3dis are")
     raise KeyError(cfg.data.dataset)
 
 

@@ -7,6 +7,8 @@ pixel grid, pixels outside its splat bbox are masked, and the z-buffer is
 two masked scatter-min passes over a dense ``W*H`` map — a depth race, then
 a deterministic smallest-index tie-break.  ``scatter_reduce_("amin")`` gives
 the same answer in any order, so the maps are reproducible on the card too.
+Exact splatting then re-maps each winning point to its centre pixel, again
+by an order-free reduction.
 
 Splat-size model (visibility.py:647-875): angular width
 ``(1 + k_swell * exp(-dist / ln(d_swell))) * voxel / dist``, converted to
@@ -58,8 +60,15 @@ def splat_bboxes(camera: _cam.Camera, xyz, x_proj, y_proj, dist,
     )
 
 
-def _zbuffer(valid, dist, bbox, size, max_splat):
-    """Dense winner-index map ``int32 [W, H]`` (-1 where nothing is seen)."""
+def _zbuffer(x_proj, y_proj, dist, valid, bbox, size, max_splat, exact):
+    """Dense winner-index map ``int32 [W, H]`` (-1 where nothing is seen).
+
+    ``exact``: only the z-buffer's winning points are kept, each at its
+    centre projection pixel (visibility.py:1164-1187, 1273-1284) — one pixel
+    per seen point.  Where centres of several winners share a pixel the
+    largest point index keeps it: ``scatter_reduce_("amax")`` gives that in
+    any order, and it is what the JAX package's ``.at[pix].set(arange(n))``
+    gives on the CPU (the last write wins)."""
     w, h = size
     n = dist.shape[0]
     dev = dist.device
@@ -84,6 +93,17 @@ def _zbuffer(valid, dist, bbox, size, max_splat):
     idx_map = torch.full((w * h + 1,), n, dtype=torch.int64, device=dev)
     idx_map.scatter_reduce_(0, flat_pix, cand, "amin")
     idx_map = torch.where(idx_map >= n, -1, idx_map)[: w * h]
+    if exact:
+        seen = torch.zeros(n, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, idx_map.clamp(min=0), (idx_map >= 0).to(torch.int32),
+            "amax").to(torch.bool)
+        # the cast truncates toward zero before the clip, as astype(int32)
+        xc = torch.clamp(x_proj.to(torch.int32), 0, w - 1).to(torch.int64)
+        yc = torch.clamp(y_proj.to(torch.int32), 0, h - 1).to(torch.int64)
+        pix = torch.where(seen & valid, xc * h + yc, w * h)
+        idx_map = torch.full((w * h + 1,), -1, dtype=torch.int64, device=dev)
+        idx_map.scatter_reduce_(0, pix, torch.arange(n, device=dev), "amax")
+        idx_map = idx_map[: w * h]
     return idx_map.to(torch.int32).reshape(w, h)
 
 
@@ -117,17 +137,18 @@ def splat_zbuffer_batch(cameras, xyz, voxel=0.1, k_swell=1.0, d_swell=1000.0,
 
     Returns ``(idx_maps int32 [C, W, H], feats6 [C, N, 6] or None)`` on
     ``xyz``'s device; ``geo`` holds the per-point linearity / planarity /
-    scattering / normal tensors that the viewing features need.
+    scattering / normal tensors that the viewing features need; ``exact``
+    keeps one centre pixel per seen point (the S3DIS preprocess's
+    ``exact_splatting``).
     """
-    if exact:
-        raise NotImplementedError("exact splatting is not ported yet")
     xyz = xyz.to(torch.float32)
     idx_maps, feats = [], []
     for cam in cameras:
         x_proj, y_proj, dist, valid = _cam.project(xyz, cam)
         bbox = splat_bboxes(cam, xyz, x_proj, y_proj, dist, voxel=voxel,
                             k_swell=k_swell, d_swell=d_swell)
-        idx_maps.append(_zbuffer(valid, dist, bbox, cam.size, int(max_splat)))
+        idx_maps.append(_zbuffer(x_proj, y_proj, dist, valid, bbox, cam.size,
+                                 int(max_splat), bool(exact)))
         if geo is not None:
             feats.append(postprocess_features(
                 xyz - cam.center(xyz.device), y_proj, dist,

@@ -15,9 +15,17 @@ __getitem__-time 2D chain, core/data_transform/multimodal/image.py):
     :func:`color_jitter` / :func:`gaussian_blur` (:1249-1269): the S3DIS
     recipe's options.
 
+Then the rest of the JAX module: the static crop :func:`crop_images`
+(``CropImageGroups``' single-size stand-in, :1040), :func:`non_static_mask`
+/ :func:`mask_mapping_pixels` (``NonStaticMask``, :106, which the S3DIS
+preprocess applies), the image-set reductions :func:`drop_images_outside_bbox`
+/ :func:`pick_k_images` / :func:`grid_sample_images` (:647-712), the pixel
+coordinate channels :func:`add_pixel_height_feature` /
+:func:`add_pixel_width_feature` (:1163-1192) and
+:func:`pick_mappings_by_features` (:877).
+
 Copied so that the same ``np.random.Generator`` draws give the same arrays
-(the draws are made in the same order).  The other transforms of the JAX
-module (crops, static masks, grid and feature picks) are not ported.
+(the draws are made in the same order).
 """
 
 from __future__ import annotations
@@ -40,6 +48,15 @@ __all__ = [
     "random_horizontal_flip",
     "color_jitter",
     "gaussian_blur",
+    "crop_images",
+    "non_static_mask",
+    "mask_mapping_pixels",
+    "drop_images_outside_bbox",
+    "pick_k_images",
+    "grid_sample_images",
+    "add_pixel_height_feature",
+    "add_pixel_width_feature",
+    "pick_mappings_by_features",
 ]
 
 
@@ -300,6 +317,80 @@ def random_horizontal_flip(cloud: dict, rng: np.random.Generator,
     return out
 
 
+def crop_images(cloud: dict, crop_size: Tuple[int, int]) -> dict:
+    """Crop every image to one static ``(w, h)`` window centered on its
+    mapped-pixel bbox; mappings shift into crop coordinates and the few
+    pixels falling outside become padding.
+
+    Static-shape stand-in for ``CropImageGroups``' power-of-two families
+    (image.py:1040-1141): one bucketed crop size per batch instead of
+    per-sample families (SURVEY.md §7 move 1).
+    """
+    m: MultiViewMapping = cloud["mapping"]
+    images = cloud.get("images")
+    if images is None:
+        return cloud
+    full_w, full_h = images.shape[1], images.shape[2]
+    cw, ch = crop_size
+    if cw >= full_w and ch >= full_h:
+        return cloud
+    cw, ch = min(cw, full_w), min(ch, full_h)
+    vc = m.view_capacity
+    pv = np.minimum(m.pix_view, vc - 1)
+    pix_img = np.where(m.pix_valid, m.image_id[pv], -1)
+
+    new_images = np.zeros((len(images), cw, ch, images.shape[3]),
+                          images.dtype)
+    new_x = m.pix_x.copy()
+    new_y = m.pix_y.copy()
+    keep = m.pix_valid.copy()
+    for i in range(m.num_images):
+        sel = pix_img == i
+        if sel.any():
+            # clamp so the crop window [x0, x0+cw) stays inside the image
+            # for odd sizes too (x0 <= full_w - cw)
+            cx = int(np.clip((m.pix_x[sel].min() + m.pix_x[sel].max()) // 2,
+                             cw // 2, full_w - (cw - cw // 2)))
+            cy = int(np.clip((m.pix_y[sel].min() + m.pix_y[sel].max()) // 2,
+                             ch // 2, full_h - (ch - ch // 2)))
+        else:
+            cx, cy = cw // 2, ch // 2
+        x0, y0 = cx - cw // 2, cy - ch // 2
+        new_images[i] = images[i, x0:x0 + cw, y0:y0 + ch]
+        nx = m.pix_x[sel] - x0
+        ny = m.pix_y[sel] - y0
+        inside = (nx >= 0) & (nx < cw) & (ny >= 0) & (ny < ch)
+        new_x[sel] = np.clip(nx, 0, cw - 1)
+        new_y[sel] = np.clip(ny, 0, ch - 1)
+        keep[sel] &= inside
+    # invariant: every valid view keeps >= 1 pixel — views whose pixels all
+    # fell outside the crop retain their first pixel with clamped coords
+    # (the reference sizes crops to contain the bbox, image.py:1082-1118;
+    # a static single-size crop can cut corners instead)
+    kept_per_view = np.zeros(vc + 1, np.int64)
+    np.add.at(kept_per_view, np.where(m.pix_valid, pv, vc), keep.astype(np.int64))
+    uviews, first_idx = np.unique(
+        np.where(m.pix_valid, pv, vc), return_index=True
+    )
+    for v, fi in zip(uviews, first_idx):
+        if v < vc and m.view_valid[v] and kept_per_view[v] == 0:
+            keep[fi] = True
+
+    out = dict(cloud)
+    # pixels outside the crop become pads (re-point at view capacity, tail)
+    pix_view = np.where(keep, m.pix_view, vc)
+    order = np.argsort(pix_view, kind="stable")
+    out["mapping"] = dataclasses.replace(
+        m,
+        pix_view=pix_view[order].astype(np.int32),
+        pix_x=new_x[order].astype(np.int32),
+        pix_y=new_y[order].astype(np.int32),
+        pix_valid=keep[order],
+    )
+    out["images"] = new_images
+    return out
+
+
 # --------------------------------------------------------------------------
 # Radiometric augmentations (reference TorchvisionTransform family,
 # image.py:1249-1269 — flagship recipes use ColorJitter(0.6, 0.6, 0.7))
@@ -393,6 +484,37 @@ def gaussian_blur(
     return conv_axis(conv_axis(img, 1), 2)
 
 
+def non_static_mask(images: np.ndarray, n_sample: int = 5,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """bool [W, H]: pixels that DIFFER somewhere across ``n_sample`` images
+    (ref NonStaticMask, image.py:106-158: static pixels — e.g. the capture
+    rig in equirectangular panoramas — are identical in every image and
+    must not contribute mappings)."""
+    n = min(n_sample, len(images))
+    w, h = images.shape[1], images.shape[2]
+    if n < 2:
+        return np.ones((w, h), bool)
+    rng = rng or np.random.default_rng(0)
+    idx = rng.choice(len(images), size=n, replace=False)
+    ref = images[idx[0]]
+    mask = np.zeros((w, h), bool)
+    for i in idx[1:]:
+        mask |= (images[i] != ref).any(axis=-1)
+    return mask
+
+
+def mask_mapping_pixels(cloud: dict, mask: np.ndarray) -> dict:
+    """Invalidate mapping pixels falling on masked-out (static) pixels —
+    the consumption side of :func:`non_static_mask` (the reference bakes the
+    mask into projection, image.py:158)."""
+    m: MultiViewMapping = cloud["mapping"]
+    keep = mask[np.clip(m.pix_x, 0, mask.shape[0] - 1),
+                np.clip(m.pix_y, 0, mask.shape[1] - 1)]
+    out = dict(cloud)
+    out["mapping"] = m.drop_pixels(keep)
+    return out
+
+
 def normalize_images(
     images: np.ndarray,
     mean: Sequence[float] = (0.485, 0.456, 0.406),
@@ -419,4 +541,107 @@ def _select_cloud_images(cloud: dict, keep: np.ndarray) -> dict:
         out["cameras"] = [cloud["cameras"][i] for i in keep]
     if cloud.get("cam_pos") is not None:
         out["cam_pos"] = np.asarray(cloud["cam_pos"])[keep]
+    return out
+
+
+def drop_images_outside_bbox(cloud: dict, margin: float = 0.0,
+                             ignore_z: bool = False) -> dict:
+    """Drop images whose camera sits outside the cloud's bounding box
+    (+margin/2 per side) — ref DropImagesOutsideDataBoundingBox
+    (image.py:647-664).  Camera positions come from ``cloud['cam_pos']``
+    [I, 3] or ``cloud['cameras']``."""
+    cam_pos = cloud.get("cam_pos")
+    if cam_pos is None:
+        cam_pos = np.stack([c.pos for c in cloud["cameras"]])
+    cam_pos = np.asarray(cam_pos, np.float32)
+    b_min = cloud["pos"].min(axis=0) - margin / 2
+    b_max = cloud["pos"].max(axis=0) + margin / 2
+    inside = (cam_pos > b_min) & (cam_pos < b_max)
+    dims = 2 if ignore_z else 3
+    keep = np.nonzero(inside[:, :dims].all(axis=1))[0]
+    return _select_cloud_images(cloud, keep)
+
+
+def pick_k_images(cloud: dict, k: int, random: bool = False,
+                  rng: Optional[np.random.Generator] = None) -> dict:
+    """Keep K images: random without replacement, or one-every-K strided
+    (ref PickKImages, image.py:689-712 — note the strided branch keeps
+    every k-th image, matching ``slice(0, n, k)``)."""
+    m: MultiViewMapping = cloud["mapping"]
+    if random:
+        rng = rng or np.random.default_rng(0)
+        keep = np.sort(rng.choice(m.num_images, size=min(k, m.num_images),
+                                  replace=False))
+    else:
+        keep = np.arange(0, m.num_images, k)
+    return _select_cloud_images(cloud, keep)
+
+
+def grid_sample_images(cloud: dict, size: float) -> dict:
+    """Keep one image per ``size``-cell of camera positions (mode='last') —
+    ref GridSampleImages (image.py:669-686): close-by redundant viewpoints
+    collapse to a single representative."""
+    cam_pos = cloud.get("cam_pos")
+    if cam_pos is None:
+        cam_pos = np.stack([c.pos for c in cloud["cameras"]])
+    cells = np.floor(np.asarray(cam_pos, np.float64) / size).astype(np.int64)
+    # last image per cell (stable unique on reversed order)
+    _, first_rev = np.unique(cells[::-1], axis=0, return_index=True)
+    keep = np.sort(len(cells) - 1 - first_rev)
+    return _select_cloud_images(cloud, keep)
+
+
+def add_pixel_height_feature(images: np.ndarray) -> np.ndarray:
+    """Append a [0, 1] row-coordinate channel (ref AddPixelHeightFeature,
+    image.py:1163-1176).  Images are [I, W, H, C]; "height" is the H axis.
+    (The reference's PadImages, image.py:1153, is an empty stub — not
+    replicated.)"""
+    img = np.asarray(images, np.float32)
+    i, w, h, _ = img.shape
+    feat = np.broadcast_to(
+        np.linspace(0.0, 1.0, h, dtype=np.float32)[None, None, :, None],
+        (i, w, h, 1),
+    )
+    return np.concatenate([img, feat], axis=3)
+
+
+def add_pixel_width_feature(images: np.ndarray) -> np.ndarray:
+    """Append a [0, 1] column-coordinate channel (ref AddPixelWidthFeature,
+    image.py:1179-1192)."""
+    img = np.asarray(images, np.float32)
+    i, w, h, _ = img.shape
+    feat = np.broadcast_to(
+        np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None, None],
+        (i, w, h, 1),
+    )
+    return np.concatenate([img, feat], axis=3)
+
+
+def pick_mappings_by_features(cloud: dict, feat, lower=None,
+                              upper=None) -> dict:
+    """``PickMappingsFromMappingFeatures`` (image.py:877-933): drop views
+    whose mapping feature ``feat[i]`` falls outside the open interval
+    (lower[i], upper[i]); views keep the reference's strict-inequality
+    semantics.  Points that lose every view become unseen."""
+    m: MultiViewMapping = cloud["mapping"]
+
+    def _san(x, n):
+        if x is None:
+            return [None] * n
+        if not isinstance(x, (list, tuple)):
+            x = [x]
+        return list(x)
+
+    feat = _san(feat, 0)
+    lower = _san(lower, len(feat))
+    upper = _san(upper, len(feat))
+    assert len(lower) == len(feat) and len(upper) == len(feat)
+    keep = np.ones(m.view_capacity, bool)
+    for i, lo, up in zip(feat, lower, upper):
+        if lo is not None:
+            keep &= m.view_feats[:, i] > lo
+        if up is not None:
+            keep &= m.view_feats[:, i] < up
+    out = dict(cloud)
+    out["mapping"] = m.drop_views(keep)
     return out

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``deepviewagg_tpu_torch``
-imports JAX, flax or the JAX package, and its entry points default to the
-card."""
+imports JAX, flax or the JAX package, nor PIL or torchvision (the card's
+machine has neither: the port reads PNGs itself), and its entry points
+default to the card."""
 
 import ast
 import inspect
@@ -13,6 +14,8 @@ import deepviewagg_tpu_torch
 PKG = Path(deepviewagg_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepviewagg_tpu")
+NOT_ON_THE_CARD = ("PIL", "torchvision")
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -25,13 +28,35 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0], node.lineno
 
 
-@pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-    ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [(name, line) for name, line in _imported_roots(path)
            if name in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pil_or_torchvision_imports(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in NOT_ON_THE_CARD]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", ["utils/image_io.py",
+                                 "data/datasets/s3dis.py",
+                                 "core/visibility.py"])
+def test_s3dis_modules_are_covered(rel):
+    """The S3DIS loader's files exist, are among the files the import
+    checks walk, and read images with the standard library and numpy."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    if rel == "utils/image_io.py":
+        assert roots <= {"__future__", "math", "struct", "typing", "zlib",
+                         "numpy"}
 
 
 def test_training_modules_are_covered():
@@ -169,7 +194,7 @@ def test_segment_csr_raises_instead_of_falling_back():
 def test_entry_points_default_to_the_card():
     from deepviewagg_tpu_torch.cli import train as cli
     from deepviewagg_tpu_torch.data import collate, geometric, mapping_factory, toy
-    from deepviewagg_tpu_torch.data.datasets import synthetic_ds
+    from deepviewagg_tpu_torch.data.datasets import s3dis, synthetic_ds
     from deepviewagg_tpu_torch.data.inference_transform import ModelInference
     from deepviewagg_tpu_torch.metrics.tracker import VoteAccumulator
     from deepviewagg_tpu_torch.models import segmentation
@@ -181,6 +206,7 @@ def test_entry_points_default_to_the_card():
                segmentation.SparseConv3dSeg.__init__,
                segmentation.build_model, synthetic_ds.build_synthetic_cache,
                synthetic_ds.make_synthetic_dataset, cli.build_dataset,
+               s3dis.preprocess_s3dis_area, s3dis.make_s3dis_dataset,
                ModelInference.__init__, VoteAccumulator.full_res_preds):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

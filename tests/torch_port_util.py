@@ -298,3 +298,52 @@ def to_torch_samples(samples, **replace):
                    f.name: getattr(s.mapping, f.name)
                    for f in dataclasses.fields(s.mapping)}))
         for s in samples]
+
+
+def fake_s3dis_layout(root, seed: int = 7, density: float = 60.0,
+                      panorama=(256, 128), static_rows: int = 16):
+    """A miniature 2D-3D-S raw layout under ``root``, as
+    ``tests/test_datasets.py::_fake_s3dis`` writes one: ``Area_1`` with one
+    room of a synthetic scene split into ``wall_1``, ``chair_1`` and an
+    unknown class (``stairs_1``, read as clutter), two posed panoramas of
+    ``panorama`` pixels written by the port's ``write_png`` (random colours,
+    the bottom ``static_rows`` rows equal in both: a capture rig that the
+    non-static mask drops) and ``Area_5`` a symlink to ``Area_1`` (the eval
+    fold).  Returns ``root``."""
+    import json
+    import os
+
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(seed)
+    scene = synthetic.make_scene(seed=seed, density=density, n_cameras=2,
+                                 image_size=(128, 64))
+    area = os.path.join(root, "Area_1")
+    room = os.path.join(area, "office_1", "Annotations")
+    os.makedirs(room)
+    n = len(scene.pos)
+    for name, sl in [("wall_1.txt", slice(0, n // 2)),
+                     ("chair_1.txt", slice(n // 2, 3 * n // 4)),
+                     ("stairs_1.txt", slice(3 * n // 4, None))]:
+        data = np.concatenate(
+            [scene.pos[sl], (scene.rgb[sl] * 255).astype(np.float32)], axis=1)
+        np.savetxt(os.path.join(room, name), data, fmt="%.4f")
+    pose_dir = os.path.join(area, "data", "pose")
+    rgb_dir = os.path.join(area, "data", "rgb")
+    os.makedirs(pose_dir)
+    os.makedirs(rgb_dir)
+    w, h = panorama
+    rig = rng.integers(0, 256, (static_rows, w, 3), dtype=np.uint8)
+    for i, cam in enumerate(scene.cameras):
+        with open(os.path.join(pose_dir, f"camera_{i}_office_1_pose.json"),
+                  "w") as f:
+            json.dump({
+                "camera_location": [float(v) for v in cam.pos],
+                "final_camera_rotation": [float(v) for v in cam.opk],
+            }, f)
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        img[h - static_rows:] = rig
+        write_png(os.path.join(rgb_dir, f"camera_{i}_office_1_rgb.png"), img)
+    os.symlink(area, os.path.join(root, "Area_5"))
+    return root
