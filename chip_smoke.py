@@ -27,6 +27,15 @@ exit) on any fault:
   4. card vs CPU  one smaller request through the same weights on the card
               and on the CPU (plain versions): logits within 3e-2 relative,
               argmax agreement >= 99%
+  4c. cameras card vs CPU  the four camera models (the 2048 x 1024
+              panorama, the ScanNet 640 x 480 pinhole, KITTI-360's 1408 x
+              376 perspective and 1400 x 1400 MEI fisheye) over one
+              synthetic room of about 10^6 points: pixel coordinates within
+              1e-2 px, the validity masks and each model's ``splat_zbuffer``
+              winner map agreeing on >= 99.9% of the points / seen pixels;
+              one Biasutti mask (the panorama, X-wrapped, every 50th point)
+              and one depth-map mask (the pinhole against the card's
+              z-buffer depths) to the same share; ms on both
   2b. backward kernels  replay every sorted-segment backward of one
               flagship train step (cotangents, inputs and saved results
               recorded from a real backward pass) through the CUDA backward
@@ -134,9 +143,13 @@ exit) on any fault:
                   sorted-segment call of one forward of the first eval batch
                   (eval buckets, images by coverage, centre roll) held
                   against its plain version and timed as in phase 2
-              9c' MC dropout: 9a's run with ``head_dropout = 0.5``, three
-                  voting runs on one room: the runs differ, are finite, and
-                  the same seed repeats them bit for bit
+              9c' MC dropout at the library level: 9a's run, its model
+                  built from ``dataclasses.replace(spec, head_dropout=0.5)``
+                  (the zoo drops that override, as the JAX package's does)
+                  with the run's weights, three voting runs of
+                  ``cli.eval.vote`` on one room: 6 + 0 launches a batch, the
+                  runs differ, are finite, and the same seed repeats them
+                  bit for bit
               9c'' 9a's run evaluated on the card and on the CPU, one room:
                   argmax agreement >= 99%, metrics within 1e-2 (fractions)
               9d  ``cli.predict.main`` with a 3D-only Res16UNet34 trained by
@@ -158,6 +171,23 @@ exit) on any fault:
                   votes doubled, one prediction per raw point of Area_5,
                   the eval bucket's caps, and the first eval batch's
                   segment calls held against their plain versions and timed
+              9f  the ScanNet loader from a ScanNet v2 layout written here
+                  (``SCANNET_SCANS``: three train scans and one val scan,
+                  rooms of 5 x 4 x 2.6 m with about 10^5 vertices and NYU40
+                  labels, 240 poses and 12 JPEG frames of 640 x 480 a scan,
+                  written by the port's ``write_jpeg``): ``cli.train`` with
+                  ``conf/scannet_benchmark.yaml`` (the recipe's model at its
+                  published widths, batch 4, 6 slots of 320 x 240) for one
+                  epoch of 24 spheres, the preprocess timed in its parts
+                  (PLY, voxel grid, PCA/kNN, mapping with its z-buffers,
+                  JPEG decode + resize, non-static mask, cache write), 6 + 5
+                  launches a step, the first train batch's segment calls
+                  held against their plain versions and timed (with the
+                  widest call's padding-row share); then ``cli.eval
+                  --voting_runs 2 --submission``: 6 + 0 launches a batch,
+                  votes doubled, one ``<scan>.txt`` for the val scan with
+                  one benchmark NYU40 id per cached voxel, and the first
+                  eval batch's segment calls held and timed
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -171,6 +201,8 @@ wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
 same for phase 9b's first train batch; ``loop_eval`` (forward only): the
 same for phase 9c's first eval batch; ``loop_s3dis`` and
 ``loop_s3dis_eval``: for 9e's first train and eval batches;
+``loop_scannet`` and ``loop_scannet_eval``: for 9f's (each path with
+``pad_share``, the padding-row share of its widest call);
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
 predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
@@ -318,6 +350,40 @@ S3DIS_LOOP = ("data.samples_per_epoch=24", "training.epochs=1",
 S3DIS_PARTS = ("txt", "voxel", "pca_knn", "mapping", "zbuffer", "png",
                "mask", "cache_write")
 ZBUFFER_AGREE = 0.999                  # card vs CPU, of the seen pixels
+# phase 4c: the four camera models over one synthetic room of about 10^6
+# points (9,000 points per m^2); pixel coordinates card vs CPU within 1e-2
+# px (float32 trigonometry, the cuSOLVER vs LAPACK inverse of the ScanNet
+# pose and reordered sums move a coordinate by ulps of a value of up to
+# 2048); the Biasutti kNN on every 50th point (about 20k; brute force), its
+# X-wrap margin 20 px
+CAMERA_DENSITY = 9000.0
+CAMERA_PIX_ATOL = 1e-2
+CAMERA_FISHEYE = np.array([2.2, 0.02, -0.01, 1320.0, 1320.0, 700.0, 700.0],
+                          np.float32)
+BIASUTTI_STRIDE, BIASUTTI_MARGIN = 50, 20.0
+SCANNET_NATIVE = (640, 480)            # .sens colour frames
+# phase 9f: the ScanNet loader end to end, from a ScanNet v2 layout written
+# here with the port's write_jpeg and write_ply (the card's machine has
+# neither PIL nor the release): four scans, three listed in
+# scannetv2_train.txt and one in scannetv2_val.txt, each a synthetic room of
+# 5 x 4 x 2.6 m at 1,000 points per m^2 (about 10^5 vertices, a
+# _vh_clean_2.ply's order) with NYU40 labels, a pose file for each of 240
+# frames and a 640 x 480 colour frame (smooth shading, the points' colours)
+# at each multiple of frame_step = 20: 12 kept frames a scan, of which the
+# coverage selection keeps max_images = 8; cli.train with
+# conf/scannet_benchmark.yaml for one epoch of 24 spheres, then cli.eval
+# with two voting runs and --submission
+SCANNET_SCANS = {"scene0000_00": "train", "scene0001_00": "train",
+                 "scene0002_00": "train", "scene0003_00": "val"}
+SCANNET_ROOM = (5.0, 4.0, 2.6)
+SCANNET_DENSITY = 1000.0
+SCANNET_FRAMES, SCANNET_FRAME_STEP = 12, 20
+SCANNET_NYU40 = (2, 22, 1, 5)          # synthetic labels -> NYU40 ids
+SCANNET_LOOP = ("training.epochs=1",
+                "data.kwargs={samples_per_epoch: 24, max_images: 8}")
+SCANNET_PARTS = ("ply", "voxel", "pca_knn", "mapping", "zbuffer", "jpeg",
+                 "mask", "cache_write")
+SCANNET_IMAGE_SIZE = (320, 240)        # the preprocess's default
 
 
 def log(phase: str, **fields) -> None:
@@ -629,11 +695,22 @@ def measure_forward_calls(calls, phase: str, count_key: str) -> dict:
                         ("library_ms", lms), ("bound_ms", bound)):
             totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], res["max_abs_err"])
+        note_padding(totals, e, live)
     log(phase, kernel="segment_csr", checked=True,
         **{count_key: len(calls)}, kernel_ms=f"{totals['ms']:.4f}",
         call_ms=f"{totals['call_ms']:.4f}",
-        bound_ms=f"{totals['bound_ms']:.4f}")
+        bound_ms=f"{totals['bound_ms']:.4f}",
+        widest_rows=totals["rows"], widest_pad_share=totals["pad_share"])
     return totals
+
+
+def note_padding(totals: dict, rows: int, live: int) -> None:
+    """Keep the widest call's rows and its padding-row share (the rows the
+    kernel walks and the bound does not count: masked or past the last
+    segment)."""
+    if rows > totals.get("rows", 0):
+        totals["rows"] = rows
+        totals["pad_share"] = round(1.0 - live / rows, 4)
 
 
 def zero_launches() -> None:
@@ -845,10 +922,12 @@ def measure_backward_calls(calls, phase: str) -> dict:
                         ("library_ms", lms), ("bound_ms", bound)):
             totals[key] += ms
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        note_padding(totals, e, live)
     log(phase, kernel="segment_csr_bwd", checked=True,
         bit_equal=True, calls_per_step=len(calls),
         kernel_ms=f"{totals['ms']:.4f}", call_ms=f"{totals['call_ms']:.4f}",
-        bound_ms=f"{totals['bound_ms']:.4f}")
+        bound_ms=f"{totals['bound_ms']:.4f}",
+        widest_rows=totals["rows"], widest_pad_share=totals["pad_share"])
     return totals
 
 
@@ -1424,6 +1503,124 @@ def phase_card_vs_cpu(model, np_batch, phase="4 card vs cpu") -> None:
         argmax_agree=f"{agree:.5f}")
     if not (err <= LOGITS_RTOL and agree >= ARGMAX_AGREE):
         raise AssertionError(f"card and CPU disagree: {err}, {agree}")
+
+
+# --- the camera models, card vs CPU -------------------------------------------
+
+def four_cameras(scene_pano, scene_pinhole) -> list:
+    """One camera of each model over the same room: the synthetic scene's
+    panorama (2048 x 1024) and ScanNet pinhole (640 x 480, cam->world
+    pose), and on that pose KITTI-360's perspective camera (1408 x 376, its
+    ``P_rect_00``) and MEI fisheye (1400 x 1400, the ``image_02``
+    parameters ``tests/test_kitti360_fisheye.py`` writes)."""
+    from deepviewagg_tpu_torch.core.cameras import Camera
+
+    pano, pin = scene_pano.cameras[0], scene_pinhole.cameras[0]
+    k = np.eye(4, dtype=np.float32)
+    k[0, 0] = k[1, 1] = 552.55
+    k[0, 2], k[1, 2] = 682.05, 238.77
+    return [
+        pano,
+        pin,
+        Camera(model="kitti360_perspective", size=(1408, 376),
+               extrinsic=pin.extrinsic, intrinsic=k, r_min=pin.r_min,
+               r_max=pin.r_max),
+        Camera(model="kitti360_fisheye", size=(1400, 1400),
+               extrinsic=pin.extrinsic, fisheye=CAMERA_FISHEYE,
+               r_min=pin.r_min, r_max=pin.r_max),
+    ]
+
+
+def timed_both(fn):
+    """``fn(device)`` on the card and on the CPU: ``({device: outputs},
+    {device: ms})``, the card's call after a warm-up and closed by a
+    synchronisation."""
+    out, ms = {}, {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            fn(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[device] = fn(device)
+        torch.cuda.synchronize()
+        ms[device] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def phase_cameras_card_vs_cpu() -> None:
+    """4c: the four camera models over about 10^6 points of a synthetic
+    room, card vs CPU (plain torch both): pixel coordinates within
+    ``CAMERA_PIX_ATOL`` where valid, validity and each model's
+    ``splat_zbuffer`` winner map agreeing on >= 99.9% of the points / seen
+    pixels (9e's rule: float ``dist`` ties and pixel edges may break
+    apart); then one Biasutti mask (the panorama, X-wrapped, on a subsample:
+    its kNN is brute force) and one depth-map mask (the ScanNet pinhole
+    against the card's z-buffer depths), to the same share."""
+    from deepviewagg_tpu_torch.core import cameras, visibility
+    from deepviewagg_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    pano = synthetic.make_scene(seed=0, density=CAMERA_DENSITY, n_cameras=1,
+                                image_size=S3DIS_PANORAMA)
+    pin = synthetic.make_scene(seed=0, density=CAMERA_DENSITY, n_cameras=1,
+                               camera_model="scannet",
+                               image_size=SCANNET_NATIVE)
+    pos = torch.from_numpy(pano.pos.astype(np.float32))
+    log("4c cameras card vs cpu", points=len(pos),
+        scene_s=f"{time.perf_counter() - t0:.1f}")
+    depth_maps = {}
+    cams = four_cameras(pano, pin)
+    for cam in cams:
+        proj, proj_ms = timed_both(lambda d: [
+            t.cpu() for t in cameras.project(pos.to(d), cam)])
+        (xa, ya, da, va), (xb, yb, db, vb) = proj["cuda"], proj["cpu"]
+        both = va & vb
+        pix_err = float(torch.maximum((xa - xb).abs(), (ya - yb).abs())
+                        [both].max())
+        valid_agree = float((va == vb).double().mean())
+        maps, z_ms = timed_both(lambda d: [
+            t.cpu() for t in visibility.splat_zbuffer(
+                cam, pos.to(d), voxel=0.05)[:2]])
+        a, b = maps["cuda"][0], maps["cpu"][0]
+        seen = (a >= 0) | (b >= 0)
+        agree = float((a == b)[seen].double().mean())
+        depth_maps[cam.model] = maps["cuda"][1]
+        log("4c cameras card vs cpu", model=cam.model,
+            image=f"{cam.size[0]}x{cam.size[1]}", valid=int(vb.sum()),
+            pix_max_abs_err=f"{pix_err:.3e}",
+            dist_max_abs_err=f"{float((da - db).abs().max()):.3e}",
+            valid_agree=f"{valid_agree:.6f}", seen_pixels=int(seen.sum()),
+            zbuffer_agree=f"{agree:.6f}",
+            project_ms=f"{proj_ms['cuda']:.1f}/{proj_ms['cpu']:.1f}",
+            zbuffer_ms=f"{z_ms['cuda']:.1f}/{z_ms['cpu']:.1f}")
+        if not (pix_err <= CAMERA_PIX_ATOL and valid_agree >= ZBUFFER_AGREE
+                and agree >= ZBUFFER_AGREE and seen.sum() > 1000):
+            raise AssertionError(f"4c {cam.model}: pixels {pix_err}, valid "
+                                 f"{valid_agree}, z-buffer {agree}")
+
+    pano_cam, pin_cam = cams[:2]
+    sub = pos[::BIASUTTI_STRIDE]
+
+    def biasutti(d):
+        x, y, dist, valid = cameras.project(sub.to(d), pano_cam)
+        return visibility.biasutti_visibility(
+            x, y, dist, valid, k=75, x_margin=BIASUTTI_MARGIN,
+            x_width=pano_cam.size[0]).cpu()
+
+    def depth(d):
+        x, y, dist, valid = cameras.project(pos.to(d), pin_cam)
+        return (valid & visibility.depth_map_visibility(
+            x, y, dist, depth_maps["scannet"].to(d))).cpu()
+
+    for name, fn, n in (("biasutti", biasutti, len(sub)),
+                        ("depth_map", depth, len(pos))):
+        masks, ms = timed_both(fn)
+        agree = float((masks["cuda"] == masks["cpu"]).double().mean())
+        log("4c cameras card vs cpu", method=name, points=n,
+            seen=int(masks["cpu"].sum()), agree=f"{agree:.6f}",
+            ms=f"{ms['cuda']:.1f}/{ms['cpu']:.1f}")
+        if agree < ZBUFFER_AGREE or not masks["cpu"].any():
+            raise AssertionError(f"4c {name}: card and CPU agree on {agree}")
 
 
 # --- the recipe request (crop ladder) ----------------------------------------
@@ -2190,13 +2387,44 @@ def loop_eval(cli_eval, tmp: Path) -> dict:
 
 
 def loop_mc_dropout(cli_eval, tmp: Path) -> None:
-    """9c': MC dropout on the card: 9a's run with ``head_dropout = 0.5``,
-    three voting runs on one room, twice with the same seed."""
-    args = ["--run_dir", str(tmp / "quick_run"), "--voting_runs",
-            str(MC_VOTING_RUNS), "model.overrides.head_dropout=0.5", ONE_ROOM]
+    """9c': MC dropout on the card at the library level: 9a's run, its
+    model built from ``dataclasses.replace(spec, head_dropout=0.5)`` with
+    the run's weights (the zoo drops a ``head_dropout`` override, as the
+    JAX package's does), three voting runs of ``cli.eval.vote`` (the CLI's
+    voting loop) on one room, twice with the same seed."""
+    from deepviewagg_tpu_torch.cli import train as cli_train
+    from deepviewagg_tpu_torch.config.run import load_run_config
+    from deepviewagg_tpu_torch.config.zoo import resolve_spec_from_cfg
+    from deepviewagg_tpu_torch.data.datasets.base import (BatchLoader,
+                                                          load_area)
+    from deepviewagg_tpu_torch.metrics.tracker import SegmentationTracker
+    from deepviewagg_tpu_torch.models.segmentation import build_model
+    from deepviewagg_tpu_torch.train.checkpoint import CheckpointManager
+
+    run_dir = tmp / "quick_run"
+    cfg = load_run_config(None, [ONE_ROOM], base=json.loads(
+        (run_dir / "run.json").read_text()))
+    device = torch.device("cuda")
+    ds = cli_train.build_dataset(cfg, train=False, device=device)
+    spec = dataclasses.replace(
+        resolve_spec_from_cfg(cfg.model, ds.num_classes), head_dropout=0.5)
+    levels = sorted(dict(spec.branches))
+    bucket = cli_train.auto_bucket(cfg, ds, levels)
     runs = []
     for _ in range(2):
-        _, probe, _ = run_eval(cli_eval, args)
+        model = CheckpointManager(str(run_dir)).restore_variables(
+            "latest", build_model(spec, device=device, seed=None))
+        loader = BatchLoader(ds, bucket, cfg.data.batch_size, levels,
+                             shuffle=False, conv0_kernel=spec.stem_kernel)
+        zero_launches()
+        with EvalProbe() as probe:
+            votes = cli_eval.VoteAccumulator(ds.num_classes)
+            cli_eval.vote(model, loader, MC_VOTING_RUNS, device,
+                          SegmentationTracker(ds.num_classes, "test"), votes,
+                          lambda cloud: len(load_area(cloud)["pos"]))
+        expect = {"segment_csr": FORWARD_LAUNCHES, "segment_csr_bwd": 0}
+        if any(d != expect for d in probe.step_launches):
+            raise AssertionError(f"9c': launches {probe.step_launches[:2]}")
         runs.append(probe.run_logits(MC_VOTING_RUNS))
     first, again = runs
     if not all(np.isfinite(x).all() for x in first):
@@ -2207,8 +2435,9 @@ def loop_mc_dropout(cli_eval, tmp: Path) -> None:
         for j in range(i):
             if np.array_equal(first[i], first[j]):
                 raise AssertionError(f"voting runs {j} and {i} are equal")
-    log("9c' mc dropout", head_dropout=0.5, voting_runs=MC_VOTING_RUNS,
-        **probe.summary(), repeat_bit_equal=True, runs_differ=True,
+    log("9c' mc dropout", head_dropout=spec.head_dropout,
+        voting_runs=MC_VOTING_RUNS, **probe.summary(),
+        repeat_bit_equal=True, runs_differ=True,
         run_diff_max="/".join(f"{np.abs(first[i] - first[0]).max():.3f}"
                               for i in range(1, MC_VOTING_RUNS)))
 
@@ -2384,20 +2613,23 @@ def write_s3dis_layout(root: Path) -> dict:
     return {"raw": raw, "decode_ms_heuristic": decode_ms}
 
 
-class S3disProbe(Seams):
-    """The parts of each area's preprocess (``S3DIS_PARTS``, ms closed by a
-    synchronisation, summed per area; ``zbuffer`` is inside ``mapping``),
-    patched for one run: ``areas[k] = {part: ms, "total": ms}``."""
+class PreprocessProbe(Seams):
+    """The parts of a loader's preprocess (ms closed by a synchronisation,
+    summed per cloud; ``zbuffer`` is inside ``mapping``), patched for one
+    run: ``clouds[key] = {part: ms, "total": ms}``.  ``entry`` is the
+    module's preprocess function, ``key(*args)`` names the cloud it builds,
+    ``parts`` maps the module's attributes to part names."""
 
-    def __init__(self):
+    def __init__(self, module, entry: str, key, parts: dict):
         super().__init__()
-        self.areas: dict = {}
+        self.module, self.entry, self.key, self.parts = (module, entry, key,
+                                                         parts)
+        self.clouds: dict = {}
 
     def __enter__(self):
         import types
 
         from deepviewagg_tpu_torch.core import visibility
-        from deepviewagg_tpu_torch.data.datasets import s3dis
 
         probe, current = self, {}
 
@@ -2408,30 +2640,40 @@ class S3disProbe(Seams):
                     t0 = time.perf_counter()
                     out = fn(*args, **kwargs)
                     torch.cuda.synchronize()
-                    into = probe.areas.setdefault(current["area"], {})
+                    into = probe.clouds.setdefault(current["key"], {})
                     into[part] = into.get(part, 0.0) + (
                         time.perf_counter() - t0) * 1e3
                     return out
                 return run
             return make
 
-        def area(original):
-            def run(root, area, *args, **kwargs):
-                current["area"] = area
-                return timed("total")(original)(root, area, *args, **kwargs)
+        def keyed(original):
+            def run(*args, **kwargs):
+                current["key"] = probe.key(*args)
+                return timed("total")(original)(*args, **kwargs)
             return run
 
-        self._patch(s3dis, "preprocess_s3dis_area", area)
-        self._patch(s3dis, "load_s3dis_room", timed("txt"))
-        self._patch(s3dis, "_voxel", lambda mod: types.SimpleNamespace(
+        self._patch(self.module, self.entry, keyed)
+        self._patch(self.module, "_voxel", lambda mod: types.SimpleNamespace(
             grid_sample=timed("voxel")(mod.grid_sample)))
-        self._patch(s3dis, "pca_features", timed("pca_knn"))
-        self._patch(s3dis, "build_mappings", timed("mapping"))
+        for attr, part in self.parts.items():
+            self._patch(self.module, attr, timed(part))
         self._patch(visibility, "splat_zbuffer_batch", timed("zbuffer"))
-        self._patch(s3dis, "load_image", timed("png"))
-        self._patch(s3dis, "_apply_non_static_mask", timed("mask"))
-        self._patch(s3dis, "save_area", timed("cache_write"))
         return self
+
+
+def s3dis_probe() -> PreprocessProbe:
+    """9e's split of each area's preprocess (``S3DIS_PARTS``)."""
+    from deepviewagg_tpu_torch.data.datasets import s3dis
+
+    return PreprocessProbe(s3dis, "preprocess_s3dis_area",
+                           lambda root, area, *args: area, {
+                               "load_s3dis_room": "txt",
+                               "pca_features": "pca_knn",
+                               "build_mappings": "mapping",
+                               "load_image": "png",
+                               "_apply_non_static_mask": "mask",
+                               "save_area": "cache_write"})
 
 
 def check_s3dis_caches(root: Path, layout: dict, parts: dict) -> dict:
@@ -2530,7 +2772,7 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with LoopProbe() as probe, S3disProbe() as pre:
+    with LoopProbe() as probe, s3dis_probe() as pre:
         cli.main(args)
     launches = dict(seg.LAUNCHES)
     probe.check_steps("9e s3dis loop")
@@ -2547,7 +2789,7 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     records = read_records(run_dir)
     if len(records) != 1 or "val_miou" not in records[0]:
         raise AssertionError(f"metrics.jsonl: {records}")
-    raw = check_s3dis_caches(root, layout, pre.areas)
+    raw = check_s3dis_caches(root, layout, pre.clouds)
     b = probe.bucket
     log("9e s3dis loop", params=sum(
         p.numel() for p in probe.trainer.model.parameters()),
@@ -2611,6 +2853,244 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
             "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
+def scannet_frame(pos, rgb, camera, seed: int) -> np.ndarray:
+    """``uint8 [H, W, 3]``: smooth shading, each point's colour on the 2 x 2
+    pixels at its projection (the nearest point wins)."""
+    from deepviewagg_tpu_torch.core.cameras import project
+
+    w, h = camera.size
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([np.sin(x / (45.0 + seed)) * 40 + 120,
+                    np.cos(y / 37.0) * 35 + 110,
+                    (x + y) * (60.0 / (w + h)) + 90], axis=-1)
+    px, py, dist, valid = (t.numpy() for t in project(
+        torch.from_numpy(pos), camera))
+    order = np.argsort(-dist[valid], kind="stable")  # the nearest last
+    xi = px[valid].astype(np.int64)[order]
+    yi = py[valid].astype(np.int64)[order]
+    col = rgb[valid][order] * 255
+    for dy in (0, 1):
+        for dx in (0, 1):
+            img[np.minimum(yi + dy, h - 1), np.minimum(xi + dx, w - 1)] = col
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_scannet_layout(root: Path) -> dict:
+    """The 9f layout (see ``SCANNET_SCANS``); returns the vertices per scan
+    and the encode ms of the frames."""
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.utils.image_io import write_jpeg
+    from deepviewagg_tpu_torch.utils.ply import write_ply
+
+    vertices, encode_ms = {}, 0.0
+    for s, scan in enumerate(SCANNET_SCANS):
+        d = root / "scans" / scan
+        for sub in ("pose", "color", "intrinsic"):
+            (d / sub).mkdir(parents=True)
+        scene = synthetic.make_scene(
+            seed=30 + s, room=SCANNET_ROOM, density=SCANNET_DENSITY,
+            n_cameras=SCANNET_FRAMES, camera_model="scannet",
+            image_size=SCANNET_NATIVE)
+        pos = scene.pos.astype(np.float32)
+        rgb = np.round(scene.rgb * 255).astype(np.uint8)
+        write_ply(str(d / f"{scan}_vh_clean_2.ply"), {
+            "x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+            "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+        write_ply(str(d / f"{scan}_vh_clean_2.labels.ply"), {
+            "x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+            "label": np.asarray(SCANNET_NYU40, np.uint16)[scene.labels]})
+        vertices[scan] = len(pos)
+        for i, cam in enumerate(scene.cameras):
+            for j in range(SCANNET_FRAME_STEP):
+                # every exported frame has a pose; colour only at the kept
+                np.savetxt(d / "pose" / f"{i * SCANNET_FRAME_STEP + j}.txt",
+                           cam.extrinsic)
+            img = scannet_frame(pos, scene.rgb, cam, seed=i)
+            t0 = time.perf_counter()
+            write_jpeg(str(d / "color" / f"{i * SCANNET_FRAME_STEP}.jpg"),
+                       img)
+            encode_ms += (time.perf_counter() - t0) * 1e3
+        np.savetxt(d / "intrinsic" / "intrinsic_color.txt",
+                   np.asarray(scene.cameras[0].intrinsic, np.float32))
+    for split in ("train", "val"):
+        (root / f"scannetv2_{split}.txt").write_text("".join(
+            f"{scan}\n" for scan, sp in SCANNET_SCANS.items() if sp == split))
+    return {"vertices": vertices,
+            "encode_ms_per_frame": encode_ms / (len(SCANNET_SCANS)
+                                                * SCANNET_FRAMES)}
+
+
+def scannet_probe() -> PreprocessProbe:
+    """9f's split of each scan's preprocess (``SCANNET_PARTS``)."""
+    from deepviewagg_tpu_torch.data.datasets import scannet
+
+    return PreprocessProbe(scannet, "preprocess_scannet_scan",
+                           lambda scan_dir, *args: Path(scan_dir).name, {
+                               "load_scan_cloud": "ply",
+                               "pca_features": "pca_knn",
+                               "build_mappings": "mapping",
+                               "load_image": "jpeg",
+                               "_apply_non_static_mask": "mask",
+                               "save_area": "cache_write"})
+
+
+def check_scannet_caches(root: Path, layout: dict, parts: dict) -> dict:
+    """Each scan's cache: 8 uint8 frames of 320 x 240 (the coverage
+    selection ran), a mapping with views and pixels; logs the preprocess
+    split; returns the caches' voxel counts."""
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    sizes = {}
+    for scan in SCANNET_SCANS:
+        cache = load_area(str(root / "processed_dva" / f"{scan}.npz"))
+        m, images = cache["mapping"], cache["images"]
+        m.check()
+        if images.shape != (8, *SCANNET_IMAGE_SIZE, 3) \
+                or images.dtype != np.uint8 or m.num_images != 8:
+            raise AssertionError(f"{scan}: images {images.shape} "
+                                 f"{images.dtype}, {m.num_images} in the "
+                                 "mapping")
+        if not (m.view_valid.sum() > 0 and m.pix_valid.sum() > 0):
+            raise AssertionError(f"{scan}: an empty mapping")
+        t = parts[scan]
+        rest = t["total"] - sum(t[p] for p in SCANNET_PARTS if p != "zbuffer")
+        log("9f scannet preprocess", scan=scan,
+            vertices=layout["vertices"][scan], voxels=len(cache["pos"]),
+            frames=f"{SCANNET_FRAMES} kept of {SCANNET_FRAMES * SCANNET_FRAME_STEP}"
+                   f" poses, 8 after coverage",
+            views=int(m.view_valid.sum()),
+            mapped_pixels=int(m.pix_valid.sum()),
+            total_ms=f"{t['total']:.0f}",
+            **{f"{p}_ms": f"{t[p]:.0f}" for p in SCANNET_PARTS},
+            jpeg_ms_per_frame=f"{t['jpeg'] / 8:.0f}",
+            rest_ms=f"{rest:.0f}")
+        sizes[scan] = len(cache["pos"])
+    return sizes
+
+
+def check_submission(sub: Path, sizes: dict) -> dict:
+    """One ``<scan>.txt`` per val scan, one benchmark NYU40 id per line, as
+    many lines as the scan's voted (voxel) cloud."""
+    from deepviewagg_tpu_torch.data.datasets.scannet import VALID_CLASS_IDS
+
+    val = [s for s, sp in SCANNET_SCANS.items() if sp == "val"]
+    files = sorted(p.name for p in sub.iterdir())
+    if files != [f"{s}.txt" for s in val]:
+        raise AssertionError(f"submission files {files}, val scans {val}")
+    lines = {}
+    for scan in val:
+        ids = np.loadtxt(sub / f"{scan}.txt", dtype=np.int64, ndmin=1)
+        if len(ids) != sizes[scan] or not set(ids.tolist()) <= set(
+                VALID_CLASS_IDS):
+            raise AssertionError(f"{scan}.txt: {len(ids)} lines for "
+                                 f"{sizes[scan]} voxels, ids "
+                                 f"{sorted(set(ids.tolist()))[:8]}")
+        lines[scan] = len(ids)
+    return lines
+
+
+def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
+    """9f: ``cli.train`` with ``conf/scannet_benchmark.yaml`` on the ScanNet
+    layout (the recipe's model at its published widths: Res16UNet34, the
+    512-d ``resnet18_l4`` tower, group-4 pool, concat early fusion; batch
+    4, 6 image slots of 320 x 240), the first train batch's segment calls
+    held against their plain versions, then ``cli.eval --voting_runs 2
+    --submission`` and its first batch's calls."""
+    root = tmp / "scannet_raw"
+    t0 = time.perf_counter()
+    layout = write_scannet_layout(root)
+    log("9f scannet layout", scans=dict(SCANNET_SCANS),
+        vertices=layout["vertices"],
+        frames=f"{SCANNET_FRAMES} a scan of {SCANNET_NATIVE[0]}x"
+               f"{SCANNET_NATIVE[1]}, poses {SCANNET_FRAMES * SCANNET_FRAME_STEP}",
+        write_s=f"{time.perf_counter() - t0:.1f}",
+        jpeg_encode_ms_per_frame=f"{layout['encode_ms_per_frame']:.0f}")
+    run_dir = tmp / "scannet_run"
+    args = ["--config", str(CONF / "scannet_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", *SCANNET_LOOP]
+    log("9f scannet cuts", scans="4 (ScanNet v2: 1,513)",
+        vertices="~1e5 a scan (a _vh_clean_2.ply's order)",
+        frames="12 kept a scan, max_images 8 (recipe 40)",
+        epochs="1 of 24 spheres (recipe 200 of 2000), no eval in training "
+               "(eval_frequency 5 as written)",
+        run_dir="temporary", tensorboard="off",
+        widths="none cut", batch="4 as written", frames_size="320x240")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe, scannet_probe() as pre:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9f scannet loop")
+    spec = probe.trainer.model.spec
+    (_, branch), = spec.branches
+    if not (spec.backbone == "Res16UNet34" and branch.tower == "resnet18_l4"
+            and branch.out_channels == 512 and branch.num_groups == 4
+            and branch.fusion_mode == "concat" and spec.num_classes == 20):
+        raise AssertionError(f"not the recipe's model: {spec}")
+    if any(shape[:3] != (24, *SCANNET_IMAGE_SIZE)
+           for shape in probe.train_images):
+        raise AssertionError(f"image batches {probe.train_images}")
+    if not probe.augments["color_jitter"]:
+        raise AssertionError(f"colour jitter not called: {probe.augments}")
+    sizes = check_scannet_caches(root, layout, pre.clouds)
+    b = probe.bucket
+    log("9f scannet loop", params=sum(
+        p.numel() for p in probe.trainer.model.parameters()),
+        augments=probe.augments, images=probe.train_images[0],
+        probe_ms=f"{probe.probe_ms[0]:.0f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches)
+
+    model, batch = probe.trainer.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one forward")
+    fwd = measure_forward_calls(calls, "9f scannet loop kernels",
+                                "calls_per_forward")
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != BACKWARD_LAUNCHES:
+        raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
+                             "step")
+    bwd = measure_backward_calls(bwd_calls, "9f scannet loop kernels")
+    del bwd_calls, model, batch
+    torch.cuda.empty_cache()
+
+    sub = tmp / "scannet_submission"
+    metrics, probe, eval_launches = run_eval(cli_eval, [
+        "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
+        "--submission", str(sub)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lines = check_submission(sub, sizes)
+    worst = check_doubled(probe, probe.votes.num_classes)
+    b = probe.bucket
+    log("9f scannet eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
+        peak_mem_gib=f"{peak:.2f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        launches_per_batch=probe.step_launches[0], launches=eval_launches,
+        votes_twice_rel_err=f"{worst:.2e}", submission_lines=lines,
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+
+    model, batch = probe.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one eval "
+                             "forward")
+    eval_fwd = measure_forward_calls(calls, "9f scannet eval kernels",
+                                     "calls_per_forward")
+    del calls, model, batch
+    return {"launches": launches, "eval_launches": eval_launches,
+            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -2636,11 +3116,12 @@ def phase_loop() -> dict:
         part("9c''", loop_eval_card_vs_cpu, cli_eval, tmp)
         predict = part("9d", loop_predict, tmp)
         s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
+        scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
-            "predict": predict, "s3dis": s3dis}
+            "predict": predict, "s3dis": s3dis, "scannet": scannet}
 
 
 def kernel_family(name: str) -> str:
@@ -2746,6 +3227,7 @@ def main() -> None:
     launches = phase_serving(model, requests)
     check_request, _ = make_request(0, "cuda", **CHECK_REQUEST)
     phase_card_vs_cpu(model, check_request)
+    phase_cameras_card_vs_cpu()
     # training runs on a copy, so the serving model keeps its weights
     train_model = copy.deepcopy(model).train()
     bwd_totals = phase_backward_kernels(
@@ -2764,7 +3246,7 @@ def main() -> None:
 
     def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
-                "max_abs_err")
+                "max_abs_err", "pad_share")
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts,
@@ -2792,9 +3274,12 @@ def main() -> None:
     # calls of one forward / train step of phase 9e's first S3DIS batch,
     # ``loop_s3dis_eval``: over the calls of one forward of its first eval
     # batch, ``launches_loop_s3dis``: the counts over 9e's train run (one epoch and
-    # an eval), ``launches_loop_s3dis_eval``: over its ``cli.eval`` run
+    # an eval), ``launches_loop_s3dis_eval``: over its ``cli.eval`` run;
+    # ``loop_scannet`` / ``loop_scannet_eval`` and their launch counts: the
+    # same for phase 9f (ScanNet); ``pad_share``: the padding-row share of
+    # each path's widest call
     loop_recipe, loop_eval = loop["recipe"], loop["eval"]
-    s3dis_run = loop["s3dis"]
+    s3dis_run, scannet_run = loop["s3dis"], loop["scannet"]
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -2802,7 +3287,9 @@ def main() -> None:
                "loop_recipe": loop_recipe["forward"],
                "loop_eval": loop_eval["forward"],
                "loop_s3dis": s3dis_run["forward"],
-               "loop_s3dis_eval": s3dis_run["eval_forward"]},
+               "loop_s3dis_eval": s3dis_run["eval_forward"],
+               "loop_scannet": scannet_run["forward"],
+               "loop_scannet_eval": scannet_run["eval_forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -2813,13 +3300,17 @@ def main() -> None:
               launches_predict=loop["predict"]["segment_csr"],
               launches_loop_s3dis=s3dis_run["launches"]["segment_csr"],
               launches_loop_s3dis_eval=s3dis_run["eval_launches"][
+                  "segment_csr"],
+              launches_loop_scannet=scannet_run["launches"]["segment_csr"],
+              launches_loop_scannet_eval=scannet_run["eval_launches"][
                   "segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
               {"recipe": recipe["backward"],
                "loop_recipe": loop_recipe["backward"],
-               "loop_s3dis": s3dis_run["backward"]},
+               "loop_s3dis": s3dis_run["backward"],
+               "loop_scannet": scannet_run["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -2830,6 +3321,10 @@ def main() -> None:
               launches_predict=loop["predict"]["segment_csr_bwd"],
               launches_loop_s3dis=s3dis_run["launches"]["segment_csr_bwd"],
               launches_loop_s3dis_eval=s3dis_run["eval_launches"][
+                  "segment_csr_bwd"],
+              launches_loop_scannet=scannet_run["launches"][
+                  "segment_csr_bwd"],
+              launches_loop_scannet_eval=scannet_run["eval_launches"][
                   "segment_csr_bwd"]),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")

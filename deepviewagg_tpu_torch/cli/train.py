@@ -9,11 +9,13 @@ The port of the root ``train.py`` (the reference's ``train.py``: Hydra @main
 
 Config groups (``deepviewagg_tpu_torch/config/run.py``): model / data /
 training.  ``training.resume=true`` restores the run dir's ``latest``
-checkpoint before training.  The synthetic and S3DIS datasets are ported
-(``data.dataset`` scannet / kitti360 raise: ROADMAP A.2.4, A.4):
+checkpoint before training.  The synthetic, S3DIS and ScanNet datasets are
+ported (``data.dataset=kitti360`` raises: ROADMAP A.2.4):
 
     python -m deepviewagg_tpu_torch.cli.train \
         --config conf/s3dis_benchmark.yaml data.root=<2D-3D-S layout>
+    python -m deepviewagg_tpu_torch.cli.train \
+        --config conf/scannet_benchmark.yaml data.root=<ScanNet layout>
 """
 
 from __future__ import annotations
@@ -83,15 +85,22 @@ def build_dataset(cfg, train: bool, device="cuda"):
             **cfg.data.kwargs,
         )
     if cfg.data.dataset == "scannet":
-        raise NotImplementedError(
-            "data.dataset='scannet': the loader is not ported yet (ROADMAP "
-            "A.2.4; it needs the pinhole camera of A.4); data.dataset="
-            "synthetic and s3dis are")
+        from ..data.datasets.scannet import make_scannet_dataset
+
+        # the JAX CLI's arguments exactly: no radius, samples_per_epoch or
+        # image_size; the YAML's values for those reach the loader only
+        # through data.kwargs
+        return make_scannet_dataset(
+            cfg.data.root, train=train, voxel_size=cfg.data.voxel_size,
+            image_slots=cfg.data.image_slots, device=device,
+            **cfg.data.kwargs,
+        )
     if cfg.data.dataset == "kitti360":
         raise NotImplementedError(
             "data.dataset='kitti360': the loader is not ported yet (ROADMAP "
-            "A.2.4; it needs the pinhole and MEI-fisheye cameras of A.4); "
-            "data.dataset=synthetic and s3dis are")
+            "A.2.4; it needs the camera-family ladder and A.6's "
+            "ResNet18Pyramid towers; its cameras are ported); data.dataset="
+            "synthetic, s3dis and scannet are")
     raise KeyError(cfg.data.dataset)
 
 

@@ -4,10 +4,10 @@ The port of ``deepviewagg_tpu/config/zoo.py``: the same names, grammar and
 specs.  Name resolution is pure data, so every name resolves; building a
 family or tower that is not ported raises.  ``ref:`` names and
 ``model.tower_weights`` raise (reference ingest and pretrained towers are
-not ported).  One difference from the JAX package, on purpose:
-``model.overrides={head_dropout: p}`` reaches the port's spec (eval's MC
-dropout needs it), while the JAX ``_to_spec`` drops the key and keeps 0.0;
-every other field of every spec is the JAX one.  The JAX docstring follows.
+not ported).  Every field of every spec is the JAX one; like the JAX
+``_to_spec``, a zoo entry's ``head_dropout`` override is dropped (build a
+model with ``dataclasses.replace(spec, head_dropout=p)`` for MC dropout).
+The JAX docstring follows.
 
 conf/models/segmentation/multimodal/sparseconv3d.yaml holds ~109 named
 entries crossing: fusion depth (early L0..L5 / pyramid / late), fusion mode
@@ -252,9 +252,6 @@ def _to_spec(entry: dict, num_classes: int, in_channels: int) -> ModelSpec:
         branches=branches,
         family=entry.get("family", "unet"),
         stem_kernel=entry.get("stem_kernel", 3),
-        # the JAX package's _to_spec drops this key, so that its
-        # model.overrides={head_dropout: p} (eval's MC dropout) does nothing
-        head_dropout=entry.get("head_dropout", 0.0),
         no3d_head=entry.get("no3d_head", True),
     )
 

@@ -1,10 +1,21 @@
-"""Camera models on the request's device: the equirectangular panorama.
+"""Camera models on the request's device: equirectangular, pinhole and
+MEI-fisheye projections.
 
-The port of ``deepviewagg_tpu/core/cameras.py`` for the
-``s3dis_equirectangular`` model (the flagship's synthetic S3DIS-style
-cameras).  Every function projects ALL points and returns a validity mask —
-no point is dropped, so shapes stay fixed (visibility.py:58-630 of the
-reference).
+The port of ``deepviewagg_tpu/core/cameras.py`` (the reference's
+projection kernels, torch_points3d/core/multimodal/visibility.py:58-630).
+Every function projects ALL points and returns a validity mask — no point
+is dropped, so shapes stay fixed.
+
+Conventions (SURVEY.md §A.1):
+  * ``s3dis_equirectangular`` — camera position + omega/phi/kappa Euler
+    triplet (visibility.py:151-216).
+  * ``scannet`` — 4x4 cam->world pose, inverted to world->cam in float32
+    (visibility.py:220-285), pinhole ``u = fx px/pz + mx``.
+  * ``kitti360_perspective`` — 4x4 cam->world extrinsic, ``p = (x - T) R``
+    then pinhole (visibility.py:238-247).
+  * ``kitti360_fisheye`` — cam->world extrinsic + MEI model (xi, k1, k2,
+    gamma1, gamma2, u0, v0): unit-sphere normalise, ``x / (z + xi)``,
+    radial distortion ``1 + k1 r^2 + k2 r^4``, affine (visibility.py:289-339).
 
 ``x`` below is the image WIDTH coordinate and ``y`` the HEIGHT coordinate,
 matching the reference's (x_pix, y_pix) ordering.
@@ -19,7 +30,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-CAMERA_MODELS = ("s3dis_equirectangular",)
+CAMERA_MODELS = (
+    "s3dis_equirectangular",
+    "scannet",
+    "kitti360_perspective",
+    "kitti360_fisheye",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +56,10 @@ class Camera:
     mask: Optional[np.ndarray] = None    # [W, H] bool static-pixel mask
 
     def center(self, device) -> torch.Tensor:
-        """World-space camera center ``[3]`` on ``device``."""
+        """World-space camera center ``[3]`` on ``device``: ``pos``, or the
+        translation column of the cam->world extrinsic (pinhole and fisheye
+        models; the reference reads ScanNet centres the same way,
+        datasets/segmentation/multimodal/scannet.py:192)."""
         if self.pos is not None:
             return torch.as_tensor(np.asarray(self.pos, np.float32), device=device)
         e = torch.as_tensor(np.asarray(self.extrinsic, np.float32), device=device)
@@ -77,6 +96,55 @@ def equirectangular_projection(xyz_to_img, radius, opk, size):
     return x_pix, y_pix, torch.ones_like(x_pix)
 
 
+def _tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def pinhole_projection(xyz, extrinsic, intrinsic, model="scannet"):
+    """Pinhole projection; returns ``(x_pix, y_pix, z_cam)``.  ``scannet``
+    inverts the stored cam->world pose in float32, as ``jnp.linalg.inv``
+    does in the JAX package (LAPACK on the CPU, cuSOLVER on the card: the
+    float32 inverses need not share their last bits)."""
+    e = _tensor(extrinsic, xyz.device)
+    if model == "scannet":
+        world_to_cam = torch.linalg.inv(e)
+        r, t = world_to_cam[:3, :3], world_to_cam[:3, 3]
+        p = xyz @ r.T + t
+    elif model == "kitti360_perspective":
+        r, t = e[:3, :3], e[:3, 3]
+        p = (xyz - t) @ r
+    else:
+        raise ValueError(f"unknown pinhole model {model}")
+    k = _tensor(intrinsic, xyz.device)
+    z = p[:, 2]
+    zs = torch.where(torch.abs(z) < 1e-8, 1e-8, z)
+    x = p[:, 0] * k[0, 0] / zs + k[0, 2]
+    y = p[:, 1] * k[1, 1] / zs + k[1, 2]
+    return x, y, z
+
+
+def fisheye_projection(xyz, extrinsic, fisheye):
+    """MEI-model fisheye projection (KITTI-360 cam2/cam3)."""
+    e = _tensor(extrinsic, xyz.device)
+    r, t = e[:3, :3], e[:3, 3]
+    p = (xyz - t) @ r
+    xi, k1, k2, g1, g2, u0, v0 = _tensor(fisheye, xyz.device)
+    norm = torch.linalg.norm(p, dim=1)
+    denom = norm + 1e-4
+    x = p[:, 0] / denom
+    y = p[:, 1] / denom
+    z = p[:, 2] / denom
+    x = x / (z + xi)
+    y = y / (z + xi)
+    r2 = x**2 + y**2
+    r4 = r2**2
+    d = 1 + k1 * r2 + k2 * r4
+    x_pix = g1 * d * x + u0
+    y_pix = g2 * d * y + v0
+    z_out = norm * p[:, 2] / (torch.abs(p[:, 2]) + 1e-4)
+    return x_pix, y_pix, z_out
+
+
 def field_of_view_mask(x_pix, y_pix, z, size, crop_top=0, crop_bottom=0,
                        img_mask=None):
     """Validity mask: in image bounds, in crop band, in front of camera,
@@ -104,14 +172,20 @@ def project(xyz: torch.Tensor, camera: Camera):
     distance to the camera center; ``valid`` combines the r_min/r_max range
     gate and the field-of-view gate (visibility.py:480-630).
     """
-    if camera.model != "s3dis_equirectangular":
-        raise NotImplementedError(
-            f"camera model {camera.model!r} is not ported yet")
     xyz = xyz.to(torch.float32)
     to_img = xyz - camera.center(xyz.device)
     dist = torch.linalg.norm(to_img, dim=1)
     in_range = (dist > camera.r_min) & (dist < camera.r_max)
-    x, y, z = equirectangular_projection(to_img, dist, camera.opk, camera.size)
+    if camera.model == "s3dis_equirectangular":
+        x, y, z = equirectangular_projection(to_img, dist, camera.opk,
+                                             camera.size)
+    elif camera.model in ("scannet", "kitti360_perspective"):
+        x, y, z = pinhole_projection(xyz, camera.extrinsic, camera.intrinsic,
+                                     model=camera.model)
+    elif camera.model == "kitti360_fisheye":
+        x, y, z = fisheye_projection(xyz, camera.extrinsic, camera.fisheye)
+    else:
+        raise ValueError(f"unknown camera model {camera.model}")
     fov = field_of_view_mask(
         x, y, z, camera.size, camera.crop_top, camera.crop_bottom, camera.mask
     )

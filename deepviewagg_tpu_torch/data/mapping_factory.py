@@ -1,8 +1,8 @@
 """The mapping factory: posed images + point cloud -> MultiViewMapping.
 
-The port of the splatting path of ``deepviewagg_tpu/data/mapping_factory.py``
-(the reference's ``MapImages`` -> ``SplattingVisibility`` ->
-``ImageMapping.from_dense`` -> ``NeighborhoodBasedMappingFeatures``,
+The port of ``deepviewagg_tpu/data/mapping_factory.py`` (the reference's
+``MapImages`` -> ``VisibilityModel`` -> ``ImageMapping.from_dense`` ->
+``NeighborhoodBasedMappingFeatures``,
 core/data_transform/multimodal/image.py:162-612).  The kNN, the PCA
 features and the per-camera z-buffers run on ``device``; the ragged ->
 array compression is numpy, as in the JAX package.
@@ -25,16 +25,27 @@ __all__ = ["build_mappings", "VisibilityParams"]
 
 
 class VisibilityParams:
-    """Visibility knobs of the reference's ``SplattingVisibility``
-    (visibility.py:1764): voxel, k_swell, d_swell, exact, plus the static
-    ``max_splat`` grid and the kNN size of the density/occlusion features.
-    Only ``method='splatting'`` is ported."""
+    """Visibility-model selection + knobs — the reference's
+    ``VisibilityModel`` dispatcher (visibility.py:1677-1801):
+
+      * ``method='splatting'``: z-buffer splats (``SplattingVisibility``,
+        :1764 — voxel, k_swell, d_swell, exact);
+      * ``method='biasutti'``: image-space kNN depth test
+        (``BiasuttiVisibility``, :1790 — biasutti_k, biasutti_margin is the
+        equirectangular X-wrap pixel margin, biasutti_threshold the alpha
+        cut, default mean-alpha);
+      * ``method='depth'``: compare against provided sensor depth maps
+        (``DepthBasedVisibility``, :1779 — depth_threshold; pass
+        ``depth_maps`` to :func:`build_mappings`).
+
+    ``max_splat`` is the static splat grid and ``knn_k`` the kNN size of
+    the density / occlusion features."""
 
     def __init__(self, voxel=0.05, k_swell=1.0, d_swell=1000.0, exact=False,
-                 max_splat=8, knn_k=16, method="splatting"):
-        if method != "splatting":
-            raise NotImplementedError(
-                f"visibility method {method!r} is not ported yet")
+                 max_splat=8, knn_k=16, method="splatting",
+                 biasutti_k=75, biasutti_margin=None,
+                 biasutti_threshold=None, depth_threshold=0.05):
+        assert method in ("splatting", "biasutti", "depth"), method
         self.voxel = voxel
         self.k_swell = k_swell
         self.d_swell = d_swell
@@ -42,6 +53,10 @@ class VisibilityParams:
         self.max_splat = max_splat
         self.knn_k = knn_k
         self.method = method
+        self.biasutti_k = biasutti_k
+        self.biasutti_margin = biasutti_margin
+        self.biasutti_threshold = biasutti_threshold
+        self.depth_threshold = depth_threshold
 
 
 def _image_mappings_dense(idx_map: np.ndarray):
@@ -57,6 +72,7 @@ def build_mappings(
     params: Optional[VisibilityParams] = None,
     geometric: Optional[dict] = None,
     nn_idx=None,
+    depth_maps: Optional[Sequence] = None,
     device="cuda",
 ) -> MultiViewMapping:
     """Build the full mapping for one sample (unpadded capacities); the
@@ -67,7 +83,8 @@ def build_mappings(
     :func:`deepviewagg_tpu_torch.data.geometric.pca_features` with k = 50);
     ``nn_idx`` optionally reuses a SELF-INCLUSIVE kNN index table ``[N,
     >=knn_k]`` (column 0 = self) for the density / occlusion features, as
-    the JAX package's signature does."""
+    the JAX package's signature does; ``depth_maps`` (one ``[W, H]`` map
+    per camera) feed ``method='depth'``."""
     params = params or VisibilityParams()
     pos = np.asarray(pos, np.float32)
     n = len(pos)
@@ -94,32 +111,65 @@ def build_mappings(
 
     per_image = [None] * len(cams)
     seen_matrix = np.zeros((n, len(cams)), bool)
-    # one splatting pass per camera family (same model, size, crops, range)
-    families: dict = {}
-    for i, cam in enumerate(cams):
-        key = (cam.model, cam.size, cam.crop_top, cam.crop_bottom,
-               float(cam.r_min), float(cam.r_max))
-        families.setdefault(key, []).append(i)
-
-    for ids in families.values():
-        idx_maps_dev, feats6_dev = _vis.splat_zbuffer_batch(
-            [cams[i] for i in ids], pos_p, voxel=params.voxel,
-            k_swell=params.k_swell, d_swell=params.d_swell,
-            exact=params.exact, max_splat=params.max_splat, geo=geo_dev,
-        )
-        idx_maps = idx_maps_dev.cpu().numpy()      # ONE [C, W, H] readback
-        for j, i in enumerate(ids):
-            pts, xs, ys = _image_mappings_dense(idx_maps[j])
-            if len(pts) == 0:
+    if params.method != "splatting":
+        # non-splatting visibility models: shared projection front half,
+        # per-camera visibility mask, one centre pixel per seen point
+        for i, cam in enumerate(cams):
+            xp, yp, dist, valid, feats6_dev = _vis.project_features(
+                cam, pos_p, geo=geo_dev)
+            if params.method == "biasutti":
+                seen = _vis.biasutti_visibility(
+                    xp, yp, dist, valid, k=params.biasutti_k,
+                    threshold=params.biasutti_threshold,
+                    x_margin=params.biasutti_margin, x_width=cam.size[0])
+            else:
+                if depth_maps is None or depth_maps[i] is None:
+                    raise ValueError(
+                        "method='depth' needs per-camera depth_maps")
+                seen = valid & _vis.depth_map_visibility(
+                    xp, yp, dist, depth_maps[i],
+                    depth_threshold=params.depth_threshold)
+            upts = np.nonzero(seen[:n].cpu().numpy())[0]
+            if len(upts) == 0:
                 continue
-            order = np.argsort(pts, kind="stable")
-            pts, xs, ys = pts[order], xs[order], ys[order]
-            upts, starts = np.unique(pts, return_index=True)
+            w, h = cam.size
+            sel = torch.as_tensor(upts, device=device)
+            # the cast truncates toward zero before the clip, as
+            # astype(int32)
+            xs = torch.clamp(xp[sel].to(torch.int32), 0, w - 1)
+            ys = torch.clamp(yp[sel].to(torch.int32), 0, h - 1)
             seen_matrix[upts, i] = True
-            # device-side row select before the readback
-            feats6 = feats6_dev[j][torch.as_tensor(upts, device=device)]
-            per_image[i] = dict(upts=upts, starts=starts, pts=pts, xs=xs,
-                                ys=ys, feats6=feats6.cpu().numpy())
+            per_image[i] = dict(
+                upts=upts, starts=np.arange(len(upts)), pts=upts,
+                xs=xs.cpu().numpy(), ys=ys.cpu().numpy(),
+                feats6=feats6_dev[sel].cpu().numpy())
+    else:
+        # one splatting pass per camera family (same model, size, crops,
+        # range)
+        families: dict = {}
+        for i, cam in enumerate(cams):
+            key = (cam.model, cam.size, cam.crop_top, cam.crop_bottom,
+                   float(cam.r_min), float(cam.r_max))
+            families.setdefault(key, []).append(i)
+        for ids in families.values():
+            idx_maps_dev, feats6_dev = _vis.splat_zbuffer_batch(
+                [cams[i] for i in ids], pos_p, voxel=params.voxel,
+                k_swell=params.k_swell, d_swell=params.d_swell,
+                exact=params.exact, max_splat=params.max_splat, geo=geo_dev,
+            )
+            idx_maps = idx_maps_dev.cpu().numpy()  # ONE [C, W, H] readback
+            for j, i in enumerate(ids):
+                pts, xs, ys = _image_mappings_dense(idx_maps[j])
+                if len(pts) == 0:
+                    continue
+                order = np.argsort(pts, kind="stable")
+                pts, xs, ys = pts[order], xs[order], ys[order]
+                upts, starts = np.unique(pts, return_index=True)
+                seen_matrix[upts, i] = True
+                # device-side row select before the readback
+                feats6 = feats6_dev[j][torch.as_tensor(upts, device=device)]
+                per_image[i] = dict(upts=upts, starts=starts, pts=pts, xs=xs,
+                                    ys=ys, feats6=feats6.cpu().numpy())
 
     # features 7-8: density (per point) and occlusion (per point, image) —
     # NeighborhoodBasedMappingFeatures (image.py:431-612) over a

@@ -144,17 +144,22 @@ def test_overrides_match_jax():
     assert not spec.branches[0][1].tower_bf16
 
 
-def test_head_dropout_override_is_the_one_difference_from_jax():
-    """The port's spec takes ``head_dropout`` from ``model.overrides``; the
-    JAX ``_to_spec`` drops it.  Every other field stays equal."""
-    for name in ("Res16UNet34-L4-early-ade20k-interpolate", "Res16UNet34"):
-        got = dataclasses.asdict(tzoo.get_model_spec(
-            name, 13, 4, {"head_dropout": 0.5}))
-        want = dataclasses.asdict(jzoo.get_model_spec(
-            name, 13, 4, {"head_dropout": 0.5}))
-        assert got.pop("head_dropout") == 0.5
-        assert want.pop("head_dropout") == 0.0
-        assert got == want
+@pytest.mark.parametrize("field", [
+    f.name for f in dataclasses.fields(tzoo.ModelSpec)])
+@pytest.mark.parametrize("name", ["Res16UNet34-L4-early-ade20k-interpolate",
+                                  "Res16UNet34"])
+def test_head_dropout_override_is_the_one_difference_from_jax(name, field):
+    """A ``head_dropout`` override on a zoo name, once the one difference
+    between the packages' specs: now every field of the port's spec,
+    ``head_dropout`` included, is the JAX spec's (both ``_to_spec`` drop the
+    key and keep 0.0)."""
+    got = dataclasses.asdict(tzoo.get_model_spec(name, 13, 4,
+                                                 {"head_dropout": 0.5}))
+    want = dataclasses.asdict(jzoo.get_model_spec(name, 13, 4,
+                                                  {"head_dropout": 0.5}))
+    assert got[field] == want[field]
+    if field == "head_dropout":
+        assert got[field] == 0.0
 
 
 def test_bad_names_raise_like_jax():

@@ -15,6 +15,7 @@ other, and then the predictions are equal, the metrics agree within 1e-6
 absolute and the vote arrays within 1e-5 relative.
 """
 
+import dataclasses
 import json
 import os
 
@@ -328,9 +329,11 @@ def test_two_voting_runs_without_dropout_double_the_votes(runs, port_run):
 
 
 def _dropout_logits(runs, generator_seed):
-    """Three voting runs of ``cli.eval`` with ``head_dropout = 0.5``, the
-    MC-dropout generator seeded from ``generator_seed`` (the CLI seeds it
-    from 0) by wrapping ``make_eval_step``'s MC step."""
+    """Three voting runs of ``cli.eval`` on a model built from the run's
+    spec with ``head_dropout = 0.5`` (``dataclasses.replace``: like the JAX
+    zoo, the port's drops a ``head_dropout`` override), the MC-dropout
+    generator seeded from ``generator_seed`` (the CLI seeds it from 0) by
+    wrapping ``make_eval_step``'s MC step."""
     def make_eval_step(model, mc_dropout=False):
         step = tstep.make_eval_step(model, mc_dropout)
         if not mc_dropout:
@@ -338,10 +341,14 @@ def _dropout_logits(runs, generator_seed):
         own = torch.Generator().manual_seed(generator_seed)
         return lambda state, batch, generator: step(state, batch, own)
 
+    def with_dropout(spec, **kwargs):
+        return build_model(dataclasses.replace(spec, head_dropout=0.5),
+                           **kwargs)
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cli, "make_eval_step", make_eval_step)
-        _, _, logits = _port_eval(runs, "--voting_runs", "3",
-                                  "model.overrides.head_dropout=0.5")
+        mp.setattr(cli, "build_model", with_dropout)
+        _, _, logits = _port_eval(runs, "--voting_runs", "3")
     n = len(logits) // 3
     return [np.concatenate(logits[i * n:(i + 1) * n]) for i in range(3)]
 
@@ -363,9 +370,12 @@ def test_mc_dropout_runs_repeat_per_seed(runs):
 # --- what stays raising, and the entry points' TF32 pin ----------------------
 
 def test_submission_and_no3d_raise(runs, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.2.4"):
+    """``--submission`` on a KITTI-360 run raises (its writer is A.2.4; the
+    ScanNet one is held in ``test_torch_port_scannet.py``), as does the
+    ``no3d`` family."""
+    with pytest.raises(NotImplementedError, match="KITTI-360.*A.2.4"):
         cli.main(["--run_dir", runs["port"], "--device", "cpu",
-                  "--submission", str(tmp_path)])
+                  "--submission", str(tmp_path), "data.dataset=kitti360"])
     with pytest.raises(NotImplementedError, match="propagate_unseen.*A.6"):
         cli.main(["--run_dir", runs["port"], "--device", "cpu",
                   "model.name=No3D-ADE20K-group8"])

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``deepviewagg_tpu_torch``
 imports JAX, flax or the JAX package, nor PIL or torchvision (the card's
-machine has neither: the port reads PNGs itself), and its entry points
-default to the card."""
+machine has neither: the port reads PNGs and JPEGs itself), and its entry
+points default to the card."""
 
 import ast
 import inspect
@@ -57,6 +57,40 @@ def test_s3dis_modules_are_covered(rel):
     if rel == "utils/image_io.py":
         assert roots <= {"__future__", "math", "struct", "typing", "zlib",
                          "numpy"}
+
+
+@pytest.mark.parametrize("rel", ["data/datasets/scannet.py",
+                                 "core/cameras.py", "core/visibility.py",
+                                 "data/mapping_factory.py",
+                                 "utils/image_io.py", "utils/ply.py"])
+def test_scannet_modules_are_covered(rel):
+    """The ScanNet loader's files (its cameras, visibility methods and JPEG
+    reader) exist, are among the files the import checks walk, import
+    neither package's counterpart nor PIL, and the image reader keeps to
+    the standard library and numpy."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    if rel.startswith("utils/"):
+        assert roots <= {"__future__", "math", "struct", "typing", "zlib",
+                         "numpy"}
+
+
+def test_scannet_entry_points_default_to_the_card():
+    from deepviewagg_tpu_torch.data.datasets import scannet
+
+    for fn in (scannet.preprocess_scannet_scan,
+               scannet.make_scannet_dataset):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_no_camera_model_or_visibility_method_refuses():
+    """No camera model and no visibility method raises
+    ``NotImplementedError`` any more."""
+    for rel in ("core/cameras.py", "core/visibility.py",
+                "data/mapping_factory.py"):
+        assert "NotImplementedError" not in (PKG / rel).read_text(), rel
 
 
 def test_training_modules_are_covered():

@@ -50,7 +50,8 @@ from deepviewagg_tpu_torch.train import optimizers as topt
 from deepviewagg_tpu_torch.train import trainer as ttrainer
 from deepviewagg_tpu_torch.utils.from_jax import (load_flax_variables,
                                                   to_flax_tree)
-from torch_port_util import (_torch_threads, f32_sparse_convs,  # noqa: F401
+from torch_port_util import (SCANNET_SCANS, _torch_threads,  # noqa: F401
+                             f32_sparse_convs, fake_scannet_layout,
                              fake_s3dis_layout, flat_leaves, rel_err)
 
 # the Quick start model's branch without ``-interpolate``: with bilinear
@@ -476,8 +477,20 @@ def test_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dataset", ["s3dis", "scannet", "kitti360"])
 def test_cli_refuses_unported_datasets(tmp_path, dataset):
-    """S3DIS is ported: one epoch with an eval on a miniature 2D-3D-S
-    layout.  ScanNet and KITTI-360 still raise, naming ROADMAP A.2.4."""
+    """S3DIS and ScanNet are ported: one epoch with an eval on a miniature
+    2D-3D-S / ScanNet layout.  KITTI-360 still raises, naming ROADMAP
+    A.2.4."""
+    if dataset == "scannet":
+        root = fake_scannet_layout(str(tmp_path / "layout"))
+        metrics = cli.main(_cli_args(
+            tmp_path, "data.dataset=scannet", f"data.root={root}",
+            "data.kwargs={radius: 1.5, samples_per_epoch: 4, frame_step: 2, "
+            "image_size: [64, 32]}"))
+        assert np.isfinite(metrics["val_miou"])
+        assert sorted(f for f in os.listdir(
+            os.path.join(root, "processed_dva")) if f.endswith(".npz")) == [
+                f"{s}.npz" for s in SCANNET_SCANS]
+        return
     if dataset == "s3dis":
         root = fake_s3dis_layout(str(tmp_path / "layout"))
         metrics = cli.main(_cli_args(

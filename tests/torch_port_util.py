@@ -347,3 +347,144 @@ def fake_s3dis_layout(root, seed: int = 7, density: float = 60.0,
         write_png(os.path.join(rgb_dir, f"camera_{i}_office_1_rgb.png"), img)
     os.symlink(area, os.path.join(root, "Area_5"))
     return root
+
+
+# --- cameras -----------------------------------------------------------------
+
+CAMERA_MODELS = ("s3dis_equirectangular", "scannet", "kitti360_perspective",
+                 "kitti360_fisheye")
+# MEI parameters of KITTI-360's image_02 calibration (xi, k1, k2, gamma1,
+# gamma2, u0, v0 as ``tests/test_kitti360_fisheye.py`` writes them), at a
+# tenth of the 1400 x 1400 frame
+FISHEYE = np.array([2.2, 0.02, -0.01, 132.0, 132.0, 70.0, 70.0], np.float32)
+
+
+def camera_fields(model: str, seed: int = 0, image_size=(96, 64)) -> dict:
+    """``Camera`` fields (host numpy, either package's class takes them) of
+    one camera of ``model`` inside ``data/synthetic.py``'s room: the
+    scene's own equirectangular or ScanNet camera, and for KITTI-360 the
+    ScanNet camera's cam->world pose with its pinhole intrinsics or the
+    MEI fisheye parameters above (a 140 x 140 frame)."""
+    from deepviewagg_tpu_torch.data import synthetic
+
+    base = "s3dis_equirectangular" if model == "s3dis_equirectangular" \
+        else "scannet"
+    scene = synthetic.make_scene(seed=seed, density=5.0, n_cameras=1,
+                                 image_size=image_size, camera_model=base)
+    cam = scene.cameras[0]
+    fields = {f.name: getattr(cam, f.name)
+              for f in dataclasses.fields(cam)}
+    fields["model"] = model
+    if model == "kitti360_fisheye":
+        fields.update(size=(140, 140), intrinsic=None, fisheye=FISHEYE)
+    return fields
+
+
+def camera_scene(seed: int = 0, density: float = 60.0):
+    """The points of one ``data/synthetic.py`` room (float32)."""
+    from deepviewagg_tpu_torch.data import synthetic
+
+    return synthetic.make_scene(seed=seed, density=density,
+                                n_cameras=1).pos.astype(np.float32)
+
+
+# --- ScanNet -----------------------------------------------------------------
+
+SCANNET_SCANS = ("scene0000_00", "scene0001_00", "scene0002_00")
+
+
+def _add_faces(path: str, n_vertices: int, seed: int) -> None:
+    """Append a triangle list to a binary PLY, as the real
+    ``_vh_clean_2.ply`` meshes carry (the readers skip it)."""
+    rng = np.random.default_rng(seed)
+    data = open(path, "rb").read()
+    head, body = data.split(b"end_header\n", 1)
+    n_faces = max(1, n_vertices // 2)
+    faces = np.empty(n_faces, np.dtype([("n", "u1"), ("v", "<i4", (3,))]))
+    faces["n"] = 3
+    faces["v"] = rng.integers(0, n_vertices, (n_faces, 3))
+    with open(path, "wb") as f:
+        f.write(head + f"element face {n_faces}\nproperty list uchar int "
+                "vertex_indices\nend_header\n".encode())
+        f.write(body + faces.tobytes())
+
+
+def scannet_frame(pos, rgb, camera, seed: int) -> np.ndarray:
+    """``uint8 [H, W, 3]`` photo-like frame at the camera's size: smooth
+    shading, the colour of the nearest point at each projected pixel."""
+    import torch
+
+    from deepviewagg_tpu_torch.core.cameras import project
+
+    w, h = camera.size
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([np.sin(x / (25.0 + seed)) * 40 + 120,
+                    np.cos(y / 19.0) * 35 + 110,
+                    (x + y) * (60.0 / (w + h)) + 90], axis=-1)
+    px, py, dist, valid = (t.numpy() for t in project(
+        torch.from_numpy(np.asarray(pos, np.float32)), camera))
+    order = np.argsort(-dist[valid], kind="stable")   # the nearest last
+    xi = px[valid].astype(np.int64)[order]
+    yi = py[valid].astype(np.int64)[order]
+    img[yi, xi] = rgb[valid][order] * 255
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def fake_scannet_layout(root, scans=SCANNET_SCANS, splits=True,
+                        seed: int = 9, density: float = 60.0,
+                        frames: int = 3, frame_step: int = 2,
+                        native=(128, 96)):
+    """A miniature ScanNet v2 layout under ``root``, as
+    ``tests/test_datasets.py::test_scannet_pipeline`` writes one: per scan a
+    synthetic room (``camera_model="scannet"``) as ``<scan>_vh_clean_2.ply``
+    (the first with a face list) and ``.labels.ply`` (NYU40: wall 1, floor
+    2, an out-of-benchmark 13 and 0, read as -1), a pose file for every
+    frame but colour (the port's ``write_jpeg``, ``native`` pixels) only at
+    multiples of ``frame_step``, one more pose that is not finite, and
+    ``intrinsic_color.txt`` at the native size; with ``splits`` the last
+    scan is listed in ``scannetv2_val.txt``, the others in
+    ``scannetv2_train.txt``.  Returns ``root``."""
+    import os
+
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.utils.image_io import write_jpeg
+    from deepviewagg_tpu_torch.utils.ply import write_ply
+
+    for s, scan in enumerate(scans):
+        scene = synthetic.make_scene(seed=seed + s, density=density,
+                                     n_cameras=frames, image_size=native,
+                                     camera_model="scannet")
+        d = os.path.join(root, "scans", scan)
+        for sub in ("pose", "color", "intrinsic"):
+            os.makedirs(os.path.join(d, sub))
+        rgb = (scene.rgb * 255).astype(np.uint8)
+        ply = os.path.join(d, f"{scan}_vh_clean_2.ply")
+        write_ply(ply, {"x": scene.pos[:, 0], "y": scene.pos[:, 1],
+                        "z": scene.pos[:, 2], "red": rgb[:, 0],
+                        "green": rgb[:, 1], "blue": rgb[:, 2]})
+        if s == 0:
+            _add_faces(ply, len(scene.pos), seed)
+        nyu = np.array([2, 1, 13, 0], np.uint16)[scene.labels % 4]
+        write_ply(os.path.join(d, f"{scan}_vh_clean_2.labels.ply"), {
+            "x": scene.pos[:, 0], "y": scene.pos[:, 1], "z": scene.pos[:, 2],
+            "label": nyu})
+        for i, cam in enumerate(scene.cameras):
+            for j in range(frame_step):
+                # the frames in between: poses without colour
+                k = i * frame_step + j
+                np.savetxt(os.path.join(d, "pose", f"{k}.txt"), cam.extrinsic)
+            write_jpeg(os.path.join(d, "color", f"{i * frame_step}.jpg"),
+                       scannet_frame(scene.pos, scene.rgb, cam, seed + i))
+        bad = frames * frame_step
+        np.savetxt(os.path.join(d, "pose", f"{bad}.txt"),
+                   np.full((4, 4), np.inf, np.float32))
+        write_jpeg(os.path.join(d, "color", f"{bad}.jpg"),
+                   np.zeros((native[1], native[0], 3), np.uint8))
+        np.savetxt(os.path.join(d, "intrinsic", "intrinsic_color.txt"),
+                   np.asarray(scene.cameras[0].intrinsic, np.float32))
+    if splits:
+        with open(os.path.join(root, "scannetv2_train.txt"), "w") as f:
+            f.write("".join(f"{s}\n" for s in scans[:-1]))
+        with open(os.path.join(root, "scannetv2_val.txt"), "w") as f:
+            f.write(f"{scans[-1]}\n")
+    return root
