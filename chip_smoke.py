@@ -384,6 +384,49 @@ SCANNET_LOOP = ("training.epochs=1",
 SCANNET_PARTS = ("ply", "voxel", "pca_knn", "mapping", "zbuffer", "jpeg",
                  "mask", "cache_write")
 SCANNET_IMAGE_SIZE = (320, 240)        # the preprocess's default
+# phase 9g: the KITTI-360 loader end to end, from a release layout written
+# here with the port's write_ply and write_png (the card's machine has
+# neither PIL, PyYAML nor the release): one sequence, a straight street
+# (road, sidewalks, facades, parked cars, trees, poles; KITTI-360 ids) of
+# which three overlapping windows are cut, two listed in
+# data_3d_semantics/train/2013_05_28_drive_train.txt and one in
+# ..._val.txt; the vehicle drives along it at 0.2 m a frame; the release's
+# calibration files (image_02.yaml / image_03.yaml with the %YAML:1.0
+# directive, the document start and exponent floats); a cam0 PNG of 1408 x
+# 376 and cam2 / cam3 PNGs of 1400 x 1400 (the vehicle's body a static band
+# at the bottom) at each multiple of frame_step = 10: 11 frame times a
+# window, 33 candidate images, of which the coverage selection keeps
+# max_images = 30; the rows of every PNG mostly Up-filtered, with one row
+# in 50 each of None, Sub, Avg and Paeth (all five filters, a Python
+# unfilter for 2% of the rows); cli.train with conf/kitti360_benchmark.yaml
+# as written but for data.root, one epoch of 24 cylinders (6 steps), then
+# cli.eval with two voting runs and --submission
+KITTI360_SEQ = "2013_05_28_drive_0000_sync"
+KITTI360_WINDOWS = {"0000000000_0000000100": "train",
+                    "0000000080_0000000180": "train",
+                    "0000000160_0000000260": "val"}
+KITTI360_FRAMES = range(0, 261, 10)
+KITTI360_SPEED = 0.2                   # m a frame
+KITTI360_DENSITY = 160.0               # points per m^2 of surface
+# a window's cloud: the street from 8 m behind its first frame to 25 m
+# ahead of its last (the LiDAR accumulates ahead of the drive; only the
+# forward pinhole sees that far ahead)
+KITTI360_BEHIND, KITTI360_AHEAD = 8.0, 25.0
+KITTI360_PINHOLE, KITTI360_FISHEYE = (1408, 376), (1400, 1400)
+KITTI360_FAMILIES = ((704, 188), (350, 350))    # the recipe's buckets
+KITTI360_BODY_ROWS = 120               # the fisheyes' static band
+KITTI360_IDS = {"road": 7, "sidewalk": 8, "building": 11, "pole": 17,
+                "vegetation": 21, "car": 26, "unlabelled": 0}
+KITTI360_LOOP = ("training.epochs=1", "data.samples_per_epoch=24")
+KITTI360_PARTS = ("ply", "voxel", "pca_knn", "mapping", "zbuffer", "png",
+                  "mask", "cache_write")
+# five branches (the PointPyramid's towers), each with one atomic pool per
+# camera-family bucket and the view pool's reductions
+KITTI360_BRANCHES, KITTI360_BUCKETS = 5, 2
+KITTI360_FORWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS + VIEW_POOL_FORWARD)
+KITTI360_BACKWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS
+                                         + VIEW_POOL_BACKWARD)
+KITTI360_TIME_ITERS = 5                # timed calls per segment call
 
 
 def log(phase: str, **fields) -> None:
@@ -657,10 +700,12 @@ def phase_kernels(model, batch, tune: bool = False) -> dict:
     return measure_forward_calls(calls, "2 kernels", "calls_per_forward")
 
 
-def measure_forward_calls(calls, phase: str, count_key: str) -> dict:
+def measure_forward_calls(calls, phase: str, count_key: str,
+                          iters: int = 20) -> dict:
     """Hold every recorded forward call against its plain version and time
     it: the kernel alone, the call through the wrapper, the plain version,
-    the library call; returns the sums over the calls."""
+    the library call (``iters`` calls each); returns the sums over the
+    calls."""
     totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
                   bound_ms=0.0, max_abs_err=0.0)
     for i, (x, ptr, valid, reduce) in enumerate(calls):
@@ -676,13 +721,14 @@ def measure_forward_calls(calls, phase: str, count_key: str) -> dict:
         out, scratch = forward_buffers(x, ptr, tile)
         kms, kms2 = kernel_ms(lambda: seg.segment_csr_into(
             x, ptr, valid, out, scratch, reduce, tile))
-        cms = time_ms(lambda: seg.segment_csr(x, ptr, valid, reduce))
-        pms = time_ms(lambda: seg.segment_csr_plain(x, ptr, valid, reduce))
+        cms = time_ms(lambda: seg.segment_csr(x, ptr, valid, reduce), iters)
+        pms = time_ms(lambda: seg.segment_csr_plain(x, ptr, valid, reduce),
+                      iters)
         # the library call on pre-masked rows (timing only; never used)
         fill = 0.0 if reduce == "sum" else float("-inf")
         xm = x if valid is None else torch.where(valid[:, None], x, fill)
         lms = time_ms(lambda: torch.segment_reduce(
-            xm, reduce, offsets=ptr, axis=0, unsafe=True))
+            xm, reduce, offsets=ptr, axis=0, unsafe=True), iters)
         log(phase, call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
             drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
@@ -716,6 +762,22 @@ def note_padding(totals: dict, rows: int, live: int) -> None:
 def zero_launches() -> None:
     for name in seg.LAUNCHES:
         seg.LAUNCHES[name] = 0
+
+
+def image_shapes(np_batch) -> tuple:
+    """The shape of a batch's image tensor, or of each of its ladder
+    buckets' (a crop-ladder or camera-family batch)."""
+    if "images" in np_batch:
+        return tuple(np.asarray(np_batch["images"]).shape)
+    return tuple(tuple(im.shape) for im in np_batch["bucket_images"])
+
+
+def bucket_pixels(np_batch) -> tuple:
+    """Valid pixel rows per ladder bucket at level 0 (empty for a flat
+    batch)."""
+    mm = np_batch["mappings"][0]
+    return tuple(int(np.asarray(b["pix_valid"]).sum())
+                 for b in mm.get("buckets", ()))
 
 
 def image_count(np_batch) -> int:
@@ -874,7 +936,7 @@ def phase_backward_kernels(model, batch) -> dict:
     return measure_backward_calls(calls, "2b backward kernels")
 
 
-def measure_backward_calls(calls, phase: str) -> dict:
+def measure_backward_calls(calls, phase: str, iters: int = 20) -> dict:
     """Hold every recorded backward call against its plain version
     (bit-equal) and time it as :func:`measure_forward_calls` does."""
     totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -896,9 +958,9 @@ def measure_backward_calls(calls, phase: str) -> dict:
         kms, kms2 = kernel_ms(lambda: seg.segment_csr_bwd_into(
             g, x, out, ptr, valid, gx, reduce))
         cms = time_ms(lambda: seg.segment_csr_bwd(
-            g, x, out, ptr, valid, reduce, num_rows))
+            g, x, out, ptr, valid, reduce, num_rows), iters)
         pms = time_ms(lambda: seg.segment_csr_bwd_plain(
-            g, x, out, ptr, valid, reduce, num_rows))
+            g, x, out, ptr, valid, reduce, num_rows), iters)
         # the library form on precomputed ids (timing only; never used)
         ids, keep = seg._row_segments(ptr, e)
         if valid is not None:
@@ -906,11 +968,11 @@ def measure_backward_calls(calls, phase: str) -> dict:
         keep = keep[:, None]
         if reduce == "sum":
             lms = time_ms(lambda: torch.where(
-                keep, g.index_select(0, ids), 0.0))
+                keep, g.index_select(0, ids), 0.0), iters)
         else:
             lms = time_ms(lambda: torch.where(
                 keep & (x == out.index_select(0, ids)) & (x > -5e29),
-                g.index_select(0, ids), 0.0))
+                g.index_select(0, ids), 0.0), iters)
         log(phase, call=i, reduce=reduce, rows=e, channels=c,
             segments=s, masked=valid is not None,
             drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
@@ -1883,7 +1945,7 @@ class LoopProbe(Seams):
         self.on_fit = on_fit
         self.losses, self.step_ms, self.step_launches = [], [], []
         self.wait_ms, self.train_images, self.eval_batches = [], [], 0
-        self.train_voxels = []
+        self.train_voxels, self.bucket_pixels = [], []
         self.eval_ms, self.cache_ms, self.probe_ms = [], [], []
         self.augments = dict.fromkeys(AUGMENTS, 0)
         self.bucket = self.trainer = self.start = self.batch = None
@@ -1960,9 +2022,10 @@ class LoopProbe(Seams):
                         if loader.dataset.train:
                             probe.wait_ms.append(
                                 (time.perf_counter() - t0) * 1e3)
-                            probe.train_images.append(
-                                tuple(batch["images"].shape))
+                            probe.train_images.append(image_shapes(batch))
                             probe.train_voxels.append(valid_voxels(batch))
+                            probe.bucket_pixels.append(
+                                bucket_pixels(batch))
                         else:
                             probe.eval_batches += 1
                         yield batch
@@ -1998,11 +2061,12 @@ class LoopProbe(Seams):
             self._patch(transforms2d, name, counted(name))
         return self
 
-    def check_steps(self, phase: str) -> None:
-        """Every step finite (checked as it ran) and through the flagship's
-        kernel launches; every parameter on the card."""
-        expect = {"segment_csr": FORWARD_LAUNCHES,
-                  "segment_csr_bwd": BACKWARD_LAUNCHES}
+    def check_steps(self, phase: str, forward: int = FORWARD_LAUNCHES,
+                    backward: int = BACKWARD_LAUNCHES) -> None:
+        """Every step finite (checked as it ran) and through ``forward`` +
+        ``backward`` kernel launches (the flagship's by default); every
+        parameter on the card."""
+        expect = {"segment_csr": forward, "segment_csr_bwd": backward}
         bad = [d for d in self.step_launches if d != expect]
         if not self.losses or bad:
             raise AssertionError(f"{phase}: {len(self.losses)} steps, "
@@ -2290,12 +2354,13 @@ class EvalProbe(Seams):
         }
 
 
-def run_eval(cli_eval, args, device="cuda"):
+def run_eval(cli_eval, args, device="cuda", forward=FORWARD_LAUNCHES):
     """``cli.eval.main(args)`` on ``device`` under an ``EvalProbe``, launch
     counts zeroed just before and read just after, peak memory reset;
-    every eval step checked for 6 forward and no backward launches on the
-    card.  Returns ``(metrics, probe, launches)``; ``probe.resident_gib``:
-    device memory allocated before the run (held by earlier phases)."""
+    every eval step checked for ``forward`` (6 by default) forward and no
+    backward launches on the card.  Returns ``(metrics, probe,
+    launches)``; ``probe.resident_gib``: device memory allocated before the
+    run (held by earlier phases)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -2303,7 +2368,7 @@ def run_eval(cli_eval, args, device="cuda"):
         probe.resident_gib = torch.cuda.memory_allocated() / 2**30
         metrics = cli_eval.main([*args, "--device", device])
     launches = dict(seg.LAUNCHES)
-    expect = ({"segment_csr": FORWARD_LAUNCHES, "segment_csr_bwd": 0}
+    expect = ({"segment_csr": forward, "segment_csr_bwd": 0}
               if device == "cuda" else dict.fromkeys(seg.LAUNCHES, 0))
     bad = [d for d in probe.step_launches if d != expect]
     if not probe.step_ms or bad:
@@ -3091,6 +3156,482 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
             "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
+# --- 9g: KITTI-360 ----------------------------------------------------------
+
+# the release's calibration files (perspective.txt's calib_time line and the
+# fisheyes' YAML form included); camera axes in the vehicle frame: cam0
+# looks along +x, cam2 (left fisheye) along +y, cam3 (right) along -y;
+# image y is down
+KITTI360_PERSPECTIVE = (
+    "calib_time: 09-Jan-2012 14:00:15\n"
+    "S_rect_00: 1.408000e+03 3.760000e+02\n"
+    "R_rect_00: 9.999974e-01 -7.253732e-04 -2.195405e-03 7.102433e-04 "
+    "9.999894e-01 -4.462649e-03 2.198609e-03 4.461186e-03 9.999876e-01\n"
+    "P_rect_00: 5.525500e+02 0.000000e+00 6.820500e+02 0.000000e+00 "
+    "0.000000e+00 5.525500e+02 2.387700e+02 0.000000e+00 0.000000e+00 "
+    "0.000000e+00 1.000000e+00 0.000000e+00\n")
+KITTI360_FISHEYE_YAML = (
+    "%YAML:1.0\n---\nmodel_type: MEI\ncamera_name: image_0{cam}\n"
+    "image_width: 1400\nimage_height: 1400\nmirror_parameters:\n"
+    "   xi: 2.2134047507854890e+00\ndistortion_parameters:\n"
+    "   k1: 1.6798235660113681e-02\n   k2: 1.6548773243373522e+00\n"
+    "   p1: 4.2223943394772046e-04\n   p2: 4.2462134260997584e-04\n"
+    "projection_parameters:\n   gamma1: 1.3363220825849971e+03\n"
+    "   gamma2: 1.3357883350012958e+03\n   u0: 7.1694323510126321e+02\n"
+    "   v0: 7.0576498308221585e+02\n")
+KITTI360_AXES = {
+    0: ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0)),
+    2: ((1.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, -1.0, 0.0)),
+    3: ((-1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, -1.0, 0.0)),
+}
+KITTI360_CAM_OFFSET = {0: (1.5, 0.0, 0.0), 2: (0.8, 0.5, 0.1),
+                       3: (0.8, -0.5, 0.1)}
+
+
+def kitti360_street(x0: float, x1: float, seed: int = 0):
+    """The sequence's street along x over ``[x0, x1]`` at
+    ``KITTI360_DENSITY`` points per m^2 of surface, 2 cm of noise: road
+    (|y| < 3.5 m) and sidewalks to the facades at |y| = 7 m (8 m high), a
+    parked car every 12 m on either side, a tree crown and a pole every
+    15 m, low unlabelled clutter.  Returns ``(pos float32 [N, 3], rgb uint8
+    [N, 3], KITTI-360 ids int32 [N])``."""
+    rng = np.random.default_rng(seed)
+    length, parts = x1 - x0, []
+
+    def add(p, name, colour):
+        parts.append((p, KITTI360_IDS[name], colour))
+
+    n = int(KITTI360_DENSITY * length * 14.0)
+    g = rng.uniform((x0, -7.0, 0.0), (x1, 7.0, 0.0), (n, 3))
+    road = np.abs(g[:, 1]) < 3.5
+    add(g[road], "road", (80, 80, 85))
+    add(g[~road], "sidewalk", (150, 140, 130))
+    n = int(KITTI360_DENSITY * length * 8.0)
+    for side, colour in ((-1.0, (200, 190, 160)), (1.0, (170, 120, 90))):
+        f = rng.uniform((x0, 7.0 * side, 0.0), (x1, 7.0 * side, 8.0), (n, 3))
+        add(f, "building", colour)
+    for k, cx in enumerate(np.arange(x0 + 2.0, x1 - 4.0, 12.0)):
+        side = 1.0 if k % 2 else -1.0
+        n = int(KITTI360_DENSITY * 20.0)
+        c = rng.uniform((cx, 1.8, 0.0), (cx + 4.2, 3.4, 1.5), (n, 3))
+        face = rng.integers(0, 4, n)          # snap to a face of the box
+        c[face == 0, 1] = 1.8
+        c[face == 1, 2] = 1.5
+        c[face == 2, 0] = cx
+        c[face == 3, 0] = cx + 4.2
+        c[:, 1] *= side
+        add(c, "car", (30, 60, 160) if k % 3 else (160, 30, 30))
+    for cx in np.arange(x0 + 6.0, x1, 15.0):
+        n = int(KITTI360_DENSITY * 12.0)
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        add(d * 1.2 + (cx, 5.0, 4.0), "vegetation", (40, 140, 50))
+        n = int(KITTI360_DENSITY * 3.0)
+        a = rng.uniform(0, 2 * np.pi, n)
+        pole = np.stack([cx + 3.0 + 0.1 * np.cos(a), -5.0 + 0.1 * np.sin(a),
+                         rng.uniform(0, 6.0, n)], 1)
+        add(pole, "pole", (110, 110, 110))
+    n = int(KITTI360_DENSITY * length * 0.3)
+    add(rng.uniform((x0, -7.0, 0.0), (x1, 7.0, 0.6), (n, 3)), "unlabelled",
+        (120, 120, 120))
+    pos = np.concatenate([p for p, _, _ in parts])
+    pos = (pos + rng.normal(0.0, 0.02, pos.shape)).astype(np.float32)
+    sem = np.concatenate([np.full(len(p), i, np.int32) for p, i, _ in parts])
+    rgb = np.concatenate([
+        np.clip(np.asarray(c, np.float64) + rng.normal(0, 12, (len(p), 3)),
+                0, 255) for p, _, c in parts]).astype(np.uint8)
+    return pos, rgb, sem
+
+
+def kitti360_frame(pos_dev, rgb_dev, camera, body=None) -> np.ndarray:
+    """``uint8 [H, W, 3]``: smooth shading, each point's colour on the 2 x 2
+    pixels at its projection through ``camera`` (the nearest point wins),
+    computed on the points' device; ``body`` rows at the bottom (the
+    fisheyes' static band)."""
+    from deepviewagg_tpu_torch.core.cameras import project
+
+    w, h = camera.size
+    dev = pos_dev.device
+    y, x = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                          torch.arange(w, device=dev, dtype=torch.float32),
+                          indexing="ij")
+    img = torch.stack([torch.sin(x / 53.0) * 40 + 120,
+                       torch.cos(y / 41.0) * 35 + 110,
+                       (x + y) * (60.0 / (w + h)) + 90], dim=-1)
+    px, py, dist, valid = project(pos_dev, camera)
+    order = torch.argsort(-dist[valid], stable=True)    # the nearest last
+    xi = px[valid].long()[order]
+    yi = py[valid].long()[order]
+    col = rgb_dev[valid][order]
+    for dy in (0, 1):
+        for dx in (0, 1):
+            img[torch.clamp(yi + dy, max=h - 1),
+                torch.clamp(xi + dx, max=w - 1)] = col
+    out = img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    if body is not None:
+        out[h - len(body):] = body
+    return out
+
+
+def kitti360_filters(h: int) -> np.ndarray:
+    """The PNG row filters of 9g: Up, but for one row in 50 each of None,
+    Sub, Avg and Paeth."""
+    r = np.arange(h) % 50
+    return np.select([r == 0, r == 1, r == 2, r == 3], [0, 1, 3, 4], 2)
+
+
+def write_kitti360_layout(root: Path, device="cuda") -> dict:
+    """The 9g layout (see ``KITTI360_WINDOWS``), its frames rendered on
+    ``device``; returns the points per window and the PNG encode ms per
+    frame of each family."""
+    from deepviewagg_tpu_torch.core.cameras import Camera
+    from deepviewagg_tpu_torch.utils.image_io import write_png
+    from deepviewagg_tpu_torch.utils.ply import write_ply
+
+    x_end = KITTI360_FRAMES[-1] * KITTI360_SPEED + KITTI360_AHEAD
+    pos, rgb, sem = kitti360_street(-KITTI360_BEHIND, x_end + 10.0)
+    rng = np.random.default_rng(1)
+    static = root / "data_3d_semantics" / KITTI360_SEQ / "static"
+    static.mkdir(parents=True)
+    points = {}
+    for name in KITTI360_WINDOWS:
+        start, end = (int(v) * KITTI360_SPEED for v in name.split("_"))
+        sel = ((pos[:, 0] >= start - KITTI360_BEHIND)
+               & (pos[:, 0] <= end + KITTI360_AHEAD))
+        n = int(sel.sum())
+        write_ply(str(static / f"{name}.ply"), {
+            "x": pos[sel, 0], "y": pos[sel, 1], "z": pos[sel, 2],
+            "red": rgb[sel, 0], "green": rgb[sel, 1], "blue": rgb[sel, 2],
+            "semantic": sem[sel],
+            "instanceId": (sem[sel] * 1000 + rng.integers(0, 9, n)).astype(
+                np.int32),
+            "isVisible": np.ones(n, np.uint8),
+            "confidence": rng.uniform(0.5, 1.0, n).astype(np.float32)})
+        points[name] = n
+    lists = root / "data_3d_semantics" / "train"
+    lists.mkdir()
+    for split in ("train", "val"):
+        (lists / f"2013_05_28_drive_{split}.txt").write_text("".join(
+            f"data_3d_semantics/{KITTI360_SEQ}/static/{name}.ply\n"
+            for name, sp in KITTI360_WINDOWS.items() if sp == split))
+    calib = root / "calibration"
+    calib.mkdir()
+    (calib / "perspective.txt").write_text(KITTI360_PERSPECTIVE)
+    lines = []
+    for cam in (0, 1, 2, 3):
+        m = np.zeros((3, 4))
+        m[:, :3] = np.array(KITTI360_AXES.get(cam, KITTI360_AXES[0])).T
+        m[:, 3] = KITTI360_CAM_OFFSET.get(cam, (1.5, -0.6, 0.0))
+        lines.append(f"image_0{cam}: " + " ".join(f"{v:.9f}" for v in m.flat))
+        if cam in (2, 3):
+            (calib / f"image_0{cam}.yaml").write_text(
+                KITTI360_FISHEYE_YAML.format(cam=cam))
+    (calib / "calib_cam_to_pose.txt").write_text("\n".join(lines) + "\n")
+    poses = root / "data_poses" / KITTI360_SEQ
+    poses.mkdir(parents=True)
+    cam_rows, imu_rows, vehicles = [], [], {}
+    for frame in KITTI360_FRAMES:
+        vehicle = np.eye(4)
+        vehicle[:3, 3] = (frame * KITTI360_SPEED, 0.0, 1.7)
+        vehicles[frame] = vehicle
+        cam0 = vehicle.copy()
+        cam0[:3, :3] = np.array(KITTI360_AXES[0]).T
+        cam0[:3, 3] += KITTI360_CAM_OFFSET[0]
+        cam_rows.append([frame] + list(cam0.flatten()))
+        imu_rows.append([frame] + list(vehicle[:3].flatten()))
+    np.savetxt(poses / "cam0_to_world.txt", np.array(cam_rows))
+    np.savetxt(poses / "poses.txt", np.array(imu_rows))
+
+    # the frames, rendered through the loader's own cameras at native size
+    from deepviewagg_tpu_torch.data.datasets import kitti360
+
+    pos_dev = torch.from_numpy(pos).to(device)
+    rgb_dev = torch.from_numpy(rgb.astype(np.float32)).to(device)
+    body = np.random.default_rng(2).integers(
+        0, 256, (KITTI360_BODY_ROWS, KITTI360_FISHEYE[0], 3), dtype=np.uint8)
+    encode = {0: [], 1: []}
+    k = np.eye(4, dtype=np.float32)
+    k[:3, :3] = kitti360.read_perspective_calib(str(
+        calib / "perspective.txt"))["P_rect_00"].reshape(3, 4)[:, :3]
+    cam0_to_world = kitti360.read_cam0_to_world(str(poses
+                                                    / "cam0_to_world.txt"))
+    frames = [(0, frame, Camera(
+        model="kitti360_perspective", size=KITTI360_PINHOLE,
+        extrinsic=cam0_to_world[frame], intrinsic=k, r_min=kitti360.R_MIN,
+        r_max=kitti360.R_MAX)) for frame in KITTI360_FRAMES]
+    for cam in (0, 2, 3):
+        sub = "data_rect" if cam == 0 else "data_rgb"
+        (root / "data_2d_raw" / KITTI360_SEQ / f"image_0{cam}" / sub).mkdir(
+            parents=True)
+    for cam in (2, 3):
+        fe = kitti360.read_fisheye_calib(str(calib / f"image_0{cam}.yaml"))
+        c2p = kitti360.read_cam_to_pose(
+            str(calib / "calib_cam_to_pose.txt"))[f"image_0{cam}"]
+        for frame in KITTI360_FRAMES:
+            frames.append((cam, frame, Camera(
+                model="kitti360_fisheye", size=KITTI360_FISHEYE,
+                extrinsic=vehicles[frame].astype(np.float32) @ c2p,
+                fisheye=fe, r_min=kitti360.R_MIN, r_max=kitti360.R_MAX)))
+    for cam, frame, camera in frames:
+        img = kitti360_frame(pos_dev, rgb_dev, camera,
+                             body=None if cam == 0 else body)
+        sub = "data_rect" if cam == 0 else "data_rgb"
+        t0 = time.perf_counter()
+        write_png(str(root / "data_2d_raw" / KITTI360_SEQ / f"image_0{cam}"
+                      / sub / f"{frame:010d}.png"), img,
+                  filters=kitti360_filters(img.shape[0]), level=1)
+        encode[int(cam > 0)].append((time.perf_counter() - t0) * 1e3)
+    return {"points": points, "frames": len(frames),
+            "encode_ms": {f: float(np.mean(v)) for f, v in encode.items()}}
+
+
+class FrameTimes(Seams):
+    """ms of ``kitti360.load_image`` (decode + resize) per camera family,
+    told apart by the size asked for; patched for one run."""
+
+    def __init__(self):
+        super().__init__()
+        self.ms = {size: [] for size in KITTI360_FAMILIES}
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.data.datasets import kitti360
+
+        probe = self
+
+        def make(fn):
+            def run(path, size):
+                t0 = time.perf_counter()
+                out = fn(path, size)
+                probe.ms[tuple(size)].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        self._patch(kitti360, "load_image", make)
+        return self
+
+
+def kitti360_probe() -> PreprocessProbe:
+    """9g's split of each window's preprocess (``KITTI360_PARTS``)."""
+    from deepviewagg_tpu_torch.data.datasets import kitti360
+
+    return PreprocessProbe(kitti360, "preprocess_kitti360_window",
+                           lambda root, ply, *args: Path(ply).stem, {
+                               "load_window_cloud": "ply",
+                               "pca_features": "pca_knn",
+                               "build_mappings": "mapping",
+                               "load_image": "png",
+                               "_family_non_static": "mask",
+                               "save_area": "cache_write"})
+
+
+def check_kitti360_caches(root: Path, layout: dict, parts: dict,
+                          frames: FrameTimes) -> dict:
+    """Each window's cache: 30 uint8 frames kept of 33 candidates on one
+    canvas of 704 x 350, both camera families, fisheye pixels inside 350 x
+    350 and none on the vehicle's body; logs the preprocess split; returns
+    the caches' voxel counts by cache name."""
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    sizes = {}
+    canvas = (max(w for w, _ in KITTI360_FAMILIES),
+              max(h for _, h in KITTI360_FAMILIES))
+    for name in KITTI360_WINDOWS:
+        start, end = (int(v) for v in name.split("_"))
+        cache_name = f"{KITTI360_SEQ}_{start:010d}_{end:010d}"
+        cache = load_area(str(root / "processed_dva" / f"{cache_name}.npz"))
+        m, images, fam = cache["mapping"], cache["images"], cache[
+            "image_family"]
+        m.check()
+        if (images.shape != (30, *canvas, 3) or images.dtype != np.uint8
+                or m.num_images != 30 or set(fam.tolist()) != {0, 1}
+                or cache["family_sizes"].tolist() != [
+                    list(s) for s in KITTI360_FAMILIES]):
+            raise AssertionError(f"{name}: images {images.shape} "
+                                 f"{images.dtype}, families {fam.tolist()}")
+        pv = np.minimum(m.pix_view, m.view_capacity - 1)
+        pf = fam[m.image_id[pv]]
+        fe = m.pix_valid & (pf == 1)
+        fw, fh = KITTI360_FAMILIES[1]
+        body = fh - KITTI360_BODY_ROWS * fh // KITTI360_FISHEYE[1]
+        if not (fe.any() and m.pix_x[fe].max() < fw
+                and m.pix_y[fe].max() < fh):
+            raise AssertionError(f"{name}: fisheye pixels outside {fw}x{fh}")
+        if (fe & (m.pix_y >= body + 1)).any():
+            raise AssertionError(f"{name}: mapped pixels on the static body")
+        t = parts[name]
+        rest = t["total"] - sum(t[p] for p in KITTI360_PARTS if p != "zbuffer")
+        log("9g kitti360 preprocess", window=name,
+            points=layout["points"][name], voxels=len(cache["pos"]),
+            images="30 kept of 33 (11 frame times x cam0, cam2, cam3)",
+            kept_per_family=np.bincount(fam, minlength=2).tolist(),
+            views=int(m.view_valid.sum()),
+            mapped_pixels=int(m.pix_valid.sum()),
+            fisheye_pixels=int(fe.sum()),
+            total_ms=f"{t['total']:.0f}",
+            **{f"{p}_ms": f"{t[p]:.0f}" for p in KITTI360_PARTS},
+            rest_ms=f"{rest:.0f}")
+        sizes[cache_name] = len(cache["pos"])
+    pin, fish = (frames.ms[s] for s in KITTI360_FAMILIES)
+    log("9g kitti360 preprocess", png_frames_pinhole=len(pin),
+        png_ms_per_pinhole_frame=f"{np.mean(pin):.0f}",
+        png_frames_fisheye=len(fish),
+        png_ms_per_fisheye_frame=f"{np.mean(fish):.0f}")
+    return sizes
+
+
+def check_kitti360_submission(sub: Path, sizes: dict) -> dict:
+    """``submission.zip`` holds one ``.npy`` of original KITTI-360 ids per
+    val window, as many as the window's voted (voxel) cloud."""
+    import io
+    import zipfile
+
+    from deepviewagg_tpu_torch.data.datasets.kitti360 import TRAINID2ID
+
+    val = [f"{KITTI360_SEQ}_{int(s):010d}_{int(e):010d}" for s, e in (
+        name.split("_") for name, sp in KITTI360_WINDOWS.items()
+        if sp == "val")]
+    lines = {}
+    with zipfile.ZipFile(sub / "submission.zip") as z:
+        members = z.namelist()
+        if members != [f"{v}.npy" for v in val]:
+            raise AssertionError(f"submission members {members}, val {val}")
+        for v in val:
+            ids = np.load(io.BytesIO(z.read(f"{v}.npy")))
+            if (ids.dtype != np.uint8 or ids.shape != (sizes[v],)
+                    or not set(ids.tolist()) <= set(TRAINID2ID.tolist())):
+                raise AssertionError(f"{v}.npy: {ids.dtype} {ids.shape} for "
+                                     f"{sizes[v]} voxels")
+            lines[v] = len(ids)
+    return lines
+
+
+def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
+    """9g: ``cli.train`` with ``conf/kitti360_benchmark.yaml`` on the
+    KITTI-360 layout (the recipe's model at its published widths: five
+    deep-stem ResNet18 truncations pooled to 32 / 32 / 64 / 128 / 256 with
+    group-4 attention, concatenated before the stem of a Res16UNet34, 19
+    classes; batch 4, 4 image slots, 6 m cylinders at 5 cm, pinhole frames
+    of 704 x 188 and fisheyes of 350 x 350 in two camera-family buckets),
+    the first train batch's segment calls held against their plain
+    versions, then ``cli.eval --voting_runs 2 --submission`` and its first
+    batch's calls."""
+    root = tmp / "kitti360_raw"
+    t0 = time.perf_counter()
+    layout = write_kitti360_layout(root)
+    log("9g kitti360 layout", windows=dict(KITTI360_WINDOWS),
+        points=layout["points"], frames=layout["frames"],
+        sizes=f"cam0 {KITTI360_PINHOLE[0]}x{KITTI360_PINHOLE[1]}, cam2/cam3 "
+              f"{KITTI360_FISHEYE[0]}x{KITTI360_FISHEYE[1]}",
+        filters="Up, 1 row in 50 each None/Sub/Avg/Paeth",
+        write_s=f"{time.perf_counter() - t0:.1f}",
+        png_encode_ms_per_frame={"pinhole": f"{layout['encode_ms'][0]:.0f}",
+                                 "fisheye": f"{layout['encode_ms'][1]:.0f}"})
+    run_dir = tmp / "kitti360_run"
+    args = ["--config", str(CONF / "kitti360_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", *KITTI360_LOOP]
+    log("9g kitti360 cuts", windows="3 (the release: about 300)",
+        frames="11 frame times a window at frame_step 10, 33 candidates, "
+               "max_images 30 as written",
+        points=f"{KITTI360_DENSITY:.0f} a m^2 of surface (a release window "
+               "holds millions of points)",
+        epochs="1 of 24 cylinders (recipe 60 of 2000), no eval in training "
+               "(eval_frequency 5 as written)",
+        run_dir="temporary", tensorboard="off", widths="none cut",
+        batch="4 as written", sizes="704x188 and 350x350 as written")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe, kitti360_probe() as pre, FrameTimes() as fr:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9g kitti360 loop", KITTI360_FORWARD, KITTI360_BACKWARD)
+    spec = probe.trainer.model.spec
+    towers = [(b.tower, b.out_channels, b.tower_deep_stem, b.num_groups,
+               b.fusion_mode) for _, b in spec.branches]
+    if not (spec.backbone == "Res16UNet34" and spec.num_classes == 19
+            and [lvl for lvl, _ in spec.branches] == [0] * 5
+            and towers == [(f"resnet18_l{i}", c, True, 4, "concat")
+                           for i, c in enumerate((32, 32, 64, 128, 256))]):
+        raise AssertionError(f"not the recipe's model: {spec}")
+    want = tuple((16, *s, 3) for s in KITTI360_FAMILIES)
+    if any(len(shapes) != 2 or shapes[0][1:] != want[0][1:]
+           or shapes[1][1:] != want[1][1:] for shapes in probe.train_images):
+        raise AssertionError(f"image buckets {probe.train_images}")
+    if not any(all(n > 0 for n in px) for px in probe.bucket_pixels):
+        raise AssertionError("no batch holds both camera families: "
+                             f"{probe.bucket_pixels}")
+    if not probe.augments["color_jitter"]:
+        raise AssertionError(f"colour jitter not called: {probe.augments}")
+    sizes = check_kitti360_caches(root, layout, pre.clouds, fr)
+    b = probe.bucket
+    fe_bucket = probe.batch["mappings"][0]["buckets"][1]
+    fv = fe_bucket["pix_valid"]
+    if not (bool((fe_bucket["pix_x"][fv] < KITTI360_FAMILIES[1][0]).all())
+            and bool((fe_bucket["pix_y"][fv] < KITTI360_FAMILIES[1][1]).all())):
+        raise AssertionError("fisheye bucket pixels outside 350x350")
+    log("9g kitti360 loop", params=sum(
+        p.numel() for p in probe.trainer.model.parameters()),
+        augments=probe.augments, images=probe.train_images[0],
+        bucket_pixels=probe.bucket_pixels, probe_ms=f"{probe.probe_ms[0]:.0f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        ladder=list(b.image_ladder), ladder_image_caps=b.ladder_image_caps,
+        ladder_pix_caps=b.ladder_pix_caps, **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches)
+
+    model, batch = probe.trainer.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != KITTI360_FORWARD:
+        raise AssertionError(f"{len(calls)} segment calls in one forward")
+    fwd = measure_forward_calls(calls, "9g kitti360 loop kernels",
+                                "calls_per_forward", KITTI360_TIME_ITERS)
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != KITTI360_BACKWARD:
+        raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
+                             "step")
+    bwd = measure_backward_calls(bwd_calls, "9g kitti360 loop kernels",
+                                 KITTI360_TIME_ITERS)
+    del bwd_calls, model, batch
+    torch.cuda.empty_cache()
+
+    sub = tmp / "kitti360_submission"
+    metrics, probe, eval_launches = run_eval(cli_eval, [
+        "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
+        "--submission", str(sub)], forward=KITTI360_FORWARD)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lines = check_kitti360_submission(sub, sizes)
+    worst = check_doubled(probe, probe.votes.num_classes)
+    b = probe.bucket
+    log("9g kitti360 eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
+        peak_mem_gib=f"{peak:.2f}",
+        bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
+               f"pix={b.pix_cap} imgs={b.image_cap}",
+        ladder_image_caps=b.ladder_image_caps,
+        ladder_pix_caps=b.ladder_pix_caps,
+        launches_per_batch=probe.step_launches[0], launches=eval_launches,
+        votes_twice_rel_err=f"{worst:.2e}",
+        submission=sorted(p.name for p in sub.iterdir()),
+        submission_ids=lines,
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+
+    model, batch = probe.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != KITTI360_FORWARD:
+        raise AssertionError(f"{len(calls)} segment calls in one eval "
+                             "forward")
+    eval_fwd = measure_forward_calls(calls, "9g kitti360 eval kernels",
+                                     "calls_per_forward", KITTI360_TIME_ITERS)
+    del calls, model, batch
+    return {"launches": launches, "eval_launches": eval_launches,
+            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -3117,11 +3658,13 @@ def phase_loop() -> dict:
         predict = part("9d", loop_predict, tmp)
         s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
         scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
+        kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
-            "predict": predict, "s3dis": s3dis, "scannet": scannet}
+            "predict": predict, "s3dis": s3dis, "scannet": scannet,
+            "kitti360": kitti360}
 
 
 def kernel_family(name: str) -> str:
@@ -3280,6 +3823,7 @@ def main() -> None:
     # each path's widest call
     loop_recipe, loop_eval = loop["recipe"], loop["eval"]
     s3dis_run, scannet_run = loop["s3dis"], loop["scannet"]
+    kitti360_run = loop["kitti360"]
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -3289,7 +3833,9 @@ def main() -> None:
                "loop_s3dis": s3dis_run["forward"],
                "loop_s3dis_eval": s3dis_run["eval_forward"],
                "loop_scannet": scannet_run["forward"],
-               "loop_scannet_eval": scannet_run["eval_forward"]},
+               "loop_scannet_eval": scannet_run["eval_forward"],
+               "loop_kitti360": kitti360_run["forward"],
+               "loop_kitti360_eval": kitti360_run["eval_forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -3303,6 +3849,9 @@ def main() -> None:
                   "segment_csr"],
               launches_loop_scannet=scannet_run["launches"]["segment_csr"],
               launches_loop_scannet_eval=scannet_run["eval_launches"][
+                  "segment_csr"],
+              launches_loop_kitti360=kitti360_run["launches"]["segment_csr"],
+              launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
@@ -3310,7 +3859,8 @@ def main() -> None:
               {"recipe": recipe["backward"],
                "loop_recipe": loop_recipe["backward"],
                "loop_s3dis": s3dis_run["backward"],
-               "loop_scannet": scannet_run["backward"]},
+               "loop_scannet": scannet_run["backward"],
+               "loop_kitti360": kitti360_run["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -3325,6 +3875,10 @@ def main() -> None:
               launches_loop_scannet=scannet_run["launches"][
                   "segment_csr_bwd"],
               launches_loop_scannet_eval=scannet_run["eval_launches"][
+                  "segment_csr_bwd"],
+              launches_loop_kitti360=kitti360_run["launches"][
+                  "segment_csr_bwd"],
+              launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr_bwd"]),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")

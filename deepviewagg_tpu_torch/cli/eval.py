@@ -9,10 +9,11 @@ config; ``--config`` and ``k=v`` overrides refine it.  ``--voting_runs N``
 repeats the eval pass, runs after the first with MC dropout, accumulating
 logits per original point id; ``--full_res`` remaps the votes onto the raw
 cloud by 1-NN; ``--submission <dir>`` turns the votes on and writes the
-ScanNet benchmark files there, one ``<scan>.txt`` per cache (its stem) of
-voxel-level NYU40 ids (the ScanNet cache keeps no raw cloud, so there is
-nothing to remap).  The KITTI-360 writer (ROADMAP A.2.4) and the ``no3d``
-family's unseen-point propagation (ROADMAP A.6) raise.
+benchmark files there: for ScanNet one ``<scan>.txt`` per cache (its stem)
+of NYU40 ids, for KITTI-360 ``submission.zip`` of one
+``<seq>_<start>_<end>.npy`` of original label ids per window, both at voxel
+level (neither cache keeps a raw cloud, so there is nothing to remap).  The
+``no3d`` family's unseen-point propagation (ROADMAP A.6) raises.
 """
 
 from __future__ import annotations
@@ -93,8 +94,7 @@ def main(argv=None):
     parser.add_argument("--full_res", action="store_true")
     parser.add_argument("--submission", default=None,
                         help="write a benchmark submission to this dir "
-                             "(ScanNet; KITTI-360 is not ported: ROADMAP "
-                             "A.2.4)")
+                             "(ScanNet or KITTI-360)")
     parser.add_argument("--vote_ram_budget_mb", type=int, default=4096,
                         help="RAM cap for vote arrays; clouds past it spill "
                              "to memmap'd files (ref kitti360_tracker "
@@ -116,10 +116,6 @@ def main(argv=None):
             stored = json.load(f)
         print(f"restored run config from {run_json}")
     cfg = load_run_config(args.config, args.overrides, base=stored)
-    if args.submission and cfg.data.dataset == "kitti360":
-        raise NotImplementedError(
-            "--submission: the KITTI-360 submission writer is not ported "
-            "yet (ROADMAP A.2.4)")
     val_ds = build_dataset(cfg, train=False, device=device)
     num_classes = getattr(val_ds, "num_classes", cfg.data.num_classes)
     spec = resolve_spec_from_cfg(cfg.model, num_classes)
@@ -179,7 +175,12 @@ def main(argv=None):
         metrics.update(vote_tracker.get_metrics())
         if any_full:
             metrics.update(full_tracker.get_metrics())
-        if args.submission and cfg.data.dataset == "scannet":
+        if args.submission and cfg.data.dataset == "kitti360":
+            from ..data.datasets.kitti360 import write_submission
+
+            print("submission:", write_submission(args.submission,
+                                                  window_preds))
+        elif args.submission and cfg.data.dataset == "scannet":
             from ..data.datasets.scannet import write_submission
 
             print("submission:", write_submission(args.submission,

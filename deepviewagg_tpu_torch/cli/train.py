@@ -9,13 +9,15 @@ The port of the root ``train.py`` (the reference's ``train.py``: Hydra @main
 
 Config groups (``deepviewagg_tpu_torch/config/run.py``): model / data /
 training.  ``training.resume=true`` restores the run dir's ``latest``
-checkpoint before training.  The synthetic, S3DIS and ScanNet datasets are
-ported (``data.dataset=kitti360`` raises: ROADMAP A.2.4):
+checkpoint before training.  The synthetic, S3DIS, ScanNet and KITTI-360
+datasets are ported:
 
     python -m deepviewagg_tpu_torch.cli.train \
         --config conf/s3dis_benchmark.yaml data.root=<2D-3D-S layout>
     python -m deepviewagg_tpu_torch.cli.train \
         --config conf/scannet_benchmark.yaml data.root=<ScanNet layout>
+    python -m deepviewagg_tpu_torch.cli.train \
+        --config conf/kitti360_benchmark.yaml data.root=<KITTI-360 layout>
 """
 
 from __future__ import annotations
@@ -96,11 +98,17 @@ def build_dataset(cfg, train: bool, device="cuda"):
             **cfg.data.kwargs,
         )
     if cfg.data.dataset == "kitti360":
-        raise NotImplementedError(
-            "data.dataset='kitti360': the loader is not ported yet (ROADMAP "
-            "A.2.4; it needs the camera-family ladder and A.6's "
-            "ResNet18Pyramid towers; its cameras are ported); data.dataset="
-            "synthetic, s3dis and scannet are")
+        from ..data.datasets.kitti360 import make_kitti360_dataset
+
+        # the JAX CLI's arguments exactly: radius and samples_per_epoch
+        # from data.*, the image sizes from data.kwargs (the loader's
+        # defaults are the recipe's 704 x 188 and 350 x 350)
+        return make_kitti360_dataset(
+            cfg.data.root, train=train, radius=cfg.data.radius,
+            voxel_size=cfg.data.voxel_size, image_slots=cfg.data.image_slots,
+            samples_per_epoch=cfg.data.samples_per_epoch, device=device,
+            **cfg.data.kwargs,
+        )
     raise KeyError(cfg.data.dataset)
 
 
@@ -118,7 +126,14 @@ def auto_bucket(cfg, dataset, branch_levels, probe: int = 8):
     bucket_pix = None      # per-ladder-bucket pixel/image maxima
     bucket_imgs = None
     ladder = None
-    if cfg.data.crop_ladder_min > 0:
+    family_ladder = getattr(dataset, "image_families", None)
+    if family_ladder:
+        # camera-family buckets at native aspect (KITTI-360 pinhole +
+        # fisheye)
+        ladder = [tuple(s_) for s_ in family_ladder]
+        bucket_pix = [0] * len(ladder)
+        bucket_imgs = [0] * len(ladder)
+    elif cfg.data.crop_ladder_min > 0:
         from ..data.crop_groups import crop_ladder
 
         ladder = crop_ladder(tuple(cfg.data.image_size),
@@ -138,9 +153,19 @@ def auto_bucket(cfg, dataset, branch_levels, probe: int = 8):
                 from ..data.crop_groups import (assign_crop_groups,
                                                 split_mapping_by_bucket)
 
-                ass = assign_crop_groups(
-                    {"mapping": s.mapping, "images": s.images}, ladder
-                )
+                if family_ladder and s.image_family is not None:
+                    # each image's bucket is its camera family, at native
+                    # size from the canvas origin
+                    ass = {
+                        "mapping": s.mapping, "images": s.images,
+                        "image_bucket": np.asarray(s.image_family, np.int64),
+                        "crop_origin": np.zeros(
+                            (len(s.image_family), 2), np.int64),
+                    }
+                else:
+                    ass = assign_crop_groups(
+                        {"mapping": s.mapping, "images": s.images}, ladder
+                    )
                 mmp = split_mapping_by_bucket(ass, ladder,
                                               include_images=False)
                 for bi, bk in enumerate(mmp["buckets"]):

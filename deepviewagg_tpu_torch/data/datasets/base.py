@@ -237,6 +237,10 @@ class SphereDataset:
     # s3disfused-sparse.yaml:162: brightness/contrast/saturation)
     color_jitter: Optional[Sequence[float]] = None
     blur_p: float = 0.0                      # GaussianBlur probability
+    # camera-family native sizes [(w, h), ...] when samples carry
+    # image_family (per-family shape buckets, ref SameSettingImageData
+    # settings groups image.py:1208-1219); None = single image shape
+    image_families: Optional[Sequence[Sequence[int]]] = None
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -353,8 +357,15 @@ class SphereDataset:
                 # eval: deterministic max-coverage selection under the
                 # PIXEL budget (the reference applies its memory credit at
                 # eval too, PickImagesFromMemoryCredit image.py:765-874);
-                # budget = image_slots x image pixels
-                if sub.get("images") is not None and len(sub["images"]):
+                # budget = image_slots x base-image pixels, per-image cost
+                # from the camera-family size when families exist
+                fam = sub.get("image_family")
+                if fam is not None and self.image_families is not None:
+                    unit = int(np.prod(self.image_families[0]))
+                    image_px = np.array(
+                        [int(np.prod(self.image_families[int(f)]))
+                         for f in fam], np.int64)
+                elif sub.get("images") is not None and len(sub["images"]):
                     unit = int(np.prod(sub["images"].shape[1:3]))
                     image_px = np.full(sub["mapping"].num_images, unit,
                                        np.int64)

@@ -108,8 +108,9 @@ def backbone_plan(spec: ModelSpec):
 def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
                device=None):
     """Tower registry -> (module, out_channels) for the ported towers:
-    ``resnet18_ppm`` and the ``resnet18_l<level>`` truncations, with the
-    7x7 or the deep stem."""
+    ``resnet18_ppm``, ``resnet18_pyramid`` (the shared pyramid projected to
+    128 channels), ``resnet18_pyramid_raw`` (its raw tap concat) and the
+    ``resnet18_l<level>`` truncations, with the 7x7 or the deep stem."""
     if norm != "group":
         raise NotImplementedError(
             f"tower_norm={norm!r}: only group-norm towers are ported yet "
@@ -117,6 +118,11 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
     if name == "resnet18_ppm":
         return towers.ResNet18PPM(out_channels=128, deep_stem=deep_stem,
                                   device=device), 128
+    if name in ("resnet18_pyramid", "resnet18_pyramid_raw"):
+        tower = towers.ResNet18Pyramid(
+            out_channels=128, deep_stem=deep_stem,
+            project=name == "resnet18_pyramid", device=device)
+        return tower, tower.out_channels
     if name.startswith("resnet18_l"):
         lvl = int(name[-1])
         # the deep stem widens layer0 to 128 (MIT resnet.py)

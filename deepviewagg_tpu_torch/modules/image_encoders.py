@@ -2,11 +2,12 @@
 
 The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 ``f32_convs``, ``run_tower``, ``_Norm``, ``_BasicBlock2d``, ``ResNet18``,
-``PPM``, ``ResNet18PPM``; the reference's modules/multimodal/modalities/
-image.py).  Public tensors keep the JAX layout ``[I, W, H, C]`` (W before H);
-the towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
-flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
-parameters by name.  Only ``norm='group'`` (the from-scratch towers) is
+``PPM``, ``ResNet18PPM``, ``ResNet18Pyramid``; the reference's
+modules/multimodal/modalities/image.py).  Public tensors keep the JAX layout
+``[I, W, H, C]`` (W before H); the towers run channels-first ``[I, C, W, H]``
+inside.  Sub-modules carry the flax auto-names so
+:mod:`deepviewagg_tpu_torch.utils.from_jax` maps parameters by name.  Only
+``norm='group'`` (the from-scratch towers) is
 ported: it has no batch statistics, so the towers compute the same in
 training and eval mode and differentiate by ordinary autograd.
 :func:`run_tower` rematerializes the tower in the backward pass (``remat``:
@@ -24,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2dWS", "ResNet18", "PPM", "ResNet18PPM", "OUT_CHANNELS",
-           "f32_convs", "run_tower"]
+__all__ = ["Conv2dWS", "ResNet18", "PPM", "ResNet18PPM", "ResNet18Pyramid",
+           "OUT_CHANNELS", "f32_convs", "run_tower"]
 
 # channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
 # stem gives 128 at level 0)
@@ -129,11 +130,15 @@ class ResNet18(nn.Module):
     three 3x3 conv + norm + relu of ``width``, ``width`` and ``2 * width``
     channels (strides 2, 1, 1) in place of the 7x7, before the same max-pool;
     layer1's first block then projects its ``2 * width`` input channels.
+    ``pyramid`` returns the list of every tap up to ``out_level`` (the
+    max-pooled stem, then each layer) instead of the last one.
     Channels-first in and out."""
 
     def __init__(self, out_level: int = 4, dilated8: bool = False,
-                 width: int = 64, deep_stem: bool = False, device=None):
+                 width: int = 64, deep_stem: bool = False,
+                 pyramid: bool = False, device=None):
         super().__init__()
+        self.pyramid = pyramid
         if deep_stem:
             stem = ((3, width, (2, 2)), (width, width, (1, 1)),
                     (width, width * 2, (1, 1)))
@@ -156,6 +161,7 @@ class ResNet18(nn.Module):
              (4, 4) if dilated8 else (1, 1)),
         ]
         c, blocks = stem[-1][1], []
+        self.tap_channels = [c]
         for f, s, d in plan[:out_level]:
             # MIT _nostride_dilate: the de-strided conv of a dilated stage
             # runs at d/2 — dilation 1 in layer3, 2 in layer4
@@ -164,6 +170,7 @@ class ResNet18(nn.Module):
                                         device=device))
             blocks.append(_BasicBlock2d(f, f, (1, 1), d, device=device))
             c = f
+            self.tap_channels.append(c)
         for i, b in enumerate(blocks):
             setattr(self, f"_BasicBlock2d_{i}", b)
         self.num_blocks = len(blocks)
@@ -174,9 +181,12 @@ class ResNet18(nn.Module):
             x = F.relu(getattr(self, f"_Norm_{i}")(
                 getattr(self, f"Conv2dWS_{i}")(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        taps = [x]
         for i in range(self.num_blocks):
             x = getattr(self, f"_BasicBlock2d_{i}")(x)
-        return x
+            if i % 2:
+                taps.append(x)
+        return taps if self.pyramid else x
 
 
 def _avg_pool_same(x, window: Tuple[int, int]):
@@ -242,6 +252,42 @@ class ResNet18PPM(nn.Module):
 
     def forward(self, x):
         return self.PPM_0(self.ResNet18_0(x))
+
+
+class ResNet18Pyramid(nn.Module):
+    """Every trunk tap resized (bilinear, half-pixel centres) to the finest
+    tap and concatenated: the single-map form of the reference's pyramid
+    towers (``ADE20KResNet18Pyramid``, image.py:793-957), then, with
+    ``project``, a 1x1 conv + norm + relu to ``out_channels``; without it
+    the raw concat (the reference class's exact output: 1024 channels, 1088
+    with the deep stem).  The taps are upsampled (the finest tap is the
+    largest), so the flax resize's antialiasing does not act."""
+
+    def __init__(self, out_channels: int = 128, deep_stem: bool = False,
+                 project: bool = True, device=None):
+        super().__init__()
+        self.ResNet18_0 = ResNet18(out_level=4, deep_stem=deep_stem,
+                                   pyramid=True, device=device)
+        self.project = project
+        c = sum(self.ResNet18_0.tap_channels)
+        if project:
+            self.Conv2dWS_0 = Conv2dWS(c, out_channels, (1, 1),
+                                       device=device)
+            self._Norm_0 = _Norm(out_channels, device=device)
+            c = out_channels
+        self.out_channels = c
+
+    def forward(self, x):
+        taps = self.ResNet18_0(x)
+        size = taps[0].shape[2:]
+        # float32 interpolation, back to the activations' dtype (as PPM)
+        y = torch.cat([taps[0]] + [
+            F.interpolate(t.to(torch.float32), size=size, mode="bilinear",
+                          align_corners=False).to(t.dtype)
+            for t in taps[1:]], dim=1)
+        if not self.project:
+            return y
+        return F.relu(self._Norm_0(self.Conv2dWS_0(y)))
 
 
 def _save_only_convs(ctx, op, *args, **kwargs):

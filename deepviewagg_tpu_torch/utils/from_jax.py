@@ -19,7 +19,10 @@ belongs to; the module's type decides the leaf's name and layout:
 
 The load is strict: every flax leaf is consumed exactly once and every torch
 parameter and buffer is filled exactly once, or it raises.  Nothing depends
-on parameter order.
+on parameter order.  Several branches at one level (``branch_l0``,
+``branch_l0_1`` .. as both packages' ``MultimodalSeg`` name them, the
+KITTI-360 PointPyramid's five) map by those names both ways; a branch's
+crop-ladder wrapper is not a module and owns no parameter.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``deepviewagg_tpu_torch``
-imports JAX, flax or the JAX package, nor PIL or torchvision (the card's
-machine has neither: the port reads PNGs and JPEGs itself), and its entry
-points default to the card."""
+imports JAX, flax or the JAX package, nor PIL, PyYAML or torchvision (the
+card's machine has none of them: the port reads PNGs, JPEGs and YAML
+itself), and its entry points default to the card."""
 
 import ast
 import inspect
@@ -14,7 +14,7 @@ import deepviewagg_tpu_torch
 PKG = Path(deepviewagg_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepviewagg_tpu")
-NOT_ON_THE_CARD = ("PIL", "torchvision")
+NOT_ON_THE_CARD = ("PIL", "torchvision", "yaml")
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -75,6 +75,34 @@ def test_scannet_modules_are_covered(rel):
     if rel.startswith("utils/"):
         assert roots <= {"__future__", "math", "struct", "typing", "zlib",
                          "numpy"}
+
+
+@pytest.mark.parametrize("rel", ["data/datasets/kitti360.py",
+                                 "data/datasets/base.py",
+                                 "modules/image_encoders.py",
+                                 "models/segmentation.py",
+                                 "config/yaml_subset.py", "cli/train.py",
+                                 "cli/eval.py"])
+def test_kitti360_modules_are_covered(rel):
+    """The KITTI-360 path's files (its loader, the camera-family eval
+    credit, the pyramid towers, the YAML reader of the fisheye calibration,
+    the CLIs) are among the files the import checks walk and import neither
+    package's counterpart nor PIL or PyYAML; the loader reads its YAML with
+    the port's own reader."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    if rel == "data/datasets/kitti360.py":
+        assert "yaml_subset" in path.read_text()
+
+
+def test_kitti360_entry_points_default_to_the_card():
+    from deepviewagg_tpu_torch.data.datasets import kitti360
+
+    for fn in (kitti360.preprocess_kitti360_window,
+               kitti360.make_kitti360_dataset):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 def test_scannet_entry_points_default_to_the_card():

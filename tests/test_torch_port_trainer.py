@@ -51,8 +51,9 @@ from deepviewagg_tpu_torch.train import trainer as ttrainer
 from deepviewagg_tpu_torch.utils.from_jax import (load_flax_variables,
                                                   to_flax_tree)
 from torch_port_util import (SCANNET_SCANS, _torch_threads,  # noqa: F401
-                             f32_sparse_convs, fake_scannet_layout,
-                             fake_s3dis_layout, flat_leaves, rel_err)
+                             f32_sparse_convs, fake_kitti360_layout,
+                             fake_s3dis_layout, fake_scannet_layout,
+                             flat_leaves, rel_err)
 
 # the Quick start model's branch without ``-interpolate``: with bilinear
 # taps, pixels clamped at an image edge give the atomic max EXACT ties, which
@@ -477,9 +478,9 @@ def test_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dataset", ["s3dis", "scannet", "kitti360"])
 def test_cli_refuses_unported_datasets(tmp_path, dataset):
-    """S3DIS and ScanNet are ported: one epoch with an eval on a miniature
-    2D-3D-S / ScanNet layout.  KITTI-360 still raises, naming ROADMAP
-    A.2.4."""
+    """No dataset is refused any more: S3DIS, ScanNet and KITTI-360 each
+    train one epoch with an eval on a miniature 2D-3D-S / ScanNet /
+    KITTI-360 layout (KITTI-360's images in two camera-family buckets)."""
     if dataset == "scannet":
         root = fake_scannet_layout(str(tmp_path / "layout"))
         metrics = cli.main(_cli_args(
@@ -501,6 +502,12 @@ def test_cli_refuses_unported_datasets(tmp_path, dataset):
             "area_1.npz", "area_1_images.npy", "area_5.npz",
             "area_5_images.npy"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.4"):
-        cli.main(_cli_args(tmp_path, f"data.dataset={dataset}"))
-    assert not (tmp_path / "data").exists()
+    root = fake_kitti360_layout(str(tmp_path / "layout"))
+    metrics = cli.main(_cli_args(
+        tmp_path, "data.dataset=kitti360", f"data.root={root}",
+        "data.radius=4.0", "data.voxel_size=0.25",
+        "data.kwargs={image_size: [64, 32], fisheye_size: [32, 32], "
+        "max_images: 8}"))
+    assert np.isfinite(metrics["val_miou"])
+    assert len([f for f in os.listdir(os.path.join(root, "processed_dva"))
+                if f.endswith(".npz")]) == 3

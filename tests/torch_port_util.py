@@ -488,3 +488,218 @@ def fake_scannet_layout(root, scans=SCANNET_SCANS, splits=True,
         with open(os.path.join(root, "scannetv2_val.txt"), "w") as f:
             f.write(f"{scans[-1]}\n")
     return root
+
+
+# --- KITTI-360 ---------------------------------------------------------------
+
+KITTI360_SEQ = "2013_05_28_drive_0000_sync"
+# window -> split; the windows overlap in frames, as the release's do
+KITTI360_WINDOWS = {"0000000000_0000000040": "train",
+                    "0000000030_0000000070": "train",
+                    "0000000060_0000000100": "val"}
+# KITTI-360 semantic ids of the street's parts (kitti360scripts labels)
+KITTI360_IDS = {"road": 7, "sidewalk": 8, "building": 11, "car": 26,
+                "vegetation": 21, "unlabelled": 0}
+# MEI calibration of KITTI-360's image_02.yaml, as the release writes it
+# (a ``%YAML:1.0`` directive, a document start, exponent floats, p1 / p2)
+KITTI360_FISHEYE_YAML = (
+    "%YAML:1.0\n---\nmodel_type: MEI\ncamera_name: image_02\n"
+    "image_width: 1400\nimage_height: 1400\nmirror_parameters:\n"
+    "   xi: 2.2134047507854890e+00\ndistortion_parameters:\n"
+    "   k1: 1.6798235660113681e-02\n   k2: 1.6548773243373522e+00\n"
+    "   p1: 4.2223943394772046e-04\n   p2: 4.2462134260997584e-04\n"
+    "projection_parameters:\n   gamma1: 1.3363220825849971e+03\n"
+    "   gamma2: 1.3357883350012958e+03\n   u0: 7.1694323510126321e+02\n"
+    "   v0: 7.0576498308221585e+02\n")
+# the same parameters as ``tests/test_kitti360_fisheye.py`` writes them
+KITTI360_FISHEYE_FIXTURE_YAML = (
+    "%YAML:1.0\nmirror_parameters:\n   xi: 2.2\n"
+    "distortion_parameters:\n   k1: 0.02\n   k2: -0.01\n"
+    "projection_parameters:\n   gamma1: 1320.0\n   gamma2: 1320.0\n"
+    "   u0: 700.0\n   v0: 700.0\n")
+# perspective.txt in the release's form (its calib_time line included)
+KITTI360_PERSPECTIVE = (
+    "calib_time: 09-Jan-2012 14:00:15\n"
+    "S_00: 1.392000e+03 5.120000e+02\n"
+    "K_00: 7.880000e+02 0.000000e+00 6.870000e+02 0.000000e+00 7.860000e+02"
+    " 3.170000e+02 0.000000e+00 0.000000e+00 1.000000e+00\n"
+    "S_rect_00: 1.408000e+03 3.760000e+02\n"
+    "R_rect_00: 9.999974e-01 -7.253732e-04 -2.195405e-03 7.102433e-04 "
+    "9.999894e-01 -4.462649e-03 2.198609e-03 4.461186e-03 9.999876e-01\n"
+    "P_rect_00: 5.525500e+02 0.000000e+00 6.820500e+02 0.000000e+00 "
+    "0.000000e+00 5.525500e+02 2.387700e+02 0.000000e+00 0.000000e+00 "
+    "0.000000e+00 1.000000e+00 0.000000e+00\n"
+    "P_rect_01: 5.525500e+02 0.000000e+00 6.820500e+02 -3.268276e+02 "
+    "0.000000e+00 5.525500e+02 2.387700e+02 0.000000e+00 0.000000e+00 "
+    "0.000000e+00 1.000000e+00 0.000000e+00\n")
+# camera axes in the vehicle (= world) frame: cam0 looks along +x, cam2
+# (left fisheye) along +y, cam3 (right fisheye) along -y; image y is down
+KITTI360_CAM_AXES = {
+    0: np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]]),
+    2: np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]]),
+    3: np.array([[-1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, -1.0, 0.0]]),
+}
+
+
+def street_scene(x0: float, x1: float, density: float, seed: int,
+                 half_width: float = 5.5, height: float = 5.0):
+    """A straight street along x over ``[x0, x1]``: road (|y| < 3.5) and
+    sidewalks on the ground, facades at ``y = +-half_width`` up to
+    ``height``, one parked car (a box) and one tree crown (a ball) every
+    10 m, unlabelled clutter; ``density`` points per m^2 of surface, 2 cm
+    of noise on every point (an exact plane leaves PCA's smallest
+    eigenvalue to rounding).  Returns ``(pos float32 [N, 3], rgb uint8
+    [N, 3], KITTI-360 ids int32 [N])``."""
+    rng = np.random.default_rng(seed)
+    length = x1 - x0
+    parts = []
+
+    def plane(n, lo, hi, sem, colour):
+        p = rng.uniform(lo, hi, (n, 3))
+        parts.append((p, sem, colour))
+
+    n_ground = int(density * length * 2 * half_width)
+    g = rng.uniform((x0, -half_width, 0.0), (x1, half_width, 0.0),
+                    (n_ground, 3))
+    road = np.abs(g[:, 1]) < 3.5
+    parts.append((g[road], KITTI360_IDS["road"], (80, 80, 85)))
+    parts.append((g[~road], KITTI360_IDS["sidewalk"], (150, 140, 130)))
+    n_facade = int(density * length * height)
+    for side in (-1.0, 1.0):
+        plane(n_facade, (x0, side * half_width, 0.0),
+              (x1, side * half_width, height), KITTI360_IDS["building"],
+              (170, 120, 90) if side > 0 else (200, 190, 160))
+    for cx in np.arange(x0 + 3.0, x1, 10.0):
+        n_car = int(density * 14.0)
+        c = rng.uniform((cx, -3.4, 0.0), (cx + 4.0, -1.7, 1.5), (n_car, 3))
+        face = rng.integers(0, 3, n_car)       # snap to a box face
+        c[face == 0, 1] = -1.7
+        c[face == 1, 2] = 1.5
+        c[face == 2, 0] = cx
+        parts.append((c, KITTI360_IDS["car"], (30, 60, 160)))
+        n_tree = int(density * 12.0)
+        d = rng.normal(size=(n_tree, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        parts.append((d * 1.0 + (cx + 6.0, 4.3, 3.0),
+                      KITTI360_IDS["vegetation"], (40, 140, 50)))
+    n_clutter = int(density * length * 0.2)
+    plane(n_clutter, (x0, -half_width, 0.0), (x1, half_width, 0.5),
+          KITTI360_IDS["unlabelled"], (120, 120, 120))
+    pos = np.concatenate([p for p, _, _ in parts])
+    pos = (pos + rng.normal(0.0, 0.02, pos.shape)).astype(np.float32)
+    sem = np.concatenate([np.full(len(p), s, np.int32) for p, s, _ in parts])
+    rgb = np.concatenate([
+        np.clip(np.asarray(c, np.float64) + rng.normal(0, 12, (len(p), 3)),
+                0, 255) for p, _, c in parts]).astype(np.uint8)
+    return pos, rgb, sem
+
+
+def kitti360_vehicle(frame: int, speed: float = 0.3):
+    """The vehicle's 4x4 pose at ``frame``: no rotation, ``speed`` m a frame
+    along +x, 1.7 m above the road."""
+    pose = np.eye(4)
+    pose[:3, 3] = (frame * speed, 0.0, 1.7)
+    return pose
+
+
+def write_kitti360_calibration(root, fisheye_yaml=KITTI360_FISHEYE_YAML,
+                               fisheye03_yaml=KITTI360_FISHEYE_FIXTURE_YAML):
+    """``calibration/`` of a KITTI-360 layout: ``perspective.txt`` in the
+    release's form, ``calib_cam_to_pose.txt`` (cam -> vehicle, the axes of
+    ``KITTI360_CAM_AXES``), ``image_02.yaml`` / ``image_03.yaml``."""
+    import os
+
+    calib = os.path.join(root, "calibration")
+    os.makedirs(calib, exist_ok=True)
+    with open(os.path.join(calib, "perspective.txt"), "w") as f:
+        f.write(KITTI360_PERSPECTIVE)
+    offsets = {0: (1.5, 0.0, 0.0), 2: (0.8, 0.5, 0.1), 3: (0.8, -0.5, 0.1)}
+    with open(os.path.join(calib, "calib_cam_to_pose.txt"), "w") as f:
+        for cam in (0, 1, 2, 3):
+            m = np.zeros((3, 4))
+            m[:, :3] = KITTI360_CAM_AXES.get(cam, KITTI360_CAM_AXES[0])
+            m[:, 3] = offsets.get(cam, (1.5, -0.6, 0.0))
+            f.write(f"image_0{cam}: " + " ".join(f"{v:.9f}" for v in m.flat)
+                    + "\n")
+    with open(os.path.join(calib, "image_02.yaml"), "w") as f:
+        f.write(fisheye_yaml)
+    with open(os.path.join(calib, "image_03.yaml"), "w") as f:
+        f.write(fisheye03_yaml)
+
+
+def fake_kitti360_layout(root, seed: int = 11, density: float = 6.0,
+                         frames=range(0, 101, 5), pinhole=(352, 94),
+                         fisheye=(140, 140), static_rows: int = 12):
+    """A miniature KITTI-360 release layout under ``root``, on the shape of
+    ``tests/test_datasets.py::test_kitti360_pipeline`` and
+    ``tests/test_kitti360_fisheye.py``: one sequence, the three overlapping
+    windows of ``KITTI360_WINDOWS`` (a ``street_scene`` each, with the
+    release's extra PLY fields ``instanceId``, ``isVisible`` and
+    ``confidence``) listed in ``data_3d_semantics/train/
+    2013_05_28_drive_{train,val}.txt``; ``cam0_to_world.txt`` and
+    ``poses.txt`` with a row every 5 frames (the loaders keep multiples of
+    their ``frame_step``); ``calibration/`` (``write_kitti360_calibration``:
+    image_02.yaml in the release's form, image_03.yaml in the JAX test
+    fixture's); a cam0 PNG of ``pinhole`` pixels and cam2 / cam3 PNGs of
+    ``fisheye`` pixels at every tenth frame, written by the port's
+    ``write_png`` with every row filter type (random colours; the bottom
+    ``static_rows`` rows of the fisheyes the same in every frame, as the
+    vehicle's body is; no cam3 PNG at frame 50).  Returns ``root``."""
+    import os
+
+    from deepviewagg_tpu_torch.utils.image_io import write_png
+    from deepviewagg_tpu_torch.utils.ply import write_ply
+
+    rng = np.random.default_rng(seed)
+    static = os.path.join(root, "data_3d_semantics", KITTI360_SEQ, "static")
+    os.makedirs(static)
+    for w, name in enumerate(KITTI360_WINDOWS):
+        start, end = (int(v) for v in name.split("_"))
+        pos, rgb, sem = street_scene(start * 0.3 - 4.0, end * 0.3 + 12.0,
+                                     density, seed + w)
+        n = len(pos)
+        write_ply(os.path.join(static, f"{name}.ply"), {
+            "x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+            "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2],
+            "semantic": sem,
+            "instanceId": (sem * 1000 + rng.integers(0, 5, n)).astype(
+                np.int32),
+            "isVisible": rng.integers(0, 2, n).astype(np.uint8),
+            "confidence": rng.uniform(0, 1, n).astype(np.float32)})
+    lists = os.path.join(root, "data_3d_semantics", "train")
+    os.makedirs(lists)
+    for split in ("train", "val"):
+        with open(os.path.join(lists, f"2013_05_28_drive_{split}.txt"),
+                  "w") as f:
+            f.writelines(f"data_3d_semantics/{KITTI360_SEQ}/static/{n}.ply\n"
+                         for n, sp in KITTI360_WINDOWS.items() if sp == split)
+    poses_dir = os.path.join(root, "data_poses", KITTI360_SEQ)
+    os.makedirs(poses_dir)
+    cam_rows, imu_rows = [], []
+    for frame in frames:
+        vehicle = kitti360_vehicle(frame)
+        cam0 = vehicle.copy()
+        cam0[:3, :3] = KITTI360_CAM_AXES[0]
+        cam0[:3, 3] += (1.5, 0.0, 0.0)
+        cam_rows.append([frame] + list(cam0.flatten()))
+        imu_rows.append([frame] + list(vehicle[:3].flatten()))
+    np.savetxt(os.path.join(poses_dir, "cam0_to_world.txt"),
+               np.array(cam_rows))
+    np.savetxt(os.path.join(poses_dir, "poses.txt"), np.array(imu_rows))
+    write_kitti360_calibration(root)
+    body = rng.integers(0, 256, (static_rows, fisheye[0], 3), dtype=np.uint8)
+    for cam, sub, (w, h) in ((0, "data_rect", pinhole),
+                             (2, "data_rgb", fisheye),
+                             (3, "data_rgb", fisheye)):
+        d = os.path.join(root, "data_2d_raw", KITTI360_SEQ, f"image_0{cam}",
+                         sub)
+        os.makedirs(d)
+        for frame in frames:
+            if frame % 10 or (cam == 3 and frame == 50):
+                continue
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            if cam:
+                img[h - static_rows:] = body
+            write_png(os.path.join(d, f"{frame:010d}.png"), img,
+                      filters=np.arange(h) % 5)
+    return root
