@@ -188,6 +188,24 @@ exit) on any fault:
                   votes doubled, one ``<scan>.txt`` for the val scan with
                   one benchmark NYU40 id per cached voxel, and the first
                   eval batch's segment calls held and timed
+              9g  the KITTI-360 loader (``loop_kitti360``, see
+                  ``KITTI360_LOOP``)
+              9h  the paper's other model families on 9e's layout
+                  (``FAMILY_LOOP``, ``FAMILY_MODELS``): ``cli.train`` and
+                  ``cli.eval --voting_runs 2`` of the light no3d model
+                  (``Res16UNet21-15_light`` with the view-level loss: the
+                  view loss in every step's loss, unseen points out of it,
+                  3 + 2 launches a step; the eval's propagation onto the
+                  first batch's unseen points held against a brute-force
+                  1-NN on the CPU) and of ``Res16UNet34-LateFeatureFusion``
+                  (6 + 5); then, on the light run's first batch, a forward
+                  and two train steps of the late logit, two no3d, qkv,
+                  heuristic, mean and min-max-diff models with their launch
+                  counts asserted; every segment call of each model's first
+                  forward and backward held against its plain version and
+                  timed; per model: parameters, forward ms, step ms, peak
+                  memory, the kernels' device time, share of the byte bound
+                  and padding-row share, the unseen share of the batch
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -201,8 +219,10 @@ wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
 same for phase 9b's first train batch; ``loop_eval`` (forward only): the
 same for phase 9c's first eval batch; ``loop_s3dis`` and
 ``loop_s3dis_eval``: for 9e's first train and eval batches;
-``loop_scannet`` and ``loop_scannet_eval``: for 9f's (each path with
-``pad_share``, the padding-row share of its widest call);
+``loop_scannet`` and ``loop_scannet_eval``: for 9f's, and the same for
+9g's and, as ``loop_families_<model>``, for 9h's first batch through each
+model (each path with ``pad_share``, the padding-row share of its widest
+call);
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
 predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
@@ -427,6 +447,34 @@ KITTI360_FORWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS + VIEW_POOL_FORWARD)
 KITTI360_BACKWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS
                                          + VIEW_POOL_BACKWARD)
 KITTI360_TIME_ITERS = 5                # timed calls per segment call
+# phase 9h: the paper's other model families on 9e's S3DIS layout (written
+# anew when 9h runs alone), conf/s3dis_benchmark.yaml as written but for
+# data.root, the model and one epoch of FAMILY_SPHERES spheres: (a) the light
+# no3d model with the view-level loss, (b) the late feature-fusion model,
+# each through cli.train and cli.eval --voting_runs 2; (c) at the library
+# level, on (a)'s first collated batch, a forward and two train steps of
+# each FAMILY_MODELS entry.  Sorted-segment launches per forward and per
+# train step, from the code: one atomic pool and the view count, then the
+# pool's own reductions (group: set-encoder max, compatibility max, softmax
+# sum, weighted sum; qkv: the same with its key encoder; min-max-diff: its
+# min and max of the map features, which take no gradient; mean: one sum;
+# max and heuristic: one max)
+FAMILY_SPHERES = 16
+FAMILY_LOOP = ("training.epochs=1", f"data.samples_per_epoch={FAMILY_SPHERES}",
+               "data.kwargs={fold: 5, keep_raw: true}")
+FAMILY_LIGHT = ("Res16UNet21-15_light", 3, 2)
+FAMILY_LATE = ("Res16UNet34-LateFeatureFusion", 6, 5)
+FAMILY_MODELS = (  # (label, zoo name, set encoder, forward, backward)
+    ("late_logit", "Res16UNet34-LateLogitFusion", None, 6, 5),
+    ("no3d_ade20k_group8", "No3D-ADE20K-group8", None, 6, 5),
+    ("no3d_l4_max", "No3D-L4-max", None, 3, 2),
+    ("qkv", "Res16UNet34-L4-early-qkv-interpolate", None, 6, 5),
+    ("heuristic", "Res16UNet34-L4-early-heuristic-interpolate", None, 3, 1),
+    ("mean", "Res16UNet34-L4-early-mean-interpolate", None, 3, 2),
+    ("group4_minmaxdiff", "Res16UNet34-L4-early-group4-interpolate",
+     "minmaxdiff", 7, 4),
+)
+FAMILY_TIME_ITERS = 5                  # timed calls per segment call
 
 
 def log(phase: str, **fields) -> None:
@@ -3632,6 +3680,287 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
             "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
+class FamilyProbe(Seams):
+    """The seams of 9h's no3d train run: every value of the view-level loss
+    and every mask the step's segmentation loss got, with the model's
+    ``x_seen`` and the batch's valid mask of the same step."""
+
+    def __init__(self):
+        super().__init__()
+        self.view_losses, self.masks = [], []
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.train import step
+
+        probe = self
+
+        def view_loss(original):
+            def run(*args, **kwargs):
+                out = original(*args, **kwargs)
+                probe.view_losses.append(float(out.detach()))
+                return out
+            return run
+
+        def seg_loss(original):
+            def run(logits, labels, valid=None, *args, **kwargs):
+                probe.masks.append(valid)
+                return original(logits, labels, valid, *args, **kwargs)
+            return run
+
+        self._patch(step, "view_level_loss", view_loss)
+        self._patch(step, "segmentation_loss", seg_loss)
+        return self
+
+
+class PropagateProbe(Seams):
+    """The seam of one ``cli.eval.main`` run at ``propagate_unseen``: the
+    first call's inputs and output, and the number of calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.first, self.calls = None, 0
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.cli import eval as cli_eval
+
+        probe = self
+
+        def propagate(original):
+            def run(logits, pos, seen, *args, **kwargs):
+                out = original(logits, pos, seen, *args, **kwargs)
+                if probe.first is None:
+                    probe.first = tuple(t.detach().cpu() for t in
+                                        (logits, pos, seen, out))
+                probe.calls += 1
+                return out
+            return run
+
+        self._patch(cli_eval, "propagate_unseen", propagate)
+        return self
+
+
+def check_propagated(first) -> dict:
+    """The first eval batch's propagation against a brute-force 1-NN on the
+    CPU: seen points keep their logits; every unseen real point (padding
+    sits 1e6 m away) takes the logits of a seen point at the least distance
+    (within 1e-4 m^2: voxel grids hold equidistant neighbours)."""
+    logits, pos, seen, out = first
+    if not torch.equal(out[seen], logits[seen]):
+        raise AssertionError("propagation moved a seen point's logits")
+    real = pos.abs().max(1).values < 1e5
+    q = ((~seen) & real).nonzero()[:, 0]
+    worst = 0.0
+    for chunk in q.split(256):
+        d = ((pos[chunk, None, :].double() - pos[None, seen, :].double())
+             ** 2).sum(-1)
+        nearest = d <= d.min(1, keepdim=True).values + 1e-4
+        same = (out[chunk][:, None, :] == logits[seen][None]).all(-1)
+        if not bool((same & nearest).any(1).all()):
+            raise AssertionError("an unseen point did not take its nearest "
+                                 "seen point's logits")
+        worst = max(worst, float(d.min(1).values.max()))
+    return {"unseen_real_points": int(len(q)), "seen_points": int(seen.sum()),
+            "real_points": int(real.sum()),
+            "farthest_copy_m": f"{np.sqrt(worst):.3f}"}
+
+
+def family_kernels(model, batch, phase: str, forward: int,
+                   backward: int) -> tuple:
+    """Every segment call of one forward (eval mode) and of one train-mode
+    forward and backward of ``model`` on ``batch``, held against the plain
+    versions and timed; ``forward`` / ``backward`` calls expected."""
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != forward:
+        raise AssertionError(f"{phase}: {len(calls)} segment calls in one "
+                             f"forward, expected {forward}")
+    fwd = measure_forward_calls(calls, phase, "calls_per_forward",
+                                FAMILY_TIME_ITERS)
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != backward:
+        raise AssertionError(f"{phase}: {len(bwd_calls)} segment backwards "
+                             f"in one step, expected {backward}")
+    bwd = measure_backward_calls(bwd_calls, phase, FAMILY_TIME_ITERS)
+    return fwd, bwd
+
+
+def forward_ms(model, batch) -> float:
+    """Device ms of one eval-mode forward without autograd (mean of 3)."""
+    model.eval()
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+
+    return time_ms(forward, 3)
+
+
+def kernel_fields(fwd: dict, bwd: dict) -> dict:
+    """The segment kernels' device time, share of the byte bound and the
+    widest call's padding-row share, forward and backward."""
+    return {"kernel_ms_forward": f"{fwd['ms']:.4f}",
+            "bound_share_forward": f"{fwd['bound_ms'] / fwd['ms']:.3f}",
+            "pad_share_forward": fwd["pad_share"],
+            "kernel_ms_backward": f"{bwd['ms']:.4f}",
+            "bound_share_backward": f"{bwd['bound_ms'] / bwd['ms']:.3f}"}
+
+
+def family_model(name: str, set_encoder, num_classes: int):
+    from deepviewagg_tpu_torch.config.zoo import get_model_spec
+    from deepviewagg_tpu_torch.models.segmentation import build_model
+
+    spec = get_model_spec(name, num_classes, 4)
+    if set_encoder:
+        spec = dataclasses.replace(spec, branches=tuple(
+            (lvl, dataclasses.replace(b, set_encoder=set_encoder))
+            for lvl, b in spec.branches))
+    return build_model(spec, device="cuda", seed=0)
+
+
+def loop_families(cli, cli_eval, tmp: Path) -> dict:
+    """9h: the paper's other model families on the S3DIS layout of 9e (the
+    recipe's flat batches: 4 spheres of 2 m at 5 cm, 16 panoramas of 1024 x
+    512): (a) ``cli.train`` of the light no3d model with the view-level
+    loss, then ``cli.eval --voting_runs 2`` with the unseen points'
+    propagation checked on the first batch; (b) the same for the late
+    feature-fusion model; (c) on (a)'s first batch, a forward and two train
+    steps of each ``FAMILY_MODELS`` entry.  Every segment call of each
+    model's first forward and backward is held against its plain
+    version."""
+    root = tmp / "s3dis_raw"
+    if not (root / "Area_5").exists():
+        write_s3dis_layout(root)
+    out = {"paths": {}, "launches": {}}
+    log("9h families cuts", spheres=f"{FAMILY_SPHERES} a model, 1 epoch "
+        "(recipe 200 x 2000)", steps_library="2 (one warm-up)",
+        widths="none cut", batch="4 spheres x 4 image slots of 1024x512 "
+        "as written", towers="as published")
+    trained = {}
+    for label, (name, fwd_n, bwd_n) in (("light", FAMILY_LIGHT),
+                                        ("late_feature", FAMILY_LATE)):
+        run_dir = tmp / f"family_{label}_run"
+        args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
+                f"data.root={root}", f"model.name={name}",
+                f"training.run_dir={run_dir}", "training.tensorboard=false",
+                *FAMILY_LOOP]
+        if label == "light":
+            args.append("training.view_loss_weight=1.0")
+        seen = []
+
+        def on_fit(trainer):
+            trainer.model.register_forward_hook(
+                lambda m, a, o: seen.append((o["x_seen"].detach(),
+                                             a[0]["graph"]["levels"][0]
+                                             ["valid"])))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        with LoopProbe(on_fit) as probe, FamilyProbe() as fam:
+            cli.main(args)
+        launches = dict(seg.LAUNCHES)
+        probe.check_steps(f"9h {label} loop", fwd_n, bwd_n)
+        model, batch = probe.trainer.model, probe.batch
+        spec = model.spec
+        x_seen, valid = seen[0]
+        unseen_share = 1.0 - float((x_seen & valid).sum()) / float(valid.sum())
+        fields = {}
+        if label == "light":
+            (_, b), = spec.branches
+            if not (spec.family == "no3d" and not spec.no3d_head
+                    and b.tower == "scratch_unet" and b.view_pool == "mean"
+                    and spec.num_classes == 13):
+                raise AssertionError(f"not the light no3d model: {spec}")
+            steps = len(probe.losses)
+            if len(fam.view_losses) != steps or not all(
+                    np.isfinite(v) and v > 0 for v in fam.view_losses):
+                raise AssertionError(f"view losses {fam.view_losses} over "
+                                     f"{steps} steps")
+            for mask, (xs, v) in zip(fam.masks, seen):
+                if not torch.equal(mask, xs & v):
+                    raise AssertionError("the no3d loss took unseen points")
+            fields = {"view_loss_first": f"{fam.view_losses[0]:.4f}",
+                      "loss_mask": "valid & x_seen on every step"}
+        elif spec.family != "late_feature":
+            raise AssertionError(f"not the late feature model: {spec}")
+        log(f"9h {label} loop", model=name, params=sum(
+            p.numel() for p in model.parameters()), **probe.summary(),
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            launches_per_step=probe.step_launches[0], launches=launches,
+            unseen_share_first_batch=f"{unseen_share:.4f}", **fields)
+        out["launches"][label] = launches
+        fwd, bwd = out["paths"][label] = family_kernels(
+            model, batch, f"9h {label} kernels", fwd_n, bwd_n)
+        log(f"9h {label} loop", forward_ms=f"{forward_ms(model, batch):.1f}",
+            **kernel_fields(fwd, bwd))
+        if label == "light":
+            trained["batch"] = batch
+        del model, probe
+        torch.cuda.empty_cache()
+
+        with PropagateProbe() as prop:
+            metrics, eprobe, eval_launches = run_eval(cli_eval, [
+                "--run_dir", str(run_dir), "--voting_runs",
+                str(EVAL_VOTING_RUNS)], forward=fwd_n)
+        checked = {}
+        if label == "light":
+            if prop.calls != len(eprobe.step_ms):
+                raise AssertionError(f"{prop.calls} propagations for "
+                                     f"{len(eprobe.step_ms)} eval batches")
+            checked = check_propagated(prop.first)
+        elif prop.calls:
+            raise AssertionError("a late model's eval propagated")
+        log(f"9h {label} eval", voting_runs=EVAL_VOTING_RUNS,
+            **eprobe.summary(),
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            launches_per_batch=eprobe.step_launches[0],
+            launches=eval_launches, **checked,
+            **{k: f"{v:.3f}" for k, v in metrics.items()})
+        out["launches"][f"{label}_eval"] = eval_launches
+        del eprobe
+        torch.cuda.empty_cache()
+
+    batch = trained["batch"]
+    valid = batch["graph"]["levels"][0]["valid"]
+    n = int(valid.sum())
+    for label, name, set_encoder, fwd_n, bwd_n in FAMILY_MODELS:
+        phase = f"9h {label}"
+        model = family_model(name, set_encoder, 13)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        with torch.no_grad():
+            first = model.eval()(batch)
+        torch.cuda.synchronize()
+        fwd_launches = dict(seg.LAUNCHES)
+        if fwd_launches != {"segment_csr": fwd_n, "segment_csr_bwd": 0}:
+            raise AssertionError(f"{phase}: forward launches {fwd_launches}")
+        logits = first["logits"][valid]
+        if logits.shape != (n, 13) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{phase}: logits {tuple(logits.shape)}")
+        unseen = 1.0 - float((first["x_seen"] & valid).sum()) / n
+        fwd_ms = forward_ms(model, batch)
+        # two steps, both timed: the first, then the rest
+        run = run_steps(model, batch, n, 2, 0, phase,
+                        {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
+        fwd, bwd = family_kernels(model, batch, f"{phase} kernels", fwd_n,
+                                  bwd_n)
+        log(phase, model=name, set_encoder=set_encoder or "default",
+            params=sum(p.numel() for p in model.parameters()),
+            forward_ms=f"{fwd_ms:.1f}",
+            step_ms_first=f"{run['step_ms'][0]:.1f}",
+            step_ms_rest=f"{np.mean(run['step_ms'][1:]):.1f}",
+            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
+            launches_per_forward=fwd_n, launches_per_step=(fwd_n, bwd_n),
+            **kernel_fields(fwd, bwd), unseen_share_first_batch=f"{unseen:.4f}",
+            losses="/".join(f"{x:.4f}" for x in run["losses"]))
+        out["paths"][label] = (fwd, bwd)
+        out["launches"][label] = fwd_launches
+        del model, first
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -3659,12 +3988,13 @@ def phase_loop() -> dict:
         s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
         scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
         kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
+        families = part("9h", loop_families, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
             "predict": predict, "s3dis": s3dis, "scannet": scannet,
-            "kitti360": kitti360}
+            "kitti360": kitti360, "families": families}
 
 
 def kernel_family(name: str) -> str:
@@ -3824,6 +4154,16 @@ def main() -> None:
     loop_recipe, loop_eval = loop["recipe"], loop["eval"]
     s3dis_run, scannet_run = loop["s3dis"], loop["scannet"]
     kitti360_run = loop["kitti360"]
+    # ``loop_families_<model>``: the same sums over the calls of one forward
+    # / train step of phase 9h's first batch through each model;
+    # ``launches_loop_families_<run>``: the counts over 9h's train and eval
+    # runs of the light and late models and over the first forward of each
+    # library-level model
+    families = loop["families"]
+    fam_paths = {f"loop_families_{k}": v for k, v in
+                 families["paths"].items()}
+    fam_launches = {f"launches_loop_families_{k}": v for k, v in
+                    families["launches"].items()}
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -3835,7 +4175,8 @@ def main() -> None:
                "loop_scannet": scannet_run["forward"],
                "loop_scannet_eval": scannet_run["eval_forward"],
                "loop_kitti360": kitti360_run["forward"],
-               "loop_kitti360_eval": kitti360_run["eval_forward"]},
+               "loop_kitti360_eval": kitti360_run["eval_forward"],
+               **{k: v[0] for k, v in fam_paths.items()}},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -3852,7 +4193,8 @@ def main() -> None:
                   "segment_csr"],
               launches_loop_kitti360=kitti360_run["launches"]["segment_csr"],
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
-                  "segment_csr"]),
+                  "segment_csr"],
+              **{k: v["segment_csr"] for k, v in fam_launches.items()}),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -3860,7 +4202,8 @@ def main() -> None:
                "loop_recipe": loop_recipe["backward"],
                "loop_s3dis": s3dis_run["backward"],
                "loop_scannet": scannet_run["backward"],
-               "loop_kitti360": kitti360_run["backward"]},
+               "loop_kitti360": kitti360_run["backward"],
+               **{k: v[1] for k, v in fam_paths.items()}},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -3879,7 +4222,8 @@ def main() -> None:
               launches_loop_kitti360=kitti360_run["launches"][
                   "segment_csr_bwd"],
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
-                  "segment_csr_bwd"]),
+                  "segment_csr_bwd"],
+              **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()}),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

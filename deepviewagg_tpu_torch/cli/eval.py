@@ -12,8 +12,10 @@ cloud by 1-NN; ``--submission <dir>`` turns the votes on and writes the
 benchmark files there: for ScanNet one ``<scan>.txt`` per cache (its stem)
 of NYU40 ids, for KITTI-360 ``submission.zip`` of one
 ``<seq>_<start>_<end>.npy`` of original label ids per window, both at voxel
-level (neither cache keeps a raw cloud, so there is nothing to remap).  The
-``no3d`` family's unseen-point propagation (ROADMAP A.6) raises.
+level (neither cache keeps a raw cloud, so there is nothing to remap).  A
+``no3d`` model's unseen points take the logits of their nearest seen point
+before they are tracked and voted (``propagate_unseen``, the JAX CLI's
+eval.py:103-110).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from ..config.zoo import resolve_spec_from_cfg
 from ..data.collate import batch_to_torch, device_view
 from ..data.datasets.base import BatchLoader, load_area
 from ..metrics.tracker import SegmentationTracker, VoteAccumulator
-from ..models.segmentation import build_model
+from ..models.losses import propagate_unseen
+from ..models.segmentation import No3DSeg, build_model
 from ..train.checkpoint import CheckpointManager
 from ..train.step import make_eval_step
 from .train import auto_bucket, build_dataset, setup_device
@@ -45,7 +48,10 @@ def vote(model, loader, voting_runs: int, device, tracker, votes=None,
     through the model's eval step (tracked by ``tracker``), the others with
     MC dropout (a no-op unless the model's spec has ``head_dropout`` > 0);
     with ``votes``, every pass adds each sample's logits under its original
-    point ids (``cloud_size(cloud)``: the cloud's point count)."""
+    point ids (``cloud_size(cloud)``: the cloud's point count).  A
+    ``No3DSeg``'s unseen points (and padding rows) take the logits of their
+    nearest seen valid point first."""
+    no3d = isinstance(model, No3DSeg)
     eval_step = make_eval_step(model)
     mc_step = make_eval_step(model, mc_dropout=True)
     # one generator on the model's device for every batch of the MC runs,
@@ -61,6 +67,12 @@ def vote(model, loader, voting_runs: int, device, tracker, votes=None,
             else:
                 out = eval_step(None, dev_batch)
             valid = np.asarray(batch["graph"]["levels"][0]["valid"])
+            if no3d and "x_seen" in out and "pos" in dev_batch:
+                # the reference's No3D eval semantics (no3d.py:105-126)
+                seen = out["x_seen"] & dev_batch["graph"]["levels"][0]["valid"]
+                out["logits"] = propagate_unseen(out["logits"],
+                                                 dev_batch["pos"], seen)
+                out["preds"] = out["logits"].argmax(dim=-1)
             preds = out["preds"].cpu().numpy()
             logits = out["logits"].cpu().numpy()
             n_batches += 1
@@ -119,11 +131,6 @@ def main(argv=None):
     val_ds = build_dataset(cfg, train=False, device=device)
     num_classes = getattr(val_ds, "num_classes", cfg.data.num_classes)
     spec = resolve_spec_from_cfg(cfg.model, num_classes)
-    if spec.family == "no3d":
-        raise NotImplementedError(
-            "no3d eval copies nearest-seen logits onto unseen points "
-            "(propagate_unseen); the no3d family is not ported yet "
-            "(ROADMAP A.6)")
     branch_levels = sorted(dict(spec.branches))
     bucket = auto_bucket(cfg, val_ds, branch_levels)
     # params-only restore: eval needs no optimizer state

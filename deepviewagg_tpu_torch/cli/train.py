@@ -291,8 +291,13 @@ def main(argv=None):
 
 
 def _branch_names(spec):
-    """``(module name, BranchSpec)`` of every image branch, as
-    ``MultimodalSeg`` names them."""
+    """``(module name, BranchSpec)`` of every image branch, as the spec's
+    model names them (``MultimodalSeg``: ``branch_l<level>[_<k>]``; the no3d
+    and late-fusion families: ``branch[_<k>]``)."""
+    if spec.family != "unet":
+        for k, (_, b) in enumerate(spec.branches):
+            yield ("branch" if k == 0 else f"branch_{k}"), b
+        return
     k_at: dict = {}
     for level, b in spec.branches:
         k = k_at.get(level, 0)

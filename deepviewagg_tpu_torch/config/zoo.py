@@ -1,8 +1,9 @@
 """The model zoo: the reference's named-config space as a generator.
 
 The port of ``deepviewagg_tpu/config/zoo.py``: the same names, grammar and
-specs.  Name resolution is pure data, so every name resolves; building a
-family or tower that is not ported raises.  ``ref:`` names and
+specs.  Name resolution is pure data, so every name resolves and every
+zoo name builds; a tower that is not ported (``None``, ``reuse``,
+``shared:``) raises.  ``ref:`` names and
 ``model.tower_weights`` raise (reference ingest and pretrained towers are
 not ported).  Every field of every spec is the JAX one; like the JAX
 ``_to_spec``, a zoo entry's ``head_dropout`` override is dropped (build a
@@ -25,6 +26,7 @@ import re
 from typing import Optional
 
 from ..models.segmentation import BranchSpec, ModelSpec
+from ..modules.scratch2d import tower_cfg_out_channels
 
 __all__ = ["MODEL_ZOO", "get_model_spec", "parse_model_name"]
 
@@ -195,18 +197,6 @@ def _light_tower_cfg(num_classes: int):
           (3 * f, f, 2 * f, 2, 2, 0, 1), (2 * f, f, f, 2, 2, 0, 1),
           (f, 0, f, 3, 1, 1, 1))
     return (down, up, num_classes)
-
-
-def tower_cfg_out_channels(cfg) -> int:
-    """Output width of a compact tower config ``(down, up, last)``: the last
-    conv if present, else the final up stage's nc_out, else the final down
-    stage's nc_out (the JAX package's ``modules/scratch2d.py``)."""
-    down, up, last = cfg
-    if last is not None:
-        return int(last[0] if isinstance(last, (tuple, list)) else last)
-    if up:
-        return int(up[-1][2])
-    return int(down[-1][1])
 
 
 def _to_spec(entry: dict, num_classes: int, in_channels: int) -> ModelSpec:

@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["IGNORE_LABEL", "cross_entropy", "lovasz_softmax",
            "segmentation_loss", "sqrt_inverse_class_weights",
-           "view_level_loss"]
+           "view_level_loss", "propagate_unseen"]
 
 IGNORE_LABEL = -1
 
@@ -95,3 +95,18 @@ def view_level_loss(view_logits, labels, point_id, view_valid):
         view_valid, labels[pid],
         torch.full_like(labels[:1], IGNORE_LABEL))
     return cross_entropy(view_logits, view_labels)
+
+
+def propagate_unseen(logits, pos, x_seen, k: int = 1):
+    """Eval-time semantics for points no view reaches: copy the logits of
+    the nearest *seen* point (KeOps 1-NN in the reference, no3d.py:105-126)
+    by :func:`ops.knn.knn` on the tensors' device.  Returns ``logits``
+    itself when every point is seen or none is."""
+    from ..ops.knn import knn
+
+    if bool(x_seen.all()) or not bool(x_seen.any()):
+        return logits
+    _, idx = knn(pos[~x_seen], pos, k=k, valid=x_seen)
+    out = logits.clone()
+    out[~x_seen] = logits[idx[:, 0]]
+    return out

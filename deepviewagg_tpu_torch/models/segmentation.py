@@ -1,11 +1,13 @@
 """The multimodal segmentation model (DeepViewAgg).
 
 The port of ``deepviewagg_tpu/models/segmentation.py`` (``BranchSpec``,
-``ModelSpec``, ``make_tower``, ``MultimodalSeg``; the reference's
-models/segmentation/multimodal/sparseconv3d.py): a Res16UNet whose encoder
-levels interleave image branches.  A branch at level L consumes
-``batch['mappings'][L]`` (level-0 mappings merged through the stride chain
-at collate time).
+``ModelSpec``, ``make_tower``, ``MultimodalSeg``, ``SparseConv3dSeg``,
+``No3DSeg``, ``LateFusionSeg``, ``build_model``; the reference's
+models/segmentation/{sparseconv3d,multimodal/sparseconv3d,multimodal/no3d}
+.py): a Res16UNet whose encoder levels interleave image branches, the 3D-only
+UNet, the 2D-only No3D models and the late-fusion models.  A branch at level
+L consumes ``batch['mappings'][L]`` (level-0 mappings merged through the
+stride chain at collate time).
 
 The batch contract is the collated dict moved to the device by
 :func:`deepviewagg_tpu_torch.data.collate.batch_to_torch`: ``feats [P0, Cin]``,
@@ -34,7 +36,8 @@ from ..modules.multibucket import MultiBucketBranch
 from ..nn.res16unet import RES16_PRESETS, DownStage, Res16UNet, Stem, UpStage
 
 __all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "SparseConv3dSeg",
-           "build_model", "make_tower", "init_parameters"]
+           "No3DSeg", "LateFusionSeg", "build_model", "make_tower",
+           "init_parameters"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,15 +109,29 @@ def backbone_plan(spec: ModelSpec):
 
 
 def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
-               device=None):
-    """Tower registry -> (module, out_channels) for the ported towers:
-    ``resnet18_ppm``, ``resnet18_pyramid`` (the shared pyramid projected to
-    128 channels), ``resnet18_pyramid_raw`` (its raw tap concat) and the
-    ``resnet18_l<level>`` truncations, with the 7x7 or the deep stem."""
+               device=None, tower_cfg=None, ws: bool = True):
+    """Tower registry -> (module, out_channels): ``resnet18_ppm``,
+    ``resnet18_pyramid`` (the shared pyramid projected to 128 channels),
+    ``resnet18_pyramid_raw`` (its raw tap concat), the ``resnet18_l<level>``
+    truncations (7x7 or deep stem), ``scratch_unet`` (the reference-exact
+    compact tower of ``tower_cfg``, weight-standardized with ``ws``),
+    ``unet2d_light`` (the light no3d UNet, 32 channels) and
+    ``unet2d[_<channels>]``."""
     if norm != "group":
         raise NotImplementedError(
             f"tower_norm={norm!r}: only group-norm towers are ported yet "
             "(ROADMAP A.2.3)")
+    if name == "scratch_unet":
+        from ..modules.scratch2d import tower_cfg_out_channels, unetws_from_cfg
+
+        if tower_cfg is None:
+            raise ValueError("scratch_unet needs BranchSpec.tower_cfg")
+        return (unetws_from_cfg(tower_cfg, norm=norm, ws=ws, device=device),
+                tower_cfg_out_channels(tower_cfg))
+    if name in (None, "reuse") or str(name).startswith("shared:"):
+        raise NotImplementedError(
+            f"tower {name!r} (the tower-less, reuse and shared-trunk "
+            "branches) is not ported yet (ROADMAP A.6)")
     if name == "resnet18_ppm":
         return towers.ResNet18PPM(out_channels=128, deep_stem=deep_stem,
                                   device=device), 128
@@ -129,18 +146,51 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
         return (towers.ResNet18(out_level=lvl, deep_stem=deep_stem,
                                 device=device),
                 128 if deep_stem and lvl == 0 else towers.OUT_CHANNELS[lvl])
-    raise NotImplementedError(f"tower {name!r} is not ported yet (ROADMAP A.6)")
+    if name == "unet2d_light":
+        # the published no3d light tower (no3d.yaml:5-50): 5 down stages
+        # 32/32/64/128/256, up back to 32
+        return towers.UNet2D(down_widths=(32, 32, 64, 128, 256),
+                             up_widths=(128, 96, 64, 32), out_channels=32,
+                             device=device), 32
+    if name.startswith("unet2d"):
+        # "unet2d" or "unet2d_<out_channels>" (ref image.py:510)
+        out = int(name.split("_")[1]) if "_" in name else 32
+        return towers.UNet2D(out_channels=out, device=device), out
+    raise KeyError(name)
+
+
+_VIEW_POOLS = ("group", "qkv", "heuristic", "max", "mean", "min", "sum", "add")
 
 
 def _check_branch(spec: BranchSpec) -> None:
-    unsupported = {
-        "view_pool": spec.view_pool not in ("group", "max", "mean", "min",
-                                            "sum", "add"),
-        "set_encoder": spec.set_encoder != "deepset",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"branch options not ported yet: {bad}")
+    """Every view pool and set encoder that the JAX package builds."""
+    if spec.view_pool not in _VIEW_POOLS:
+        raise ValueError(f"view_pool {spec.view_pool!r}")
+    if spec.set_encoder not in ("deepset", "minmaxdiff", "mlp"):
+        raise ValueError(f"set_encoder {spec.set_encoder!r}")
+
+
+def _branch(b: BranchSpec, channels_3d: int, device, **changes):
+    """The ``UnimodalBranch`` of a branch spec over its own tower."""
+    _check_branch(b)
+    tower, c2 = make_tower(b.tower, b.tower_norm, b.tower_deep_stem,
+                           device=device, tower_cfg=b.tower_cfg,
+                           ws=b.tower_ws)
+    kw = dict(
+        atomic_reduce=b.atomic_reduce, view_pool=b.view_pool,
+        num_groups=b.num_groups, use_mod=b.use_mod,
+        set_encoder=b.set_encoder, pool_use_num=b.pool_use_num,
+        pool_scaling=b.pool_scaling, pool_modes=b.pool_modes,
+        pool_fusion=b.pool_fusion, qk_channels=b.qk_channels,
+        use_mod_q=b.use_mod_q, use_mod_k=b.use_mod_k,
+        dim_scaling=b.dim_scaling, gated=b.gated, interpolate=b.interpolate,
+        drop_modality=b.drop_modality, drop_3d=b.drop_3d,
+        drop_hard=b.drop_hard, fusion_mode=b.fusion_mode,
+        tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
+        remat_tower=b.remat_tower, frozen=b.frozen)
+    kw.update(changes)
+    return UnimodalBranch(tower, c2, channels_3d, b.out_channels,
+                          device=device, **kw)
 
 
 class MultimodalSeg(nn.Module):
@@ -151,9 +201,10 @@ class MultimodalSeg(nn.Module):
 
     def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if spec.family != "unet" or spec.shared_tower is not None:
-            raise NotImplementedError(f"model family {spec.family!r} with "
-                                      "these options is not ported yet")
+        if spec.shared_tower is not None:
+            raise NotImplementedError(
+                "shared_tower (the shared-trunk branches) is not ported yet "
+                "(ROADMAP A.6)")
         self.spec = spec
         self._ladder: Dict[str, nn.Module] = {}   # see _ladder_branch
         layers, planes, block = backbone_plan(spec)
@@ -162,35 +213,7 @@ class MultimodalSeg(nn.Module):
 
         def add_branches(level, c):
             for k, b in enumerate(branch_at.get(level, ())):
-                _check_branch(b)
-                if str(b.tower).startswith("shared:") or b.tower in (None, "reuse"):
-                    raise NotImplementedError(f"tower {b.tower!r} is not ported yet")
-                tower, c2 = make_tower(b.tower, b.tower_norm,
-                                       b.tower_deep_stem, device=device)
-                if b.view_pool == "group":
-                    branch = UnimodalBranch(
-                        tower, c2, c, b.out_channels,
-                        atomic_reduce=b.atomic_reduce,
-                        num_groups=b.num_groups, use_mod=b.use_mod,
-                        pool_use_num=b.pool_use_num,
-                        pool_scaling=b.pool_scaling, pool_modes=b.pool_modes,
-                        pool_fusion=b.pool_fusion, gated=b.gated,
-                        interpolate=b.interpolate,
-                        drop_modality=b.drop_modality, drop_3d=b.drop_3d,
-                        drop_hard=b.drop_hard, fusion_mode=b.fusion_mode,
-                        tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
-                        remat_tower=b.remat_tower, frozen=b.frozen,
-                        device=device)
-                else:
-                    # the parameter-free segment pools are ported for
-                    # crop-ladder batches only
-                    branch = MultiBucketBranch(
-                        tower, c2, c, b.out_channels,
-                        atomic_reduce=b.atomic_reduce, view_pool=b.view_pool,
-                        interpolate=b.interpolate, fusion_mode=b.fusion_mode,
-                        frozen=b.frozen, remat_tower=b.remat_tower,
-                        tower_bf16=b.tower_bf16, pool_bf16=b.pool_bf16,
-                        device=device)
+                branch = _branch(b, c, device)
                 name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
                 setattr(self, name, branch)
                 c = branch.out_channels
@@ -215,12 +238,10 @@ class MultimodalSeg(nn.Module):
             init_parameters(self, torch.Generator().manual_seed(seed))
 
     def _ladder_branch(self, name: str, branch: nn.Module) -> nn.Module:
-        """The branch that takes crop-ladder batches: ``branch`` itself, or
-        the ladder form of a ``UnimodalBranch`` over the same sub-modules
-        (built once, kept outside the module tree so that the parameters are
-        registered once)."""
-        if isinstance(branch, MultiBucketBranch):
-            return branch
+        """The branch that takes crop-ladder batches: the ladder form of a
+        ``UnimodalBranch`` over the same sub-modules (built once, kept
+        outside the module tree so that the parameters are registered
+        once)."""
         ladder = self._ladder.get(name)
         if ladder is None:
             ladder = self._ladder[name] = MultiBucketBranch.over(branch)
@@ -239,10 +260,6 @@ class MultimodalSeg(nn.Module):
                 # crop-group families (Bucket.image_ladder collate path)
                 x, seen = self._ladder_branch(name, branch)(
                     x, mm, bucket_images=batch.get("bucket_images"))
-            elif isinstance(branch, MultiBucketBranch):
-                raise NotImplementedError(
-                    f"view_pool {branch.view_pool.reduce!r} on a flat image "
-                    "batch is not ported yet")
             else:
                 images = batch["images"]
                 x, seen = branch(x, images, mm,
@@ -301,15 +318,144 @@ class SparseConv3dSeg(nn.Module):
         return {"logits": self.head(x)}
 
 
+class No3DSeg(nn.Module):
+    """2D towers pooled straight onto points: the No3D*Fusion family
+    (models/segmentation/multimodal/no3d.py:18).  The branches (``branch``,
+    ``branch_1`` ...) pool their towers' features to the points; the pooled
+    features are concatenated and go through a linear ``head`` (the
+    FeatureFusion classes), or straight out when ``spec.no3d_head`` is False
+    (the LogitFusion classes, whose towers emit class logits per pixel).
+    Unseen points get zero features.  ``forward(batch, generator=None)``
+    returns ``{"logits", "x_seen", "view_extras"}`` (branch 0's view-level
+    tensors) and ``view_logits`` (the per-view features through the same
+    head) where the per-view features have the pooled width."""
+
+    def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
+        super().__init__()
+        self.spec = spec
+        self.levels = []
+        width = 0
+        for k, (level, b) in enumerate(spec.branches):
+            # no 3D stream: a qkv pool raises, a 3D dropout does nothing
+            branch = _branch(b, 0, device, fusion_mode="modality",
+                             keep_last_view=k == 0)
+            setattr(self, _family_branch_name(k), branch)
+            self.levels.append(level)
+            width += branch.out_channels
+        self.head = (nn.Linear(width, spec.num_classes, device=device)
+                     if spec.no3d_head else None)
+        if seed is not None:
+            init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        images = batch["images"]
+        ref_size = (images.shape[1], images.shape[2])
+        num_points = batch["feats"].shape[0]
+        pooled, x_seen, extras = [], None, None
+        for k, level in enumerate(self.levels):
+            out = getattr(self, _family_branch_name(k))(
+                None, images, batch["mappings"][level], ref_size,
+                num_points=num_points, generator=generator)
+            pooled.append(out[0])
+            x_seen = out[1] if x_seen is None else (x_seen | out[1])
+            if k == 0:
+                extras = out[2]
+        pooled = pooled[0] if len(pooled) == 1 else torch.cat(pooled, dim=-1)
+        head = self.head if self.head is not None else (lambda t: t)
+        out = {"logits": head(pooled), "x_seen": x_seen,
+               "view_extras": extras}
+        # per-view logits through the SAME head (the view-level loss,
+        # no3d.py:139-155), only where the saved per-view features share the
+        # pooled width (plain reductions; attention pools save the tower's
+        # features before their projection)
+        if extras["x_view"].shape[-1] == pooled.shape[-1]:
+            out["view_logits"] = head(extras["x_view"])
+        return out
+
+
+class LateFusionSeg(nn.Module):
+    """A 3D UNet over the points and image branches pooled to the points,
+    fused at the end (the reference's ``LateFeatureFusion`` /
+    ``LateLogitFusion``, models/segmentation/multimodal/sparseconv3d.py:12,
+    184): ``'feature'`` concatenates the UNet's features and every branch's
+    pooled ones, then ``mix`` (linear to the UNet's width) -> ReLU ->
+    ``head``; ``'logit'`` adds ``head3d`` of the UNet's features and, on
+    seen points, the sum of each branch's ``head2d[_k]``.  Each branch gets
+    the UNet's output as its 3D stream (the QKV pools' queries).
+    ``forward(batch, generator=None)`` returns ``{"logits", "x_seen"}``."""
+
+    def __init__(self, spec: ModelSpec, mode: str = "feature", device="cuda",
+                 seed: Optional[int] = 0):
+        super().__init__()
+        if mode not in ("feature", "logit"):
+            raise ValueError(mode)
+        if any(level != 0 for level, _ in spec.branches):
+            raise ValueError("late fusion consumes level-0 mappings")
+        self.spec, self.mode = spec, mode
+        self.backbone = Res16UNet(spec.in_channels, *backbone_plan(spec),
+                                  stem_kernel=spec.stem_kernel, device=device)
+        c3 = self.backbone.out_channels
+        n = spec.num_classes
+        widths = []
+        for k, (_, b) in enumerate(spec.branches):
+            branch = _branch(b, c3, device, fusion_mode="modality")
+            setattr(self, _family_branch_name(k), branch)
+            widths.append(branch.out_channels)
+        self.n_branches = len(widths)
+        if mode == "logit":
+            self.head3d = nn.Linear(c3, n, device=device)
+            for k, w in enumerate(widths):
+                setattr(self, "head2d" if k == 0 else f"head2d_{k}",
+                        nn.Linear(w, n, device=device))
+        else:
+            self.mix = nn.Linear(c3 + sum(widths), c3, device=device)
+            self.head = nn.Linear(c3, n, device=device)
+        if seed is not None:
+            init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        x3d = self.backbone(batch["feats"], batch["graph"])
+        images = batch["images"]
+        ref_size = (images.shape[1], images.shape[2])
+        x2d, x_seen = [], None
+        for k in range(self.n_branches):
+            out, seen = getattr(self, _family_branch_name(k))(
+                x3d, images, batch["mappings"][0], ref_size,
+                generator=generator)
+            x2d.append(out)
+            x_seen = seen if x_seen is None else (x_seen | seen)
+        if self.mode == "logit":
+            l2 = sum(getattr(self, "head2d" if k == 0 else f"head2d_{k}")(x)
+                     for k, x in enumerate(x2d))
+            logits = self.head3d(x3d) + torch.where(x_seen[:, None], l2, 0.0)
+        else:
+            h = torch.relu(self.mix(torch.cat([x3d] + x2d, dim=-1)))
+            logits = self.head(h)
+        return {"logits": logits, "x_seen": x_seen}
+
+
+def _family_branch_name(k: int) -> str:
+    """The k-th branch's name in the no3d and late-fusion families."""
+    return "branch" if k == 0 else f"branch_{k}"
+
+
 def build_model(spec: ModelSpec, device="cuda",
                 seed: Optional[int] = 0) -> nn.Module:
-    """The model of a spec: ``SparseConv3dSeg`` without branches, else
-    ``MultimodalSeg``; the ``no3d`` and ``late_*`` families raise."""
+    """The model of a spec (JAX ``build_model``): ``SparseConv3dSeg``
+    without branches, else by family ``No3DSeg`` (``no3d``),
+    ``LateFusionSeg`` (``late_feature`` / ``late_logit``) or
+    ``MultimodalSeg``."""
     if not spec.branches:
         return SparseConv3dSeg(spec, device=device, seed=seed)
-    if spec.family != "unet":
-        raise NotImplementedError(
-            f"model family {spec.family!r} is not ported yet (ROADMAP A.6)")
+    if spec.family == "no3d":
+        return No3DSeg(spec, device=device, seed=seed)
+    if spec.family in ("late_feature", "late_logit"):
+        return LateFusionSeg(spec, mode=spec.family[len("late_"):],
+                             device=device, seed=seed)
     return MultimodalSeg(spec, device=device, seed=seed)
 
 
@@ -317,10 +463,12 @@ def build_model(spec: ModelSpec, device="cuda",
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialization, drawn on the CPU so one seed gives the
     same weights on every device: He-normal sparse and 2D conv kernels
-    (fan-in), LeCun-normal linear weights, zero biases, unit norm scales,
-    and fresh running statistics (the flax initializers' families)."""
+    (fan-in), the scratch towers' convs uniform with variance 1/(3 fan-in),
+    LeCun-normal linear weights, zero biases, unit norm scales, and fresh
+    running statistics (the flax initializers' families)."""
     from ..modules.image_encoders import Conv2dWS
     from ..modules.pooling import Gating
+    from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -333,6 +481,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, float(np.sqrt(2.0 / (k * cin))))
         elif isinstance(m, Conv2dWS):
             normal_(m.weight, float(np.sqrt(2.0 / m.weight[0].numel())))
+        elif isinstance(m, (WSConv2d, WSConvTranspose2d)):
+            # variance_scaling(1/3, fan_in, uniform); fan in = kh * kw * cin
+            # (the transposed kernel's fan in counts its out channels)
+            limit = float(np.sqrt(1.0 / m.weight[0].numel()))
+            m.weight.copy_((torch.rand(m.weight.shape, generator=generator)
+                            * 2.0 - 1.0) * limit)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             normal_(m.weight, float(np.sqrt(1.0 / m.in_features)))
             if m.bias is not None:

@@ -7,14 +7,16 @@ modules/multimodal/modules.py:249-568):
     2D CNN on the image batch
     -> per-mapped-pixel feature gather (nearest or bilinear-interpolate)
     -> atomic pooling   (pixels -> view,  sorted-segment reduce)
-    -> view pooling     (views  -> point, the DeepViewAgg group attention)
+    -> view pooling     (views  -> point: the DeepViewAgg group attention,
+                         QKV attention, a heuristic pick or a reduction)
     -> modality dropout (all-or-nothing, modules/multimodal/dropout.py)
     -> fusion into the 3D stream
 
 plus the ``x_seen`` mask (points that any valid view reaches,
-modules.py:410).  Every dropout draws from the ``torch.Generator`` the caller
-passes down (the counterpart of flax's ``rngs={"dropout": rng}``); without
-one, every dropout is the identity.
+modules.py:410) and, with ``keep_last_view``, the view-level extras of the
+view loss (modules.py:527-534).  Every dropout draws from the
+``torch.Generator`` the caller passes down (the counterpart of flax's
+``rngs={"dropout": rng}``); without one, every dropout is the identity.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..ops import segment as seg
 from .fusion import BimodalFusion
 from .gather import gather_pixel_features
 from .image_encoders import run_tower
-from .pooling import GroupViewPool
+from .pooling import GroupViewPool, HeuristicPool, QKVViewPool, SegmentPool
 
 __all__ = ["UnimodalBranch", "ModalityDropout", "soft_dropout"]
 
@@ -69,25 +71,35 @@ def soft_dropout(x, p: float, generator: Optional[torch.Generator]):
 
 
 class UnimodalBranch(nn.Module):
-    """One image branch at one fusion point with the group view pool.
+    """One image branch at one fusion point.
 
     ``tower`` is a module mapping channels-first images to feature maps with
     ``tower_channels`` channels; ``channels_3d`` is the width of the 3D
-    stream it fuses into.
+    stream it fuses into (0 where there is none: the no3d family).
+    ``view_pool`` picks the aggregation: ``'group'`` (the paper's attention),
+    ``'qkv'`` (queries from the 3D stream), ``'heuristic'`` (the closest
+    view) or a :class:`SegmentPool` reduction (``'max'``, ``'mean'``, ...).
+    The forward returns ``(out, x_seen)``, and with ``keep_last_view`` also
+    the view-level extras ``{x_view, attention, view_point_id, view_valid}``.
     """
 
     def __init__(self, tower: nn.Module, tower_channels: int,
                  channels_3d: int, out_channels: int,
-                 atomic_reduce: str = "max", num_groups: int = 1,
-                 use_mod: bool = False, pool_use_num: bool = True,
+                 atomic_reduce: str = "max", view_pool: str = "group",
+                 num_groups: int = 1,
+                 use_mod: bool = False, set_encoder: str = "deepset",
+                 pool_use_num: bool = True,
                  pool_scaling: bool = True,
                  pool_modes: Tuple[str, ...] = ("max",),
-                 pool_fusion: str = "concatenation", gated: bool = True,
+                 pool_fusion: str = "concatenation", qk_channels: int = 8,
+                 use_mod_q: bool = False, use_mod_k: bool = False,
+                 dim_scaling: bool = True, gated: bool = True,
                  interpolate: bool = True, drop_modality: float = 0.0,
                  drop_3d: float = 0.0, drop_hard: bool = True,
                  fusion_mode: str = "residual", tower_bf16: bool = True,
                  pool_bf16: bool = False, remat_tower=False,
-                 frozen: bool = False, device=None):
+                 frozen: bool = False, keep_last_view: bool = False,
+                 device=None):
         super().__init__()
         self.tower = tower
         self.atomic_reduce = atomic_reduce
@@ -101,14 +113,35 @@ class UnimodalBranch(nn.Module):
         # hard: all-or-nothing ModalityDropout; soft: per-element dropout on
         # the pooled features (ref modules.py:272)
         self.drop_hard = drop_hard
+        self.keep_last_view = keep_last_view
         self.mod_drop = ModalityDropout(drop_modality)
         self.drop_3d_mod = ModalityDropout(drop_3d)
-        self.view_pool = GroupViewPool(
-            tower_channels, out_channels, num_groups=num_groups,
-            use_mod=use_mod, gated=gated, scaling=pool_scaling,
-            use_num=pool_use_num, enc_pool=pool_modes, enc_fusion=pool_fusion,
-            device=device)
-        self.fusion = BimodalFusion(fusion_mode, channels_3d, out_channels,
+        pooled_channels = out_channels
+        if view_pool == "group":
+            self.view_pool = GroupViewPool(
+                tower_channels, out_channels, num_groups=num_groups,
+                use_mod=use_mod, gated=gated, scaling=pool_scaling,
+                use_num=pool_use_num, enc_pool=pool_modes,
+                enc_fusion=pool_fusion, set_encoder=set_encoder,
+                device=device)
+        elif view_pool == "qkv":
+            if channels_3d <= 0:
+                raise ValueError("the qkv view pool takes its queries from "
+                                 "the 3D stream; this branch has none")
+            self.view_pool = QKVViewPool(
+                channels_3d, tower_channels, out_channels,
+                num_groups=num_groups, qk_channels=qk_channels, gated=gated,
+                scaling=pool_scaling, dim_scaling=dim_scaling,
+                use_mod_q=use_mod_q, use_mod_k=use_mod_k,
+                set_encoder=set_encoder, use_num=pool_use_num,
+                enc_pool=pool_modes, enc_fusion=pool_fusion, device=device)
+        elif view_pool == "heuristic":
+            self.view_pool = HeuristicPool()
+            pooled_channels = tower_channels
+        else:
+            self.view_pool = SegmentPool(view_pool)
+            pooled_channels = tower_channels
+        self.fusion = BimodalFusion(fusion_mode, channels_3d, pooled_channels,
                                     device=device)
         self.out_channels = self.fusion.out_channels
 
@@ -122,7 +155,8 @@ class UnimodalBranch(nn.Module):
         feats_2d = run_tower(self.tower, images, self.training,
                              remat=self.remat_tower, frozen=self.frozen,
                              bf16=self.tower_bf16,
-                             out_f32=not (self.pool_bf16 and self.tower_bf16))
+                             out_f32=not (self.pool_bf16 and self.tower_bf16),
+                             generator=generator)
 
         # --- pixels -> views (atomic pool) -------------------------------
         pix_feats = gather_pixel_features(feats_2d, mapping, ref_size,
@@ -135,16 +169,29 @@ class UnimodalBranch(nn.Module):
 
         # --- views -> points (view pool) ---------------------------------
         pid = mapping["point_id"]
+        p_ptr = mapping.get("point_ptr")
         v_valid = mapping["view_valid"]
+        s = num_points + 1
         # segment-level BN statistics exclude the padding drop row
-        seg_ok = torch.arange(num_points + 1, device=pid.device) < num_points
-        # valid views per point, counted once: the pool's size feature and
-        # softmax scaling, and x_seen below
-        n_views = seg.segment_count(pid, num_points + 1, v_valid,
-                                    mapping.get("point_ptr"))
-        pooled, _ = self.view_pool(
-            x_view, mapping["view_feats"], pid, v_valid, num_points + 1,
-            ptr=mapping.get("point_ptr"), seg_valid=seg_ok, count=n_views)
+        seg_ok = torch.arange(s, device=pid.device) < num_points
+        # valid views per point, counted once: the pool's size feature,
+        # softmax scaling or mean, and x_seen below
+        n_views = seg.segment_count(pid, s, v_valid, p_ptr)
+        attn = None
+        pool = self.view_pool
+        if isinstance(pool, GroupViewPool):
+            pooled, attn = pool(x_view, mapping["view_feats"], pid, v_valid,
+                                s, ptr=p_ptr, seg_valid=seg_ok,
+                                count=n_views)
+        elif isinstance(pool, QKVViewPool):
+            pooled, attn = pool(x_3d, x_view, mapping["view_feats"], pid,
+                                v_valid, s, ptr=p_ptr, seg_valid=seg_ok,
+                                count=n_views)
+        elif isinstance(pool, HeuristicPool):
+            pooled = pool(x_view, mapping["view_feats"], pid, v_valid, s,
+                          ptr=p_ptr)
+        else:
+            pooled = pool(x_view, pid, v_valid, s, ptr=p_ptr, count=n_views)
         pooled = pooled[:num_points]
 
         # --- x_seen (modules.py:410) -------------------------------------
@@ -162,4 +209,7 @@ class UnimodalBranch(nn.Module):
             if x_3d is not None:
                 x_3d = soft_dropout(x_3d, self.drop_3d, soft)
         out = pooled if x_3d is None else self.fusion(x_3d, pooled)
+        if self.keep_last_view:
+            return out, x_seen, {"x_view": x_view, "attention": attn,
+                                 "view_point_id": pid, "view_valid": v_valid}
         return out, x_seen

@@ -2,14 +2,16 @@
 
 The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 ``f32_convs``, ``run_tower``, ``_Norm``, ``_BasicBlock2d``, ``ResNet18``,
-``PPM``, ``ResNet18PPM``, ``ResNet18Pyramid``; the reference's
-modules/multimodal/modalities/image.py).  Public tensors keep the JAX layout
-``[I, W, H, C]`` (W before H); the towers run channels-first ``[I, C, W, H]``
-inside.  Sub-modules carry the flax auto-names so
-:mod:`deepviewagg_tpu_torch.utils.from_jax` maps parameters by name.  Only
-``norm='group'`` (the from-scratch towers) is
+``PPM``, ``ResNet18PPM``, ``ResNet18Pyramid``, ``PersistentDropout2d``,
+``UNet2D``; the reference's modules/multimodal/modalities/image.py).
+Public tensors keep the JAX layout ``[I, W, H, C]`` (W before H); the
+towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
+flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
+parameters by name.  Only ``norm='group'`` (the from-scratch towers) is
 ported: it has no batch statistics, so the towers compute the same in
-training and eval mode and differentiate by ordinary autograd.
+training and eval mode and differentiate by ordinary autograd.  A tower's
+channel dropouts (:class:`ChannelDropout`) take masks that
+:func:`run_tower` draws from the caller's generator before the tower runs.
 :func:`run_tower` rematerializes the tower in the backward pass (``remat``:
 all of it, or all but the convolutions' outputs; a memory saving that changes
 no number) and freezes it (``frozen``).  View sharding is not ported.
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Conv2dWS", "ResNet18", "PPM", "ResNet18PPM", "ResNet18Pyramid",
-           "OUT_CHANNELS", "f32_convs", "run_tower"]
+           "ChannelDropout", "PersistentDropout2d", "UNet2D", "OUT_CHANNELS",
+           "f32_convs", "run_tower"]
 
 # channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
 # stem gives 128 at level 0)
@@ -290,6 +293,101 @@ class ResNet18Pyramid(nn.Module):
         return F.relu(self._Norm_0(self.Conv2dWS_0(y)))
 
 
+class ChannelDropout(nn.Module):
+    """Channel dropout with inverted scaling: ``Dropout2d`` (an independent
+    channel mask per image, ``per_image``) or ``PersistentDropout2d`` (one
+    mask for the whole image batch, image.py:465-508).  The boolean keep
+    mask ``[I or 1, C, 1, 1]`` is set by :func:`run_tower`, drawn from the
+    caller's generator in training; without one the module is the
+    identity."""
+
+    def __init__(self, channels: int, p: float = 0.5,
+                 per_image: bool = False):
+        super().__init__()
+        self.channels = channels
+        self.p = p
+        self.per_image = per_image
+        self.mask: Optional[torch.Tensor] = None
+
+    def draw(self, generator: torch.Generator, n_images: int,
+             device) -> torch.Tensor:
+        shape = (n_images if self.per_image else 1, self.channels, 1, 1)
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return u.to(device) >= self.p
+
+    def forward(self, x):
+        if self.mask is None:
+            return x
+        return torch.where(self.mask, x / (1.0 - self.p), 0.0)
+
+
+def PersistentDropout2d(channels: int, p: float = 0.5) -> ChannelDropout:
+    """One channel mask shared by every image of the batch (ref
+    ``PersistentDropout2d``)."""
+    return ChannelDropout(channels, p, per_image=False)
+
+
+class UNet2D(nn.Module):
+    """Configurable 2D UNet tower (the reference's generic image ``UNet``,
+    image.py:510-657): per down stage a 3x3 conv (stride 1, then 2) + norm +
+    relu + basic block, per up stage a bilinear resize to the skip's size,
+    the skip concat, a 3x3 conv + norm + relu + basic block, then (with
+    ``dropout``) a persistent channel dropout and a 3x3 conv + norm + relu
+    to ``out_channels``.  Feature maps at the input's resolution."""
+
+    def __init__(self, in_channels: int = 3,
+                 down_widths: Sequence[int] = (32, 64, 128),
+                 up_widths: Sequence[int] = (64, 32), out_channels: int = 32,
+                 dropout: float = 0.0, device=None):
+        super().__init__()
+        self.n_down, self.n_up = len(down_widths), len(up_widths)
+        c, skips, i = in_channels, [], 0
+        for k, w in enumerate(down_widths):
+            setattr(self, f"Conv2dWS_{i}", Conv2dWS(
+                c, w, (3, 3), (1, 1) if k == 0 else (2, 2), device=device))
+            setattr(self, f"_Norm_{i}", _Norm(w, device=device))
+            setattr(self, f"_BasicBlock2d_{i}",
+                    _BasicBlock2d(w, w, device=device))
+            c, i = w, i + 1
+            if k < self.n_down - 1:
+                skips.append(c)
+        for w in up_widths:
+            setattr(self, f"Conv2dWS_{i}", Conv2dWS(
+                c + skips.pop(), w, (3, 3), device=device))
+            setattr(self, f"_Norm_{i}", _Norm(w, device=device))
+            setattr(self, f"_BasicBlock2d_{i}",
+                    _BasicBlock2d(w, w, device=device))
+            c, i = w, i + 1
+        self.drop = PersistentDropout2d(c, dropout) if dropout > 0 else None
+        setattr(self, f"Conv2dWS_{i}", Conv2dWS(c, out_channels, (3, 3),
+                                                device=device))
+        setattr(self, f"_Norm_{i}", _Norm(out_channels, device=device))
+        self.out_channels = out_channels
+
+    def _stage(self, i, x):
+        x = F.relu(getattr(self, f"_Norm_{i}")(
+            getattr(self, f"Conv2dWS_{i}")(x)))
+        return getattr(self, f"_BasicBlock2d_{i}")(x)
+
+    def forward(self, x):
+        skips = []
+        for i in range(self.n_down):
+            x = self._stage(i, x)
+            if i < self.n_down - 1:
+                skips.append(x)
+        for i in range(self.n_down, self.n_down + self.n_up):
+            skip = skips.pop()
+            # float32 interpolation, back to the activations' dtype (as PPM)
+            x = F.interpolate(x.to(torch.float32), size=skip.shape[2:],
+                              mode="bilinear", align_corners=False)
+            x = self._stage(i, torch.cat([x.to(skip.dtype), skip], dim=1))
+        if self.drop is not None:
+            x = self.drop(x)
+        i = self.n_down + self.n_up
+        return F.relu(getattr(self, f"_Norm_{i}")(
+            getattr(self, f"Conv2dWS_{i}")(x)))
+
+
 def _save_only_convs(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat='convs'``: the outputs of the
     convolutions are kept, everything else is recomputed."""
@@ -302,7 +400,8 @@ def _save_only_convs(ctx, op, *args, **kwargs):
 
 def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
               remat=False, frozen: bool = False, bf16: bool = True,
-              out_f32: bool = True) -> torch.Tensor:
+              out_f32: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Tower driver of the branch: ``images [I, W, H, 3]`` ->
     ``[I, Wf, Hf, C]``.  ``bf16`` runs the activations in bf16 (parameters
     and conv accumulation stay float32); the output is float32 unless
@@ -315,30 +414,49 @@ def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
     and pooling around them are recomputed); it changes no number.
     ``frozen`` runs the tower in eval mode (``train and not frozen``) outside
     autograd, so the output is detached and nothing is kept for a backward
-    pass; remat is then skipped."""
+    pass; remat is then skipped.  ``generator`` feeds the tower's channel
+    dropouts in training (their masks are drawn before the tower runs, so a
+    rematerialized forward applies the same ones)."""
     if remat not in (False, True, "convs"):
         # a typo like 'conv' would otherwise silently select FULL remat
         raise ValueError(f"remat must be False, True or 'convs'; got {remat!r}")
     if bf16:
         images = images.to(torch.bfloat16)
     x = images.permute(0, 3, 1, 2)
+    drops = [m for m in tower.modules()
+             if isinstance(m, ChannelDropout) and m.p > 0]
+    masks = [None] * len(drops)
+    if drops and generator is not None and train and not frozen:
+        masks = [m.draw(generator, x.shape[0], x.device) for m in drops]
+
+    def call(x, *masks):
+        for m, mask in zip(drops, masks):
+            m.mask = mask
+        try:
+            return tower(x)
+        finally:
+            for m in drops:
+                m.mask = None
+
     was_training = tower.training
     tower.train(train and not frozen)
     try:
         if frozen:
             with torch.no_grad():
-                y = tower(x)
+                y = call(x, *masks)
         elif remat and torch.is_grad_enabled():
             from torch.utils import checkpoint as ckpt
 
-            kw = {"preserve_rng_state": False}    # the towers draw nothing
+            # the towers draw nothing themselves: their dropout masks are
+            # arguments of the checkpointed call
+            kw = {"preserve_rng_state": False}
             if remat == "convs":
                 kw["context_fn"] = functools.partial(
                     ckpt.create_selective_checkpoint_contexts,
                     _save_only_convs)
-            y = ckpt.checkpoint(tower, x, use_reentrant=False, **kw)
+            y = ckpt.checkpoint(call, x, *masks, use_reentrant=False, **kw)
         else:
-            y = tower(x)
+            y = call(x, *masks)
     finally:
         tower.train(was_training)
     y = y.permute(0, 2, 3, 1)

@@ -34,7 +34,7 @@ from ..ops import segment as seg
 from .fusion import BimodalFusion
 from .gather import _bilinear, _bilinear_upsampled, _rows, _use_upsample
 from .image_encoders import run_tower
-from .pooling import GroupViewPool, SegmentPool
+from .pooling import DeepSetFeat, GroupViewPool, SegmentPool
 
 __all__ = ["MultiBucketBranch"]
 
@@ -94,11 +94,20 @@ class MultiBucketBranch(nn.Module):
         """The ladder form of a ``UnimodalBranch``: a branch over the same
         ``tower``, ``view_pool`` and ``fusion`` modules (no parameter of its
         own) and with the same tower options.  The JAX package's ladder
-        branch builds its group pool with the default options whatever the
+        branch takes the group pool or a ``SegmentPool`` reduction only, and
+        builds its group pool with the default options whatever the
         branch's spec says, so a pool with other options has another
         parameter tree there and is refused here."""
         pool = branch.view_pool
-        if (pool.use_mod or not pool.scaling or not pool.set_enc.use_num
+        if not isinstance(pool, (GroupViewPool, SegmentPool)):
+            raise ValueError(
+                f"the {type(pool).__name__} view pool has no crop-ladder "
+                "form: the JAX package's ladder branch takes the group pool "
+                "and the SegmentPool reductions only")
+        if isinstance(pool, GroupViewPool) and (
+                pool.use_mod or not pool.scaling
+                or not isinstance(pool.set_enc, DeepSetFeat)
+                or not pool.set_enc.use_num
                 or pool.set_enc.pool_modes != ("max",)
                 or pool.set_enc.fusion != "concatenation"):
             raise ValueError(
@@ -162,7 +171,7 @@ class MultiBucketBranch(nn.Module):
                 ptr=p_ptr, count=n_views)
         else:
             pooled = self.view_pool(x_view, pid, v_valid, num_points + 1,
-                                    ptr=p_ptr)
+                                    ptr=p_ptr, count=n_views)
         pooled = pooled[:num_points]
         x_seen = n_views[:num_points] > 0
         if x_3d is None:

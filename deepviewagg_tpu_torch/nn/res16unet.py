@@ -57,7 +57,9 @@ _DOWN_K = 8    # 2x2x2 stride-2 kernel
 
 def _check_block(block: str) -> None:
     if block != "basic":
-        raise NotImplementedError(f"Res16UNet block {block!r} is not ported yet")
+        raise NotImplementedError(
+            f"Res16UNet block {block!r} (the bottleneck and SE blocks of "
+            "Res16UNet50 / SERes16UNet34) is not ported yet (ROADMAP A.6)")
 
 
 class Stem(nn.Module):

@@ -58,6 +58,8 @@ __all__ = [
     "gather_segments",
     "segment_softmax",
     "segment_weighted_sum",
+    "segment_argmax",
+    "segment_argmin",
 ]
 
 _NEG = -1e30
@@ -593,3 +595,28 @@ def segment_weighted_sum(x, weights, segment_ids, num_segments: int,
     if weights.ndim < x.ndim:
         weights = weights.reshape(weights.shape + (1,) * (x.ndim - weights.ndim))
     return segment_sum(x * weights, segment_ids, num_segments, valid, ptr)
+
+
+def _segment_arg(x, segment_ids, num_segments, valid, ptr, best_fn):
+    """First index attaining the per-segment extremum ``best_fn`` among the
+    valid elements of 1-D ``x``, and the non-empty mask (reference Heuristic
+    pool argmax / argmin, pooling.py:74-158).  The extremum is a
+    :func:`segment_csr` reduction; the first-index step is plain PyTorch."""
+    best = best_fn(x, segment_ids, num_segments, valid, ptr)
+    is_best = x == best[segment_ids]
+    if valid is not None:
+        is_best = is_best & valid
+    e = x.shape[0]
+    cand = torch.where(is_best,
+                       torch.arange(e, device=x.device, dtype=torch.int64), e)
+    arg = torch.full((num_segments,), e, dtype=torch.int64, device=x.device)
+    arg.scatter_reduce_(0, segment_ids.to(torch.int64), cand, "amin")
+    return torch.clamp(arg, 0, max(e - 1, 0)), arg < e
+
+
+def segment_argmax(x, segment_ids, num_segments: int, valid=None, ptr=None):
+    return _segment_arg(x, segment_ids, num_segments, valid, ptr, segment_max)
+
+
+def segment_argmin(x, segment_ids, num_segments: int, valid=None, ptr=None):
+    return _segment_arg(x, segment_ids, num_segments, valid, ptr, segment_min)

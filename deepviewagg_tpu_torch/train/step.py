@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..models.losses import segmentation_loss, view_level_loss
+from ..models.segmentation import No3DSeg
 from .optimizers import Optimizer, global_norm
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step"]
@@ -51,11 +52,12 @@ def make_train_step(
     ``generator`` feeds the model's dropouts (None: all of them are the
     identity).  ``ignore_unseen``: mask points no view reaches out of the
     loss — the reference does this for the image-only No3D models
-    (no3d.py:130-134); defaults to False for the ported models.
+    (no3d.py:130-134); defaults to True for a ``No3DSeg``, False otherwise.
     ``view_loss_weight``: adds the reference's view-level loss over a
     model's ``view_logits`` (no3d.py:139-155) where it emits them.
     """
-    ignore_unseen = bool(ignore_unseen)
+    if ignore_unseen is None:
+        ignore_unseen = isinstance(model, No3DSeg)
 
     def step(state: TrainState, batch: Dict,
              generator: Optional[torch.Generator] = None) -> tuple:

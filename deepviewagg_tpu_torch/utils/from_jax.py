@@ -13,6 +13,11 @@ belongs to; the module's type decides the leaf's name and layout:
   Dense ``kernel [in, out]``          -> ``nn.Linear.weight [out, in]``
   Conv2dWS ``kernel`` HWIO            -> ``Conv2dWS.weight`` OIHW (raw: the
                                          standardization runs in forward)
+  scratch ``WSConv2d`` ``kernel`` HWIO -> ``weight`` OIHW, ``bias`` as is
+  ``WSConvTranspose2d`` ``kernel``      -> ``weight [in, out, kh, kw]``
+    ``[kh, kw, in, out]``                  (unflipped: the JAX module flips
+                                         it to run a dilated-input conv,
+                                         ``conv_transpose2d`` takes it as is)
   SparseConv ``kernel [K, Cin, Cout]`` -> ``SparseConv.weight`` as is
   ``scale`` / ``bias`` of norms       -> ``weight`` / ``bias``
   ``batch_stats`` ``mean`` / ``var``  -> ``running_mean`` / ``running_var``
@@ -21,7 +26,11 @@ The load is strict: every flax leaf is consumed exactly once and every torch
 parameter and buffer is filled exactly once, or it raises.  Nothing depends
 on parameter order.  Several branches at one level (``branch_l0``,
 ``branch_l0_1`` .. as both packages' ``MultimodalSeg`` name them, the
-KITTI-360 PointPyramid's five) map by those names both ways; a branch's
+KITTI-360 PointPyramid's five) map by those names both ways, as do the no3d
+and late-fusion families' ``branch``, ``branch_<k>``, ``backbone``,
+``head``, ``head3d``, ``head2d[_<k>]`` and ``mix``, the QKV pool's
+``e_main`` / ``key_enc`` / ``e_mod`` / ``e_mix_k`` / ``e_mix_q`` / ``q`` /
+``k`` and the scratch towers' ``down<i>`` / ``up<i>`` / ``last``; a branch's
 crop-ladder wrapper is not a module and owns no parameter.
 """
 
@@ -51,6 +60,7 @@ def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
     """(torch attribute name, converted array) of one flax leaf."""
     from ..modules.image_encoders import Conv2dWS
     from ..modules.pooling import Gating
+    from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -65,6 +75,13 @@ def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
                 return "bias", value
         elif isinstance(module, Conv2dWS) and leaf == "kernel":
             return "weight", value.transpose(3, 2, 0, 1)
+        elif isinstance(module, (WSConv2d, WSConvTranspose2d)):
+            if leaf == "bias":
+                return "bias", value
+            if leaf == "kernel":
+                return "weight", value.transpose(
+                    (3, 2, 0, 1) if isinstance(module, WSConv2d)
+                    else (2, 3, 0, 1))
         elif isinstance(module, SparseConv) and leaf == "kernel":
             return "weight", value
         elif isinstance(module, (MaskedBatchNorm, nn.GroupNorm)):
@@ -110,6 +127,7 @@ def _unconvert(module: nn.Module, name: str, value: np.ndarray):
     the inverse of :func:`_convert`."""
     from ..modules.image_encoders import Conv2dWS
     from ..modules.pooling import Gating
+    from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -122,6 +140,12 @@ def _unconvert(module: nn.Module, name: str, value: np.ndarray):
             return "bias", value
     elif isinstance(module, Conv2dWS) and name == "weight":
         return "kernel", value.transpose(2, 3, 1, 0)
+    elif isinstance(module, (WSConv2d, WSConvTranspose2d)):
+        if name == "bias":
+            return "bias", value
+        if name == "weight":
+            return "kernel", value.transpose(
+                (2, 3, 1, 0) if isinstance(module, WSConv2d) else (2, 3, 0, 1))
     elif isinstance(module, SparseConv) and name == "weight":
         return "kernel", value
     elif isinstance(module, (MaskedBatchNorm, nn.GroupNorm)):

@@ -182,9 +182,18 @@ def test_recipe_model_builds_at_published_width():
 @pytest.mark.parametrize("name", ["No3D-L4-max", "Res16UNet34-LateLogitFusion",
                                   "Res16UNet34-LateFeatureFusion"])
 def test_build_model_refuses_unported_families(name):
-    spec = tzoo.get_model_spec(name, 4, 4, {"backbone": "Res16UNetTest"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tseg.build_model(spec, device="cpu")
+    """The families these cases once refused build now, with the JAX
+    package's parameter count at the S3DIS recipe's 13 classes."""
+    batch, _ = jax_tiny_batch()
+    spec = jzoo.get_model_spec(name, 13, 4)
+    shapes = jax.eval_shape(lambda: jseg.build_model(spec).init(
+        jax.random.PRNGKey(0), batch, train=False))
+    want = sum(int(np.prod(v.shape))
+               for v in jax.tree_util.tree_leaves(shapes["params"]))
+    model = tseg.build_model(tzoo.get_model_spec(name, 13, 4), device="meta",
+                             seed=None)
+    assert type(model).__name__ == type(jseg.build_model(spec)).__name__
+    assert sum(p.numel() for p in model.parameters()) == want
 
 
 def test_multimodal_seg_takes_specs_of_either_stem():

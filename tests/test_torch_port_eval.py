@@ -369,18 +369,56 @@ def test_mc_dropout_runs_repeat_per_seed(runs):
 
 # --- what stays raising, and the entry points' TF32 pin ----------------------
 
-def test_submission_and_no3d_raise(runs, tmp_path):
+def test_submission_and_no3d_raise(runs, tmp_path, monkeypatch):
     """``--submission`` with ``data.dataset=kitti360`` is no longer refused:
     it reaches the KITTI-360 loader, which finds no window under this run's
     synthetic root (the KITTI-360 and ScanNet submissions are held in
-    ``test_torch_port_kitti360.py`` and ``test_torch_port_scannet.py``); the
-    ``no3d`` family still raises."""
+    ``test_torch_port_kitti360.py`` and ``test_torch_port_scannet.py``).
+    The ``no3d`` family no longer raises either: each eval batch's unseen
+    points (and padding rows) take the logits of their nearest seen valid
+    point before they are tracked (``propagate_unseen``, held against the
+    JAX function in ``test_torch_port_families.py``)."""
     with pytest.raises(FileNotFoundError, match="no KITTI-360 windows"):
         cli.main(["--run_dir", runs["port"], "--device", "cpu",
                   "--submission", str(tmp_path), "data.dataset=kitti360"])
-    with pytest.raises(NotImplementedError, match="propagate_unseen.*A.6"):
-        cli.main(["--run_dir", runs["port"], "--device", "cpu",
-                  "model.name=No3D-ADE20K-group8"])
+    with open(os.path.join(runs["port"], "run.json")) as f:
+        run_config = json.load(f)
+    run_config["model"]["name"] = "No3D-L4-max"
+    model = build_model(resolve_spec_from_cfg(trun.load_run_config(
+        None, [], base=run_config).model, 4), device="cpu", seed=3)
+    run_dir = str(tmp_path / "no3d_run")
+    tckpt.CheckpointManager(run_dir, run_config).save_state(
+        "latest", tstep.TrainState.create(model, topt.make_optimizer(
+            topt.make_schedule("constant", 0.1))))
+    calls = []
+
+    def recording(logits, pos, seen):
+        out = propagate(logits, pos, seen)
+        calls.append((logits, pos, seen, out))
+        return out
+
+    propagate = cli.propagate_unseen
+    monkeypatch.setattr(cli, "propagate_unseen", recording)
+    torch.set_num_threads(2)
+    with tt.f32_convs():
+        metrics = cli.main(["--run_dir", run_dir, "--device", "cpu"])
+    assert calls and {"test_acc", "test_miou"} <= set(metrics)
+    unseen = 0
+    for logits, pos, seen, out in calls:
+        assert torch.equal(out[seen], logits[seen])
+        if not seen.any():            # nothing to copy from: unchanged
+            assert torch.equal(out, logits)
+            continue
+        # the real points no view reaches (collate pads 1e6 m away): each
+        # takes the logits of a seen point at the least distance (voxel
+        # grids hold equidistant neighbours, either may be taken)
+        q = ((~seen) & (pos.abs().max(1).values < 1e5)).nonzero()[:, 0]
+        unseen += len(q)
+        d = ((pos[q, None, :] - pos[None, seen, :]) ** 2).sum(-1)
+        nearest = d <= d.min(1, keepdim=True).values + 1e-4
+        same = (out[q][:, None, :] == logits[seen][None]).all(-1)
+        assert (same & nearest).any(1).all()
+    assert unseen > 0
 
 
 @pytest.mark.parametrize("entry", ["train", "eval"])

@@ -286,3 +286,32 @@ def test_cli_device_flags_default_to_the_card(entry):
                 and node.args[0].value == "--device"
                 for kw in node.keywords if kw.arg == "default"]
     assert defaults == ["cuda"]
+
+
+@pytest.mark.parametrize("rel", [
+    "modules/scratch2d.py", "modules/pooling.py", "modules/branch.py",
+    "modules/image_encoders.py", "modules/multibucket.py",
+    "models/segmentation.py", "models/losses.py", "ops/segment.py",
+    "utils/from_jax.py", "train/step.py", "cli/train.py", "cli/eval.py",
+    "config/zoo.py"])
+def test_model_family_modules_are_covered(rel):
+    """The files of the no3d and late-fusion families, the view pools and
+    the scratch towers are among the files the import checks walk and
+    import neither package's counterpart; the scratch stack keeps its own
+    copy of ``tower_cfg_out_channels`` and imports only the standard
+    library and torch."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    if rel == "modules/scratch2d.py":
+        assert roots <= {"__future__", "math", "typing", "torch"}
+        assert "def tower_cfg_out_channels" in path.read_text()
+
+
+def test_model_families_default_to_the_card():
+    from deepviewagg_tpu_torch.models import segmentation
+
+    for fn in (segmentation.No3DSeg.__init__,
+               segmentation.LateFusionSeg.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -494,11 +494,17 @@ def test_flax_tree_is_the_same_for_both_kinds_of_batch():
         assert rel_err(got[:n], ref[:n]) <= 3e-2
 
 
-def test_branch_options_the_ladder_form_cannot_share_are_refused():
+def test_branch_options_the_ladder_form_cannot_share_are_refused(
+        monkeypatch):
+    """A group pool with other than its default options, and the heuristic
+    and QKV pools, have no ladder form in the JAX package: a ladder batch
+    raises.  A ``max`` pool serves both kinds of batch: on the flat batch it
+    equals the JAX model's (float32)."""
     _, tspec = _specs(f32=False)
     (_, b0), = tspec.branches[:1]
     ladder = torch_batch(jax_ladder_batch()[0])
-    flat = torch_batch(jax_tiny_batch()[0])
+    flat_np = jax_tiny_batch()[0]
+    flat = torch_batch(flat_np)
     other = dataclasses.replace(tspec, branches=(
         (0, dataclasses.replace(b0, use_mod=True)),))
     model = tsegm.MultimodalSeg(other, device="cpu", seed=0).eval()
@@ -506,18 +512,30 @@ def test_branch_options_the_ladder_form_cannot_share_are_refused():
         model(flat)
         with pytest.raises(ValueError, match="default options"):
             model(ladder)
-    pooled = dataclasses.replace(tspec, branches=(
-        (0, dataclasses.replace(b0, view_pool="max")),))
-    model = tsegm.MultimodalSeg(pooled, device="cpu", seed=0).eval()
+    jspec, tspec32 = (dataclasses.replace(s, branches=(
+        (0, dataclasses.replace(s.branches[0][1], view_pool="max")),))
+        for s in _specs(f32=True))
+    jmodel = jsegm.MultimodalSeg(jspec)
+    variables = jax_variables(jmodel, flat_np, seed=9, train=False)
+    model = tsegm.MultimodalSeg(tspec32, device="cpu", seed=None).eval()
+    load_flax_variables(model, variables)
     with torch.no_grad():
         out = model(ladder)
         assert torch.isfinite(out["logits"]).all()
-        with pytest.raises(NotImplementedError, match="flat image batch"):
+        f32_sparse_convs(monkeypatch)
+        with jt.f32_convs(), tt.f32_convs():
+            ref = np.asarray(jmodel.apply(variables, flat_np,
+                                          train=False)["logits"])
+            got = model(flat)["logits"].numpy()
+    n = int(np.asarray(flat_np["graph"]["levels"][0]["valid"]).sum())
+    assert rel_err(got[:n], ref[:n]) <= 1e-4
+    for pool in ("heuristic", "qkv"):
+        model = tsegm.MultimodalSeg(dataclasses.replace(tspec, branches=(
+            (0, dataclasses.replace(b0, view_pool=pool)),)), device="cpu")
+        with torch.no_grad():
             model(flat)
-    with pytest.raises(NotImplementedError, match="view_pool"):
-        tsegm.MultimodalSeg(dataclasses.replace(tspec, branches=(
-            (0, dataclasses.replace(b0, view_pool="heuristic")),)),
-            device="cpu")
+            with pytest.raises(ValueError, match="no crop-ladder form"):
+                model(ladder)
 
 
 def test_eval_step_takes_a_ladder_batch():
