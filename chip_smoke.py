@@ -206,6 +206,30 @@ exit) on any fault:
                   timed; per model: parameters, forward ms, step ms, peak
                   memory, the kernels' device time, share of the byte bound
                   and padding-row share, the unseen share of the batch
+              9i  pretrained BatchNorm towers and the bottleneck / SE nets
+                  on 9e's layout (``loop_pretrained``, ``PRETRAINED_LOOP``,
+                  ``SE_MODELS``): (a) ``cli.train`` of the S3DIS recipe with
+                  ``model.tower_weights`` a random-weight MIT-semseg
+                  deep-stem checkpoint written here (its loaded parameters
+                  printed and positive, 6 + 5 launches a step), the
+                  checkpoint's tower card vs CPU on the first batch's images
+                  (float32 within 1e-4, bf16 within 3e-2), every segment
+                  call of the first train batch against plain, the running
+                  statistics after one step equal across the three remat
+                  modes, ``cli.eval --voting_runs 2`` (6 + 0 a batch, votes
+                  doubled, the first eval batch's calls against plain), then
+                  the run with ``model.tower_frozen=true`` (6 + 4 a step,
+                  the tower bit-equal to the checkpoint after it); (b) the
+                  Cityscapes PointPyramid with a Cityscapes-layout
+                  checkpoint: five truncations loaded, a forward and a step
+                  on (a)'s first batch (30 + 25); (c) ``cli.train`` of
+                  ``SERes16UNet34`` (46 + 23 a step: 2 + 1 per
+                  squeeze-excitation block) and ``cli.predict`` on Area_5's
+                  room (one label per voxel), then a forward and two steps of
+                  ``Res16UNet50``, ``Res16UNet101``, ``SERes16UNet50`` and
+                  ``Res16UNet50-L4-early`` at the presets' widths, every
+                  segment call of each first forward and backward against
+                  plain and timed against ``torch.segment_reduce``
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -222,7 +246,9 @@ same for phase 9c's first eval batch; ``loop_s3dis`` and
 ``loop_scannet`` and ``loop_scannet_eval``: for 9f's, and the same for
 9g's and, as ``loop_families_<model>``, for 9h's first batch through each
 model (each path with ``pad_share``, the padding-row share of its widest
-call);
+call), ``loop_pretrained`` / ``loop_pretrained_eval`` for 9i's first train
+and eval batches and ``families_se_<model>`` for each 9i model that launches
+a kernel;
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
 predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
@@ -475,6 +501,40 @@ FAMILY_MODELS = (  # (label, zoo name, set encoder, forward, backward)
      "minmaxdiff", 7, 4),
 )
 FAMILY_TIME_ITERS = 5                  # timed calls per segment call
+# phase 9i: pretrained BatchNorm towers and the bottleneck / SE Res16UNets on
+# 9e's S3DIS layout (written anew when 9i runs alone): (a) the recipe
+# (conf/s3dis_benchmark.yaml: the deep-stem 512-d L4 tower) with
+# model.tower_weights = a random-weight MIT-semseg checkpoint written here,
+# one epoch of PRETRAINED_SPHERES spheres and cli.eval --voting_runs 2, then
+# again with model.tower_frozen=true (its atomic pool then takes no
+# gradient: the view pool's 4 backward launches only); (b) the KITTI-360
+# recipe's five deep-stem truncations with a Cityscapes-layout checkpoint,
+# a forward and one step on (a)'s first batch (each branch its atomic pool
+# and view pool: 5 x (6 + 5) launches); (c) cli.train of SERes16UNet34 for
+# one epoch of SE_SPHERES spheres and cli.predict on Area_5's room, then a
+# forward and two steps of each SE_MODELS entry on (a)'s first batch.  A
+# squeeze-excitation block launches a segment sum and a segment count
+# forward and the sum's backward (33 segments: the samples and padding)
+PRETRAINED_SPHERES = 16
+PRETRAINED_LOOP = ("training.epochs=1",
+                   f"data.samples_per_epoch={PRETRAINED_SPHERES}",
+                   "data.kwargs={fold: 5, keep_raw: true}")
+PRETRAINED_FROZEN_BACKWARD = VIEW_POOL_BACKWARD
+PRETRAINED_CHECK_IMAGES = 2            # tower card vs CPU, eval mode
+TOWER_F32_RTOL = 1e-4                  # float32 operands: 7g's loss bound
+REMAT_STATS_RTOL = 1e-6                # running statistics, remat modes
+PYRAMID_MODEL = "Res16UNet34-PointPyramid-early-cityscapes-interpolate"
+PYRAMID_LOADED = [9, 24, 39, 54, 69]   # parameters of each truncation
+PYRAMID_FORWARD = KITTI360_BRANCHES * FORWARD_LAUNCHES
+PYRAMID_BACKWARD = KITTI360_BRANCHES * BACKWARD_LAUNCHES
+SE_SPHERES = 8
+SE_CLI = ("SERes16UNet34", 46, 23)     # (zoo name, forward, backward)
+SE_MODELS = (  # (label, zoo name, forward, backward), at 13 classes
+    ("res16unet50", "Res16UNet50", 0, 0),
+    ("res16unet101", "Res16UNet101", 0, 0),
+    ("seres16unet50", "SERes16UNet50", 46, 23),
+    ("res16unet50_l4_early", "Res16UNet50-L4-early", 6, 5),
+)
 
 
 def log(phase: str, **fields) -> None:
@@ -814,16 +874,17 @@ def zero_launches() -> None:
 
 def image_shapes(np_batch) -> tuple:
     """The shape of a batch's image tensor, or of each of its ladder
-    buckets' (a crop-ladder or camera-family batch)."""
+    buckets' (a crop-ladder or camera-family batch); none for a 3D-only
+    model's batch."""
     if "images" in np_batch:
         return tuple(np.asarray(np_batch["images"]).shape)
-    return tuple(tuple(im.shape) for im in np_batch["bucket_images"])
+    return tuple(tuple(im.shape) for im in np_batch.get("bucket_images", ()))
 
 
 def bucket_pixels(np_batch) -> tuple:
     """Valid pixel rows per ladder bucket at level 0 (empty for a flat
-    batch)."""
-    mm = np_batch["mappings"][0]
+    batch or a 3D-only model's)."""
+    mm = np_batch.get("mappings", {}).get(0, {})
     return tuple(int(np.asarray(b["pix_valid"]).sum())
                  for b in mm.get("buckets", ()))
 
@@ -3961,6 +4022,464 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
     return out
 
 
+# --- phase 9i: pretrained BatchNorm towers, the bottleneck and SE nets -------
+
+def resnet18_checkpoint(path: Path, seed: int, layout: str) -> str:
+    """A random-weight MIT-semseg ResNet-18 encoder checkpoint (the deep
+    stem: ``conv1..3`` / ``bn1..3`` of 64, 64 and 128 channels, then
+    ``layer{i}.{j}.conv{k}`` / ``bn{k}`` and ``downsample.0/1``) with
+    non-trivial BatchNorm scales, biases and running statistics, written
+    with ``torch.save``.  ``layout``: ``'ade20k'`` (MIT's merged save:
+    ``encoder.`` keys, and the PPM decoder's ``decoder.ppm.{i}.1/2`` and
+    ``decoder.conv_last.0/1/4`` at 512 channels, which no truncated tower
+    takes) or ``'cityscapes'`` (a ``{"state_dict": ...}`` of ``module.``
+    keys, a DataParallel save)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[f"{key}.weight"] = torch.randn(cout, cin, k, k, generator=gen) * \
+            float(np.sqrt(2.0 / (cin * k * k)))
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = torch.rand(c, generator=gen) + 0.5
+        sd[f"{key}.bias"] = torch.randn(c, generator=gen) * 0.2
+        sd[f"{key}.running_mean"] = torch.randn(c, generator=gen) * 0.3
+        sd[f"{key}.running_var"] = torch.rand(c, generator=gen) * 1.5 + 0.5
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(1000)
+
+    for i, (cout, cin) in enumerate(((64, 3), (64, 64), (128, 64))):
+        conv(f"conv{i + 1}", cout, cin, 3)
+        bn(f"bn{i + 1}", cout)
+    cin = 128
+    for layer, planes in enumerate((64, 128, 256, 512), 1):
+        for j in range(2):
+            p, ci = f"layer{layer}.{j}", cin if j == 0 else planes
+            conv(f"{p}.conv1", planes, ci, 3)
+            bn(f"{p}.bn1", planes)
+            conv(f"{p}.conv2", planes, planes, 3)
+            bn(f"{p}.bn2", planes)
+            if ci != planes:
+                conv(f"{p}.downsample.0", planes, ci, 1)
+                bn(f"{p}.downsample.1", planes)
+        cin = planes
+    if layout == "ade20k":
+        sd = {f"encoder.{k}": v for k, v in sd.items()}
+        for i in range(4):
+            conv(f"decoder.ppm.{i}.1", 512, 512, 1)
+            bn(f"decoder.ppm.{i}.2", 512)
+        conv("decoder.conv_last.0", 512, 512 + 4 * 512, 3)
+        bn("decoder.conv_last.1", 512)
+        conv("decoder.conv_last.4", 150, 512, 1)
+        torch.save(sd, str(path))
+    else:
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   str(path))
+    return str(path)
+
+
+class TowerWeightsProbe(Seams):
+    """The seam of ``apply_tower_weights`` for one ``cli.train`` run: what
+    each call returned (the parameters loaded per tower path)."""
+
+    def __init__(self):
+        super().__init__()
+        self.loaded = []
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.utils import pretrained
+
+        probe = self
+
+        def apply(original):
+            def run(*args, **kwargs):
+                out = original(*args, **kwargs)
+                probe.loaded.append(dict(out))
+                return out
+            return run
+
+        self._patch(pretrained, "apply_tower_weights", apply)
+        return self
+
+
+def converted_tower(pth: str, out_level: int = 4) -> dict:
+    """The tower state a checkpoint converts to (on the host)."""
+    from deepviewagg_tpu_torch.utils.torch_convert import (
+        convert_resnet18, load_torch_state_dict, strip_prefix)
+
+    sd = load_torch_state_dict(pth)
+    for prefix in ("module.", "encoder.", "backbone."):
+        sd = strip_prefix(sd, prefix)
+    return convert_resnet18(sd, out_level=out_level)
+
+
+def loaded_model(spec, pth: str, device: str, seed=None):
+    from deepviewagg_tpu_torch.models.segmentation import build_model
+    from deepviewagg_tpu_torch.utils.pretrained import apply_tower_weights
+
+    model = build_model(spec, device=device, seed=seed)
+    return model, apply_tower_weights(model, spec, pth)
+
+
+def pretrained_tower_card_vs_cpu(spec, pth: str, batch) -> dict:
+    """The checkpoint loaded into the recipe's tower on the card and on the
+    CPU, in eval mode (its running statistics), on the first
+    ``PRETRAINED_CHECK_IMAGES`` images of the first train batch (in eval
+    mode each image's output is its own): float32 operands and activations
+    within ``TOWER_F32_RTOL``, the production bf16 ones within
+    ``LOGITS_RTOL``."""
+    images = batch["images"][:PRETRAINED_CHECK_IMAGES]
+    towers = {d: loaded_model(spec, pth, d)[0].branch_l0.tower.eval()
+              for d in ("cuda", "cpu")}
+    out = {}
+    for label, bf16 in (("f32", False), ("bf16", True)):
+        ys = {}
+        for d, tower in towers.items():
+            ctx = contextlib.nullcontext() if bf16 else f32_convs()
+            with torch.no_grad(), ctx:
+                ys[d] = run_tower(tower, images.to(d), False,
+                                  bf16=bf16).cpu()
+        out[label] = rel_err(ys["cuda"], ys["cpu"])
+    log("9i pretrained tower card vs cpu", images=tuple(images.shape),
+        f32_rel_err=f"{out['f32']:.3e}", bf16_rel_err=f"{out['bf16']:.3e}")
+    if not (out["f32"] <= TOWER_F32_RTOL and out["bf16"] <= LOGITS_RTOL):
+        raise AssertionError(f"pretrained tower card vs CPU: {out}")
+    return out
+
+
+def tower_stats(tower) -> dict:
+    return {k: v.detach().clone() for k, v in tower.named_buffers()}
+
+
+def pretrained_remat_stats(spec, pth: str, batch) -> None:
+    """One train step of the recipe's model with the checkpoint loaded under
+    ``remat_tower`` False, True and ``'convs'`` from the same weights: the
+    tower's running statistics after the step equal within 1e-6 (each moved
+    once)."""
+    from deepviewagg_tpu_torch.models.segmentation import build_model
+
+    base, _ = loaded_model(spec, pth, "cuda", seed=0)
+    start = tower_stats(base.branch_l0.tower)
+    weights = base.state_dict()
+    del base
+    stats, n = {}, int(batch["graph"]["levels"][0]["valid"].sum())
+    for remat in (False, True, "convs"):
+        s = dataclasses.replace(spec, branches=tuple(
+            (lvl, dataclasses.replace(b, remat_tower=remat))
+            for lvl, b in spec.branches))
+        model = build_model(s, device="cuda", seed=None)
+        model.load_state_dict(weights)
+        run_steps(model, batch, n, 1, 0, "9i pretrained remat",
+                  {"segment_csr": FORWARD_LAUNCHES,
+                   "segment_csr_bwd": BACKWARD_LAUNCHES}, remat=remat)
+        stats[remat] = tower_stats(model.branch_l0.tower)
+        del model
+        torch.cuda.empty_cache()
+    worst = max(rel_err(stats[m][k], stats[False][k])
+                for m in (True, "convs") for k in start)
+    moved_all = all(not torch.equal(stats[False][k], start[k])
+                    for k in start)
+    log("9i pretrained remat", running_stats=len(start),
+        max_rel_diff_across_modes=f"{worst:.3e}", all_moved=moved_all)
+    if worst > REMAT_STATS_RTOL or not moved_all:
+        raise AssertionError(f"running statistics across remat modes: "
+                             f"{worst}, all moved {moved_all}")
+
+
+def pretrained_run(cli, root: Path, run_dir: Path, pth: str, frozen: bool,
+                   phase: str):
+    """``cli.train`` of the S3DIS recipe on 9e's layout with the checkpoint
+    as ``model.tower_weights`` (``PRETRAINED_LOOP``); returns the probe, the
+    loaded counts and the launches."""
+    args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", f"model.tower_weights={pth}",
+            *PRETRAINED_LOOP] + (["model.tower_frozen=true"] if frozen
+                                 else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe, TowerWeightsProbe() as weights:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps(phase, FORWARD_LAUNCHES,
+                      PRETRAINED_FROZEN_BACKWARD if frozen
+                      else BACKWARD_LAUNCHES)
+    (loaded,) = weights.loaded
+    if not (loaded and all(v > 0 for v in loaded.values())):
+        raise AssertionError(f"{phase}: tower weights loaded {loaded}")
+    spec = probe.trainer.model.spec
+    (_, b), = spec.branches
+    if not (b.tower == "resnet18_l4" and b.tower_norm == "batch"
+            and b.tower_deep_stem and b.frozen == frozen
+            and spec.num_classes == 13):
+        raise AssertionError(f"{phase}: not the pretrained recipe: {spec}")
+    stored = json.loads((run_dir / "run.json").read_text())["model"]
+    if stored["overrides"].get("tower_deep_stem") is not True:
+        raise AssertionError(f"{phase}: run.json model {stored}")
+    log(phase, model=spec.backbone, tower=b.tower, frozen=frozen,
+        loaded=loaded, params=sum(
+            p.numel() for p in probe.trainer.model.parameters()),
+        **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches)
+    return probe, loaded, launches
+
+
+def se_blocks(model) -> int:
+    from deepviewagg_tpu_torch.nn.sparse_blocks import SqueezeExcite
+
+    return sum(isinstance(m, SqueezeExcite) for m in model.modules())
+
+
+def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
+    """9i: (a) the S3DIS recipe with a pretrained (random-weight) MIT
+    deep-stem checkpoint through ``cli.train`` and ``cli.eval --voting_runs
+    2``, the tower card vs CPU, the first train and eval batches' segment
+    calls against plain, the running statistics across remat modes, then
+    the same run with ``model.tower_frozen=true``; (b) the KITTI-360
+    recipe's five-tower model with a Cityscapes-layout checkpoint at library
+    level; (c) ``cli.train`` + ``cli.predict`` of ``SERes16UNet34``, then a
+    forward and two steps of each ``SE_MODELS`` entry on (a)'s first
+    batch."""
+    from deepviewagg_tpu_torch.config.run import ModelCfg
+    from deepviewagg_tpu_torch.config.zoo import (get_model_spec,
+                                                  resolve_spec_from_cfg)
+    from deepviewagg_tpu_torch.models.segmentation import build_model
+
+    root = tmp / "s3dis_raw"
+    if not (root / "Area_5").exists():
+        write_s3dis_layout(root)
+    out = {"paths": {}, "launches": {}}
+    log("9i pretrained cuts", spheres=f"{PRETRAINED_SPHERES} (recipe 200 x "
+        f"2000; SE run {SE_SPHERES})", epochs=1,
+        steps_library="2 (one warm-up)", widths="none cut",
+        batch="4 spheres x 4 image slots of 1024x512 as written",
+        weights="random, from a seed, in the published key layouts")
+    ade = resnet18_checkpoint(tmp / "ade20k_resnet18.pth", 0, "ade20k")
+    city = resnet18_checkpoint(tmp / "cityscapes_resnet18.pth", 1,
+                               "cityscapes")
+
+    # (a) the pretrained recipe, trained, evaluated, then frozen
+    run_dir = tmp / "pretrained_run"
+    probe, loaded, launches = pretrained_run(
+        cli, root, run_dir, ade, False, "9i pretrained loop")
+    model, batch = probe.trainer.model, probe.batch
+    spec = model.spec
+    del probe
+    out["launches"]["pretrained"] = launches
+    pretrained_tower_card_vs_cpu(spec, ade, batch)
+    fwd, bwd = family_kernels(model, batch, "9i pretrained kernels",
+                              FORWARD_LAUNCHES, BACKWARD_LAUNCHES)
+    out["paths"]["pretrained"] = (fwd, bwd)
+    log("9i pretrained loop", forward_ms=f"{forward_ms(model, batch):.1f}",
+        **kernel_fields(fwd, bwd))
+    del model
+    torch.cuda.empty_cache()
+    pretrained_remat_stats(spec, ade, batch)
+    first = batch
+    metrics, eprobe, eval_launches = run_eval(cli_eval, [
+        "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS)])
+    worst = check_doubled(eprobe, eprobe.votes.num_classes)
+    log("9i pretrained eval", voting_runs=EVAL_VOTING_RUNS,
+        **eprobe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_batch=eprobe.step_launches[0], launches=eval_launches,
+        votes_twice_rel_err=f"{worst:.2e}",
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+    out["launches"]["pretrained_eval"] = eval_launches
+    calls = record_segment_calls(eprobe.model.eval(), eprobe.batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} segment calls in one eval "
+                             "forward")
+    out["paths"]["pretrained_eval"] = measure_forward_calls(
+        calls, "9i pretrained eval kernels", "calls_per_forward",
+        FAMILY_TIME_ITERS)
+    del calls, eprobe
+    torch.cuda.empty_cache()
+
+    probe, loaded, launches = pretrained_run(
+        cli, root, tmp / "pretrained_frozen_run", ade, True,
+        "9i pretrained frozen loop")
+    want = converted_tower(ade)
+    tower = probe.trainer.model.branch_l0.tower.state_dict()
+    changed = [k for k, v in want.items()
+               if not torch.equal(tower[k].cpu(), v)]
+    moved_3d = sum(not torch.equal(p.detach(), probe.start[k])
+                   for k, p in probe.trainer.model.named_parameters()
+                   if not k.startswith("branch_l0.tower."))
+    log("9i pretrained frozen loop", tower_entries=len(want),
+        tower_changed=len(changed), other_params_moved=moved_3d)
+    if changed or set(want) != set(tower) or not moved_3d:
+        raise AssertionError(f"frozen tower changed: {changed[:5]}")
+    out["launches"]["pretrained_frozen"] = launches
+    del probe, tower
+    torch.cuda.empty_cache()
+
+    # (b) the KITTI-360 recipe's five towers at library level
+    pspec = resolve_spec_from_cfg(ModelCfg(name=PYRAMID_MODEL,
+                                           tower_weights=city), 13)
+    model, loaded = loaded_model(pspec, city, "cuda", seed=0)
+    counts = list(loaded.values())
+    if counts != PYRAMID_LOADED:
+        raise AssertionError(f"pyramid loaded {loaded}")
+    n = int(first["graph"]["levels"][0]["valid"].sum())
+    zero_launches()
+    with torch.no_grad():
+        logits = model.eval()(first)["logits"][first["graph"]["levels"][0][
+            "valid"]]
+    torch.cuda.synchronize()
+    fwd_launches = dict(seg.LAUNCHES)
+    if fwd_launches != {"segment_csr": PYRAMID_FORWARD,
+                        "segment_csr_bwd": 0} or not bool(
+                            torch.isfinite(logits).all()):
+        raise AssertionError(f"pyramid forward launches {fwd_launches}")
+    run = run_steps(model, first, n, 1, 0, "9i pyramid",
+                    {"segment_csr": PYRAMID_FORWARD,
+                     "segment_csr_bwd": PYRAMID_BACKWARD})
+    log("9i pyramid", model=PYRAMID_MODEL, loaded=loaded, params=sum(
+        p.numel() for p in model.parameters()),
+        forward_ms=f"{forward_ms(model, first):.1f}",
+        step_ms=f"{run['step_ms'][0]:.1f}",
+        peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
+        launches_per_step=(PYRAMID_FORWARD, PYRAMID_BACKWARD),
+        loss=f"{run['losses'][0]:.4f}")
+    out["launches"]["pyramid"] = fwd_launches
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) the squeeze-excitation Res16UNet34 through the CLIs, then the
+    # bottleneck and SE nets at library level
+    se = loop_se(cli, root, tmp)
+    out["launches"].update(se["launches"])
+    out["paths"].update(se["paths"])
+    for label, name, fwd_n, bwd_n in SE_MODELS:
+        phase = f"9i {label}"
+        model = build_model(get_model_spec(name, 13, 4), device="cuda",
+                            seed=0)
+        if (2 * se_blocks(model), se_blocks(model)) != (
+                fwd_n - (FORWARD_LAUNCHES if "-L4-" in name else 0),
+                bwd_n - (BACKWARD_LAUNCHES if "-L4-" in name else 0)):
+            raise AssertionError(f"{phase}: {se_blocks(model)} SE blocks")
+        torch.cuda.synchronize()
+        zero_launches()
+        with torch.no_grad():
+            logits = model.eval()(first)["logits"][first["graph"]["levels"][
+                0]["valid"]]
+        torch.cuda.synchronize()
+        launches = dict(seg.LAUNCHES)
+        if launches != {"segment_csr": fwd_n, "segment_csr_bwd": 0} or not \
+                bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{phase}: forward launches {launches}")
+        fwd_ms = forward_ms(model, first)
+        run = run_steps(model, first, n, 2, 0, phase,
+                        {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
+        fields = {}
+        if fwd_n:
+            fwd, bwd = family_kernels(model, first, f"{phase} kernels",
+                                      fwd_n, bwd_n)
+            out["paths"][label] = (fwd, bwd)
+            fields = kernel_fields(fwd, bwd)
+        log(phase, model=name, params=sum(p.numel()
+                                          for p in model.parameters()),
+            se_blocks=se_blocks(model), forward_ms=f"{fwd_ms:.1f}",
+            step_ms_first=f"{run['step_ms'][0]:.1f}",
+            step_ms_rest=f"{np.mean(run['step_ms'][1:]):.1f}",
+            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
+            launches_per_forward=fwd_n, launches_per_step=(fwd_n, bwd_n),
+            losses="/".join(f"{x:.4f}" for x in run["losses"]), **fields)
+        out["launches"][label] = launches
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def loop_se(cli, root: Path, tmp: Path) -> dict:
+    """9i (c): ``cli.train`` of ``SERes16UNet34`` (3D only: every launch is
+    a squeeze-excitation pool) on 9e's layout for one epoch of
+    ``SE_SPHERES`` spheres, its first batch's segment calls against plain,
+    then ``cli.predict`` on Area_5's room: one label per voxel.
+    ``cli.predict`` sizes the head from the stored ``data.num_classes``, as
+    the JAX package's ``predict.py`` does, so the run pins the dataset's
+    13."""
+    from deepviewagg_tpu_torch.cli import predict as cli_predict
+    from deepviewagg_tpu_torch.data.transforms3d import quantize_cloud
+    from deepviewagg_tpu_torch.models import segmentation
+    from deepviewagg_tpu_torch.utils.ply import read_ply
+
+    name, fwd_n, bwd_n = SE_CLI
+    run_dir = tmp / "se_run"
+    args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", f"model.name={name}",
+            "training.epochs=1", f"data.samples_per_epoch={SE_SPHERES}",
+            "training.eval_frequency=2", "data.num_classes=13",
+            "data.kwargs={fold: 5, keep_raw: true}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("9i se loop", fwd_n, bwd_n)
+    model, batch = probe.trainer.model, probe.batch
+    if se_blocks(model) * 2 != fwd_n or model.spec.branches:
+        raise AssertionError(f"not {name}: {model.spec}")
+    log("9i se loop", model=name, params=sum(
+        p.numel() for p in model.parameters()), **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches)
+    del probe
+    fwd, bwd = family_kernels(model, batch, "9i se loop kernels", fwd_n,
+                              bwd_n)
+    log("9i se loop", forward_ms=f"{forward_ms(model, batch):.1f}",
+        **kernel_fields(fwd, bwd))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    ann = sorted((root / "Area_5").glob("*/Annotations/*.txt"))
+    pts = np.concatenate([np.loadtxt(p, dtype=np.float32, ndmin=2)
+                          for p in ann])
+    src = tmp / "se_room.npz"
+    np.savez(src, pos=pts[:, :3], rgb=pts[:, 3:6].astype(np.uint8))
+    stored = json.loads((run_dir / "run.json").read_text())
+    voxels = len(quantize_cloud({"pos": pts[:, :3]},
+                                stored["data"]["voxel_size"])["coords"])
+    forwards = []
+
+    class Counted(Seams):
+        def __enter__(self):
+            def make(fn):
+                def run(*args, **kwargs):
+                    forwards.append(1)
+                    return fn(*args, **kwargs)
+                return run
+            self._patch(segmentation.SparseConv3dSeg, "forward", make)
+            return self
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Counted():
+        dst = cli_predict.main(["--run_dir", str(run_dir), "--input",
+                                str(src), "--output",
+                                str(tmp / "se_room_pred.ply")])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    predict_launches = dict(seg.LAUNCHES)
+    labels = read_ply(dst)["label"]
+    expect = {"segment_csr": fwd_n * len(forwards), "segment_csr_bwd": 0}
+    if len(labels) != voxels or predict_launches != expect:
+        raise AssertionError(f"se predict: {len(labels)} labels for {voxels} "
+                             f"voxels, launches {predict_launches}")
+    log("9i se predict", model=name, raw_points=len(pts), voxels=voxels,
+        forwards=len(forwards), predict_ms=f"{ms:.1f}",
+        launches=predict_launches)
+    return {"launches": {"seres16unet34": launches,
+                         "seres16unet34_predict": predict_launches},
+            "paths": {"seres16unet34": (fwd, bwd)}}
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -3989,12 +4508,14 @@ def phase_loop() -> dict:
         scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
         kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
         families = part("9h", loop_families, cli, cli_eval, tmp)
+        pretrained = part("9i", loop_pretrained, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
             "predict": predict, "s3dis": s3dis, "scannet": scannet,
-            "kitti360": kitti360, "families": families}
+            "kitti360": kitti360, "families": families,
+            "pretrained": pretrained}
 
 
 def kernel_family(name: str) -> str:
@@ -4164,6 +4685,21 @@ def main() -> None:
                  families["paths"].items()}
     fam_launches = {f"launches_loop_families_{k}": v for k, v in
                     families["launches"].items()}
+    # ``loop_pretrained`` / ``loop_pretrained_eval``: the same sums over the
+    # calls of phase 9i's first train batch (the recipe with its tower
+    # loaded) and first eval batch; ``families_se_<model>``: over the calls
+    # of one forward / train step of each squeeze-excitation or bottleneck
+    # model that launches a kernel (9i's first batch, SERes16UNet34's own);
+    # ``launches_loop_pretrained_<run>`` / ``launches_families_se_<model>``:
+    # the counts over 9i's train, eval and predict runs and over each
+    # library-level model's first forward
+    pre = loop["pretrained"]
+    pre_paths = {("loop_pretrained" if k == "pretrained" else
+                  "loop_pretrained_eval" if k == "pretrained_eval" else
+                  f"families_se_{k}"): v for k, v in pre["paths"].items()}
+    pre_launches = {(f"launches_loop_{k}" if k.startswith("pretrained")
+                     or k == "pyramid" else f"launches_families_se_{k}"): v
+                    for k, v in pre["launches"].items()}
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -4176,7 +4712,9 @@ def main() -> None:
                "loop_scannet_eval": scannet_run["eval_forward"],
                "loop_kitti360": kitti360_run["forward"],
                "loop_kitti360_eval": kitti360_run["eval_forward"],
-               **{k: v[0] for k, v in fam_paths.items()}},
+               **{k: v[0] for k, v in fam_paths.items()},
+               **{k: (v if k == "loop_pretrained_eval" else v[0])
+                  for k, v in pre_paths.items()}},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -4194,7 +4732,8 @@ def main() -> None:
               launches_loop_kitti360=kitti360_run["launches"]["segment_csr"],
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr"],
-              **{k: v["segment_csr"] for k, v in fam_launches.items()}),
+              **{k: v["segment_csr"] for k, v in fam_launches.items()},
+              **{k: v["segment_csr"] for k, v in pre_launches.items()}),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -4203,7 +4742,9 @@ def main() -> None:
                "loop_s3dis": s3dis_run["backward"],
                "loop_scannet": scannet_run["backward"],
                "loop_kitti360": kitti360_run["backward"],
-               **{k: v[1] for k, v in fam_paths.items()}},
+               **{k: v[1] for k, v in fam_paths.items()},
+               **{k: v[1] for k, v in pre_paths.items()
+                  if k != "loop_pretrained_eval"}},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -4223,7 +4764,8 @@ def main() -> None:
                   "segment_csr_bwd"],
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr_bwd"],
-              **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()}),
+              **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()},
+              **{k: v["segment_csr_bwd"] for k, v in pre_launches.items()}),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,12 @@ datasets are ported:
         --config conf/scannet_benchmark.yaml data.root=<ScanNet layout>
     python -m deepviewagg_tpu_torch.cli.train \
         --config conf/kitti360_benchmark.yaml data.root=<KITTI-360 layout>
+
+``model.tower_weights=<.pth>`` loads a torchvision or MIT-semseg ResNet18
+checkpoint into every image branch's tower (BatchNorm towers, the stem read
+from the checkpoint and pinned into the stored config as
+``model.overrides.tower_deep_stem``); ``model.tower_frozen=true`` keeps the
+towers out of the optimizer and runs them in eval mode.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..data.datasets.base import BatchLoader
 from ..models.segmentation import build_model
 from ..ops import voxel as _voxel
 from ..train.trainer import Trainer, TrainerConfig
+from ..utils import pretrained
 
 __all__ = ["setup_device", "build_dataset", "auto_bucket", "main"]
 
@@ -237,14 +244,25 @@ def main(argv=None):
     spec = resolve_spec_from_cfg(cfg.model, num_classes)
     freeze_paths = None
     if cfg.model.tower_frozen:
-        freeze_paths = tuple((name, "tower")
-                             for name, b in _branch_names(spec) if b.frozen)
+        freeze_paths = pretrained.freeze_paths_for_spec(spec)
+    if cfg.model.tower_weights and spec.branches:
+        # the stem was sniffed from the checkpoint: pin it, so that a
+        # restore never needs the checkpoint file again
+        cfg.model.overrides.setdefault(
+            "tower_deep_stem", spec.branches[0][1].tower_deep_stem)
     branch_levels = sorted(dict(spec.branches))
     bucket = auto_bucket(cfg, train_ds, branch_levels)
     print(f"bucket: levels={list(bucket.level_caps)} views={bucket.view_cap} "
           f"pix={bucket.pix_cap} imgs={bucket.image_cap}")
 
     model = build_model(spec, device=device, seed=cfg.training.seed)
+    if cfg.model.tower_weights:
+        loaded = pretrained.apply_tower_weights(model, spec,
+                                                cfg.model.tower_weights)
+        print("loaded tower weights:", loaded, flush=True)
+        if not loaded or not all(loaded.values()):
+            raise ValueError(f"{cfg.model.tower_weights}: no parameter "
+                             f"loaded into a tower ({loaded})")
     train_loader = BatchLoader(
         train_ds, bucket, cfg.data.batch_size, branch_levels, shuffle=True,
         seed=cfg.training.seed, conv0_kernel=spec.stem_kernel,
@@ -288,21 +306,6 @@ def main(argv=None):
     metrics = trainer.fit(lambda: iter(train_loader), lambda: iter(val_loader))
     print("final:", {k: round(v, 3) for k, v in metrics.items()})
     return metrics
-
-
-def _branch_names(spec):
-    """``(module name, BranchSpec)`` of every image branch, as the spec's
-    model names them (``MultimodalSeg``: ``branch_l<level>[_<k>]``; the no3d
-    and late-fusion families: ``branch[_<k>]``)."""
-    if spec.family != "unet":
-        for k, (_, b) in enumerate(spec.branches):
-            yield ("branch" if k == 0 else f"branch_{k}"), b
-        return
-    k_at: dict = {}
-    for level, b in spec.branches:
-        k = k_at.get(level, 0)
-        k_at[level] = k + 1
-        yield (f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"), b
 
 
 if __name__ == "__main__":

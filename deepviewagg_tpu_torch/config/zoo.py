@@ -3,9 +3,8 @@
 The port of ``deepviewagg_tpu/config/zoo.py``: the same names, grammar and
 specs.  Name resolution is pure data, so every name resolves and every
 zoo name builds; a tower that is not ported (``None``, ``reuse``,
-``shared:``) raises.  ``ref:`` names and
-``model.tower_weights`` raise (reference ingest and pretrained towers are
-not ported).  Every field of every spec is the JAX one; like the JAX
+``shared:``) raises.  ``ref:`` names raise (reference ingest is not
+ported).  Every field of every spec is the JAX one; like the JAX
 ``_to_spec``, a zoo entry's ``head_dropout`` override is dropped (build a
 model with ``dataclasses.replace(spec, head_dropout=p)`` for MC dropout).
 The JAX docstring follows.
@@ -282,9 +281,10 @@ def get_model_spec(name: str, num_classes: int, in_channels: int = 4,
 
 def resolve_spec_from_cfg(model_cfg, num_classes: int) -> ModelSpec:
     """ModelCfg -> ModelSpec, applying the pretrained-tower implications:
-    ``tower_frozen`` marks the branches frozen; ``tower_weights`` (pretrained
-    BatchNorm towers) raises.  Shared by the CLIs so a restored checkpoint
-    always rebuilds the exact trained architecture."""
+    ``tower_weights`` switches the branches to BatchNorm towers (the torch
+    checkpoints carry BatchNorm statistics) with the checkpoint's stem, and
+    ``tower_frozen`` marks them frozen.  Shared by the CLIs so a restored
+    checkpoint always rebuilds the exact trained architecture."""
     import dataclasses as _dc
 
     spec = get_model_spec(model_cfg.name, num_classes, model_cfg.in_channels,
@@ -303,12 +303,28 @@ def resolve_spec_from_cfg(model_cfg, num_classes: int) -> ModelSpec:
             "model.tower_weights is unset — the tower will train FROM "
             "SCRATCH; pass tower_weights=<converted .pth> to load them"
         )
-    if tw:
-        raise NotImplementedError(
-            f"model.tower_weights={tw!r}: pretrained towers "
-            "(utils/pretrained.py, tower_norm='batch') are not ported yet "
-            "(ROADMAP A.2.3)")
-    if tf:
+    # MIT-semseg encoders (ADE20K, Cityscapes) have the deep 3-conv stem:
+    # sniff the checkpoint here so every CLI rebuilds the trained stem.  An
+    # overrides['tower_deep_stem'] pin (cli.train persists it) wins and
+    # covers a checkpoint file that has gone; an unreadable file leaves the
+    # spec's own value.
+    if tw and "tower_deep_stem" not in (model_cfg.overrides or {}):
+        try:
+            from ..utils.torch_convert import (load_torch_state_dict,
+                                               strip_prefix)
+
+            sd = load_torch_state_dict(tw)
+            for prefix in ("module.", "encoder.", "backbone."):
+                sd = strip_prefix(sd, prefix)
+            if "conv3.weight" in sd:
+                spec = _dc.replace(spec, branches=tuple(
+                    (lvl, _dc.replace(b, tower_deep_stem=True))
+                    for lvl, b in spec.branches))
+        except (OSError, ValueError, RuntimeError):
+            pass
+    if tw or tf:
         spec = _dc.replace(spec, branches=tuple(
-            (lvl, _dc.replace(b, frozen=True)) for lvl, b in spec.branches))
+            (lvl, _dc.replace(b, tower_norm="batch" if tw else b.tower_norm,
+                              frozen=tf))
+            for lvl, b in spec.branches))
     return spec

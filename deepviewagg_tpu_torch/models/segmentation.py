@@ -116,11 +116,11 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
     truncations (7x7 or deep stem), ``scratch_unet`` (the reference-exact
     compact tower of ``tower_cfg``, weight-standardized with ``ws``),
     ``unet2d_light`` (the light no3d UNet, 32 channels) and
-    ``unet2d[_<channels>]``."""
-    if norm != "group":
-        raise NotImplementedError(
-            f"tower_norm={norm!r}: only group-norm towers are ported yet "
-            "(ROADMAP A.2.3)")
+    ``unet2d[_<channels>]``.  ``norm``: ``'group'`` (GroupNorm, the ResNet
+    towers' convs weight-standardized) or ``'batch'`` (BatchNorm after plain
+    convs: the towers that take pretrained weights)."""
+    if norm not in ("group", "batch"):
+        raise ValueError(f"tower_norm {norm!r}")
     if name == "scratch_unet":
         from ..modules.scratch2d import tower_cfg_out_channels, unetws_from_cfg
 
@@ -134,28 +134,29 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
             "branches) is not ported yet (ROADMAP A.6)")
     if name == "resnet18_ppm":
         return towers.ResNet18PPM(out_channels=128, deep_stem=deep_stem,
-                                  device=device), 128
+                                  norm=norm, device=device), 128
     if name in ("resnet18_pyramid", "resnet18_pyramid_raw"):
         tower = towers.ResNet18Pyramid(
             out_channels=128, deep_stem=deep_stem,
-            project=name == "resnet18_pyramid", device=device)
+            project=name == "resnet18_pyramid", norm=norm, device=device)
         return tower, tower.out_channels
     if name.startswith("resnet18_l"):
         lvl = int(name[-1])
         # the deep stem widens layer0 to 128 (MIT resnet.py)
         return (towers.ResNet18(out_level=lvl, deep_stem=deep_stem,
-                                device=device),
+                                norm=norm, device=device),
                 128 if deep_stem and lvl == 0 else towers.OUT_CHANNELS[lvl])
     if name == "unet2d_light":
         # the published no3d light tower (no3d.yaml:5-50): 5 down stages
         # 32/32/64/128/256, up back to 32
         return towers.UNet2D(down_widths=(32, 32, 64, 128, 256),
                              up_widths=(128, 96, 64, 32), out_channels=32,
-                             device=device), 32
+                             norm=norm, device=device), 32
     if name.startswith("unet2d"):
         # "unet2d" or "unet2d_<out_channels>" (ref image.py:510)
         out = int(name.split("_")[1]) if "_" in name else 32
-        return towers.UNet2D(out_channels=out, device=device), out
+        return towers.UNet2D(out_channels=out, norm=norm,
+                             device=device), out
     raise KeyError(name)
 
 
@@ -259,7 +260,8 @@ class MultimodalSeg(nn.Module):
             if "buckets" in mm:
                 # crop-group families (Bucket.image_ladder collate path)
                 x, seen = self._ladder_branch(name, branch)(
-                    x, mm, bucket_images=batch.get("bucket_images"))
+                    x, mm, bucket_images=batch.get("bucket_images"),
+                    generator=generator)
             else:
                 images = batch["images"]
                 x, seen = branch(x, images, mm,
@@ -466,7 +468,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     (fan-in), the scratch towers' convs uniform with variance 1/(3 fan-in),
     LeCun-normal linear weights, zero biases, unit norm scales, and fresh
     running statistics (the flax initializers' families)."""
-    from ..modules.image_encoders import Conv2dWS
+    from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
@@ -493,10 +495,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, float(np.sqrt(1.0 / m.in_features)))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (MaskedBatchNorm, nn.GroupNorm, Gating)):
+        elif isinstance(m, (MaskedBatchNorm, BatchNorm, nn.GroupNorm,
+                            Gating)):
             m.weight.fill_(1.0)
             if m.bias is not None:
                 m.bias.zero_()
-            if isinstance(m, MaskedBatchNorm):
+            if isinstance(m, (MaskedBatchNorm, BatchNorm)):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)

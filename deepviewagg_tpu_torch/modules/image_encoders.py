@@ -1,4 +1,5 @@
-"""2D image towers: ResNet-18 with GroupNorm + weight standardization.
+"""2D image towers: ResNet-18 with GroupNorm + weight standardization, or
+with BatchNorm for converted pretrained weights.
 
 The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 ``f32_convs``, ``run_tower``, ``_Norm``, ``_BasicBlock2d``, ``ResNet18``,
@@ -7,14 +8,18 @@ The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 Public tensors keep the JAX layout ``[I, W, H, C]`` (W before H); the
 towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
 flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
-parameters by name.  Only ``norm='group'`` (the from-scratch towers) is
-ported: it has no batch statistics, so the towers compute the same in
-training and eval mode and differentiate by ordinary autograd.  A tower's
-channel dropouts (:class:`ChannelDropout`) take masks that
-:func:`run_tower` draws from the caller's generator before the tower runs.
-:func:`run_tower` rematerializes the tower in the backward pass (``remat``:
-all of it, or all but the convolutions' outputs; a memory saving that changes
-no number) and freezes it (``frozen``).  View sharding is not ported.
+parameters by name.  ``norm='group'`` (the from-scratch towers) pairs
+GroupNorm with weight-standardized convs; ``norm='batch'`` (the towers that
+take converted torchvision / MIT-semseg checkpoints,
+:mod:`deepviewagg_tpu_torch.utils.pretrained`) is flax's ``BatchNorm``
+(:class:`BatchNorm`) after plain convs.  A tower's channel dropouts
+(:class:`ChannelDropout`) take masks that :func:`run_tower` draws from the
+caller's generator before the tower runs, and its BatchNorms' running
+statistics are written by :func:`run_tower` once per call, after the
+forward.  :func:`run_tower` rematerializes the tower in the backward pass
+(``remat``: all of it, or all but the convolutions' outputs; a memory saving
+that changes no number) and freezes it (``frozen``).  View sharding is not
+ported.
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2dWS", "ResNet18", "PPM", "ResNet18PPM", "ResNet18Pyramid",
-           "ChannelDropout", "PersistentDropout2d", "UNet2D", "OUT_CHANNELS",
-           "f32_convs", "run_tower"]
+__all__ = ["BatchNorm", "Conv2dWS", "ResNet18", "PPM", "ResNet18PPM",
+           "ResNet18Pyramid", "ChannelDropout", "PersistentDropout2d",
+           "UNet2D", "OUT_CHANNELS", "f32_convs", "run_tower"]
 
 # channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
 # stem gives 128 at level 0)
@@ -52,29 +57,35 @@ def f32_convs():
 
 class Conv2dWS(nn.Module):
     """Conv with weight standardization (zero-mean, unit-variance kernel per
-    output channel, image.py:39-51).  ``weight`` is the raw OIHW kernel;
-    standardization uses the biased variance, ``var * (kh*kw*cin) + 1e-10``.
-    Padding is the torch convention (``k//2 * dilation`` per side); operands
-    are bf16 (float32 under :func:`f32_convs`) and the output takes the
-    input's dtype."""
+    output channel, image.py:39-51); ``standardize=False`` (the BatchNorm
+    towers) is the plain conv.  ``weight`` is the raw OIHW kernel over the
+    channels-first ``[I, C, W, H]`` maps, so its dims 2 / 3 span W / H (a
+    torch checkpoint's ``[O, I, kh, kw]`` is transposed to ``[O, I, kw,
+    kh]``); standardization uses the biased variance, ``var * (kh*kw*cin) +
+    1e-10``.  Padding is the torch convention (``k//2 * dilation`` per side);
+    operands are bf16 (float32 under :func:`f32_convs`) and the output takes
+    the input's dtype."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
-                 dilation: Tuple[int, int] = (1, 1), device=None):
+                 dilation: Tuple[int, int] = (1, 1),
+                 standardize: bool = True, device=None):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.dilation = tuple(dilation)
+        self.standardize = standardize
         self.weight = nn.Parameter(torch.empty(
             features, in_channels, *self.kernel_size, device=device))
 
     def forward(self, x):
         kh, kw = self.kernel_size
         w = self.weight
-        mean = w.mean(dim=(1, 2, 3), keepdim=True)
-        var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
-        w = (w - mean) * torch.rsqrt(var * (kh * kw * w.shape[1]) + 1e-10)
+        if self.standardize:
+            mean = w.mean(dim=(1, 2, 3), keepdim=True)
+            var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+            w = (w - mean) * torch.rsqrt(var * (kh * kw * w.shape[1]) + 1e-10)
         op_dt = torch.float32 if _CONV_F32[-1] else torch.bfloat16
         pad = (kh // 2 * self.dilation[0], kw // 2 * self.dilation[1])
         y = F.conv2d(x.to(op_dt), w.to(op_dt), stride=self.strides,
@@ -82,19 +93,93 @@ class Conv2dWS(nn.Module):
         return y.to(x.dtype)
 
 
-class _Norm(nn.Module):
-    """flax ``GroupNorm`` (eps 1e-6; the group count shrinks until it
-    divides C) with float32 statistics, output in the input dtype."""
+# the BatchNorms' running-statistics updates of the tower call in progress
+# (see run_tower); None: a BatchNorm in training mode writes its own
+_BN_UPDATES: list = [None]
 
-    def __init__(self, channels: int, num_groups: int = 16, device=None):
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channel axis 1 of ``x [N, C, ...]``
+    (float32): in training mode the batch statistics over every other axis
+    (all images of the call, zero-padded slots included), the variance the
+    biased ``E[x^2] - E[x]^2`` clipped at 0; in eval mode the running
+    statistics.  ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``.
+    The running statistics follow ``momentum * old + (1 - momentum) * new``
+    with that biased variance (``torch.nn.BatchNorm2d`` keeps the unbiased
+    one and takes ``1 - momentum``); a training-mode call inside
+    :func:`run_tower` hands its update to the tower call, which applies it
+    once, otherwise the call applies it.  No ``num_batches_tracked``."""
+
+    def __init__(self, channels: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, device=None):
         super().__init__()
-        g = num_groups
-        while channels % g:
-            g -= 1
-        self.GroupNorm_0 = nn.GroupNorm(g, channels, eps=1e-6, device=device)
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(channels, device=device))
+        self.register_buffer("running_var", torch.ones(channels, device=device))
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
     def forward(self, x):
-        return self.GroupNorm_0(x.to(torch.float32)).to(x.dtype)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            pending = _BN_UPDATES[-1]
+            if pending is None:
+                self.update(mean, var)
+            else:
+                pending.append((self, mean.detach(), var.detach()))
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+
+
+class _Norm(nn.Module):
+    """flax ``GroupNorm`` (``kind='group'``: eps 1e-6; the group count
+    shrinks until it divides C) or :class:`BatchNorm` (``kind='batch'``:
+    momentum 0.9, eps 1e-5) with float32 statistics, output in the input
+    dtype."""
+
+    def __init__(self, channels: int, kind: str = "group",
+                 num_groups: int = 16, device=None):
+        super().__init__()
+        if kind == "group":
+            g = num_groups
+            while channels % g:
+                g -= 1
+            self.GroupNorm_0 = nn.GroupNorm(g, channels, eps=1e-6,
+                                            device=device)
+        elif kind == "batch":
+            self.BatchNorm_0 = BatchNorm(channels, device=device)
+        else:
+            raise ValueError(f"norm {kind!r}")
+        self.kind = kind
+
+    def forward(self, x):
+        norm = self.GroupNorm_0 if self.kind == "group" else self.BatchNorm_0
+        return norm(x.to(torch.float32)).to(x.dtype)
+
+
+def _conv_norm(module: nn.Module, i: int, in_channels: int, features: int,
+               norm: str, kernel=(3, 3), strides=(1, 1), dilation=(1, 1),
+               device=None) -> None:
+    """``Conv2dWS_<i>`` + ``_Norm_<i>`` on ``module``: weight-standardized
+    under group norm, plain under batch norm."""
+    setattr(module, f"Conv2dWS_{i}", Conv2dWS(
+        in_channels, features, kernel, strides, dilation,
+        standardize=norm == "group", device=device))
+    setattr(module, f"_Norm_{i}", _Norm(features, norm, device=device))
 
 
 class _BasicBlock2d(nn.Module):
@@ -102,18 +187,15 @@ class _BasicBlock2d(nn.Module):
                  strides: Tuple[int, int] = (1, 1),
                  dilation: Tuple[int, int] = (1, 1),
                  first_dilation: Optional[Tuple[int, int]] = None,
-                 device=None):
+                 norm: str = "group", device=None):
         super().__init__()
-        self.Conv2dWS_0 = Conv2dWS(in_channels, features, (3, 3), strides,
-                                   first_dilation or dilation, device=device)
-        self._Norm_0 = _Norm(features, device=device)
-        self.Conv2dWS_1 = Conv2dWS(features, features, (3, 3), (1, 1),
-                                   dilation, device=device)
-        self._Norm_1 = _Norm(features, device=device)
+        _conv_norm(self, 0, in_channels, features, norm, (3, 3), strides,
+                   first_dilation or dilation, device)
+        _conv_norm(self, 1, features, features, norm, (3, 3), (1, 1),
+                   dilation, device)
         if in_channels != features or tuple(strides) != (1, 1):
-            self.Conv2dWS_2 = Conv2dWS(in_channels, features, (1, 1), strides,
-                                       device=device)
-            self._Norm_2 = _Norm(features, device=device)
+            _conv_norm(self, 2, in_channels, features, norm, (1, 1), strides,
+                       device=device)
         else:
             self.Conv2dWS_2 = None
 
@@ -134,26 +216,23 @@ class ResNet18(nn.Module):
     channels (strides 2, 1, 1) in place of the 7x7, before the same max-pool;
     layer1's first block then projects its ``2 * width`` input channels.
     ``pyramid`` returns the list of every tap up to ``out_level`` (the
-    max-pooled stem, then each layer) instead of the last one.
-    Channels-first in and out."""
+    max-pooled stem, then each layer) instead of the last one.  ``norm``:
+    ``'group'`` or ``'batch'``.  Channels-first in and out."""
 
     def __init__(self, out_level: int = 4, dilated8: bool = False,
                  width: int = 64, deep_stem: bool = False,
-                 pyramid: bool = False, device=None):
+                 pyramid: bool = False, norm: str = "group", device=None):
         super().__init__()
         self.pyramid = pyramid
         if deep_stem:
             stem = ((3, width, (2, 2)), (width, width, (1, 1)),
                     (width, width * 2, (1, 1)))
             for i, (cin, f, st) in enumerate(stem):
-                setattr(self, f"Conv2dWS_{i}", Conv2dWS(
-                    cin, f, (3, 3), st, device=device))
-                setattr(self, f"_Norm_{i}", _Norm(f, device=device))
+                _conv_norm(self, i, cin, f, norm, (3, 3), st, device=device)
         else:
             stem = ((3, width, (2, 2)),)
-            self.Conv2dWS_0 = Conv2dWS(3, width, (7, 7), (2, 2),
-                                       device=device)
-            self._Norm_0 = _Norm(width, device=device)
+            _conv_norm(self, 0, 3, width, norm, (7, 7), (2, 2),
+                       device=device)
         self.num_stem = len(stem)
         plan = [  # (features, first-stride, dilation) per layer
             (width, (1, 1), (1, 1)),
@@ -170,8 +249,9 @@ class ResNet18(nn.Module):
             # runs at d/2 — dilation 1 in layer3, 2 in layer4
             fd = (max(d[0] // 2, 1),) * 2 if d != (1, 1) else None
             blocks.append(_BasicBlock2d(c, f, s, d, first_dilation=fd,
+                                        norm=norm, device=device))
+            blocks.append(_BasicBlock2d(f, f, (1, 1), d, norm=norm,
                                         device=device))
-            blocks.append(_BasicBlock2d(f, f, (1, 1), d, device=device))
             c = f
             self.tap_channels.append(c)
         for i, b in enumerate(blocks):
@@ -211,18 +291,16 @@ class PPM(nn.Module):
     concat with the trunk -> 3x3 conv."""
 
     def __init__(self, in_channels: int, out_channels: int = 128,
-                 bins: Sequence[int] = (1, 2, 3, 6), device=None):
+                 bins: Sequence[int] = (1, 2, 3, 6), norm: str = "group",
+                 device=None):
         super().__init__()
         self.bins = tuple(bins)
         for i in range(len(self.bins)):
-            setattr(self, f"Conv2dWS_{i}", Conv2dWS(
-                in_channels, out_channels, (1, 1), device=device))
-            setattr(self, f"_Norm_{i}", _Norm(out_channels, device=device))
+            _conv_norm(self, i, in_channels, out_channels, norm, (1, 1),
+                       device=device)
         n = len(self.bins)
-        setattr(self, f"Conv2dWS_{n}", Conv2dWS(
-            in_channels + n * out_channels, out_channels, (3, 3),
-            device=device))
-        setattr(self, f"_Norm_{n}", _Norm(out_channels, device=device))
+        _conv_norm(self, n, in_channels + n * out_channels, out_channels,
+                   norm, (3, 3), device=device)
 
     def forward(self, x):
         h, w = x.shape[2:]
@@ -246,12 +324,13 @@ class ResNet18PPM(nn.Module):
     image.py:721-792)."""
 
     def __init__(self, out_channels: int = 128, deep_stem: bool = False,
-                 device=None):
+                 norm: str = "group", device=None):
         super().__init__()
         self.ResNet18_0 = ResNet18(out_level=4, dilated8=True,
-                                   deep_stem=deep_stem, device=device)
+                                   deep_stem=deep_stem, norm=norm,
+                                   device=device)
         self.PPM_0 = PPM(self.ResNet18_0.out_channels, out_channels,
-                         device=device)
+                         norm=norm, device=device)
 
     def forward(self, x):
         return self.PPM_0(self.ResNet18_0(x))
@@ -267,16 +346,14 @@ class ResNet18Pyramid(nn.Module):
     largest), so the flax resize's antialiasing does not act."""
 
     def __init__(self, out_channels: int = 128, deep_stem: bool = False,
-                 project: bool = True, device=None):
+                 project: bool = True, norm: str = "group", device=None):
         super().__init__()
         self.ResNet18_0 = ResNet18(out_level=4, deep_stem=deep_stem,
-                                   pyramid=True, device=device)
+                                   pyramid=True, norm=norm, device=device)
         self.project = project
         c = sum(self.ResNet18_0.tap_channels)
         if project:
-            self.Conv2dWS_0 = Conv2dWS(c, out_channels, (1, 1),
-                                       device=device)
-            self._Norm_0 = _Norm(out_channels, device=device)
+            _conv_norm(self, 0, c, out_channels, norm, (1, 1), device=device)
             c = out_channels
         self.out_channels = c
 
@@ -338,30 +415,25 @@ class UNet2D(nn.Module):
     def __init__(self, in_channels: int = 3,
                  down_widths: Sequence[int] = (32, 64, 128),
                  up_widths: Sequence[int] = (64, 32), out_channels: int = 32,
-                 dropout: float = 0.0, device=None):
+                 dropout: float = 0.0, norm: str = "group", device=None):
         super().__init__()
         self.n_down, self.n_up = len(down_widths), len(up_widths)
         c, skips, i = in_channels, [], 0
         for k, w in enumerate(down_widths):
-            setattr(self, f"Conv2dWS_{i}", Conv2dWS(
-                c, w, (3, 3), (1, 1) if k == 0 else (2, 2), device=device))
-            setattr(self, f"_Norm_{i}", _Norm(w, device=device))
+            _conv_norm(self, i, c, w, norm, (3, 3),
+                       (1, 1) if k == 0 else (2, 2), device=device)
             setattr(self, f"_BasicBlock2d_{i}",
-                    _BasicBlock2d(w, w, device=device))
+                    _BasicBlock2d(w, w, norm=norm, device=device))
             c, i = w, i + 1
             if k < self.n_down - 1:
                 skips.append(c)
         for w in up_widths:
-            setattr(self, f"Conv2dWS_{i}", Conv2dWS(
-                c + skips.pop(), w, (3, 3), device=device))
-            setattr(self, f"_Norm_{i}", _Norm(w, device=device))
+            _conv_norm(self, i, c + skips.pop(), w, norm, device=device)
             setattr(self, f"_BasicBlock2d_{i}",
-                    _BasicBlock2d(w, w, device=device))
+                    _BasicBlock2d(w, w, norm=norm, device=device))
             c, i = w, i + 1
         self.drop = PersistentDropout2d(c, dropout) if dropout > 0 else None
-        setattr(self, f"Conv2dWS_{i}", Conv2dWS(c, out_channels, (3, 3),
-                                                device=device))
-        setattr(self, f"_Norm_{i}", _Norm(out_channels, device=device))
+        _conv_norm(self, i, c, out_channels, norm, device=device)
         self.out_channels = out_channels
 
     def _stage(self, i, x):
@@ -413,52 +485,66 @@ def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
     convolutions are kept and only the weight standardization, norm, relu
     and pooling around them are recomputed); it changes no number.
     ``frozen`` runs the tower in eval mode (``train and not frozen``) outside
-    autograd, so the output is detached and nothing is kept for a backward
-    pass; remat is then skipped.  ``generator`` feeds the tower's channel
-    dropouts in training (their masks are drawn before the tower runs, so a
-    rematerialized forward applies the same ones)."""
+    autograd, so the output is detached, nothing is kept for a backward
+    pass and the BatchNorms use and keep their running statistics; remat is
+    then skipped.  ``generator`` feeds the tower's channel dropouts in
+    training (their masks are drawn before the tower runs, so a
+    rematerialized forward applies the same ones).
+
+    In training mode every :class:`BatchNorm` normalizes with its batch
+    statistics and its running statistics move exactly once per call, from
+    the first forward, after the tower has run: a rematerialized forward in
+    the backward pass (``torch.utils.checkpoint`` runs the BatchNorms again
+    under ``'convs'`` too) collects its statistics and drops them, as flax's
+    ``nn.remat`` updates ``batch_stats`` once."""
     if remat not in (False, True, "convs"):
         # a typo like 'conv' would otherwise silently select FULL remat
         raise ValueError(f"remat must be False, True or 'convs'; got {remat!r}")
     if bf16:
         images = images.to(torch.bfloat16)
     x = images.permute(0, 3, 1, 2)
+    mode = train and not frozen
     drops = [m for m in tower.modules()
              if isinstance(m, ChannelDropout) and m.p > 0]
     masks = [None] * len(drops)
-    if drops and generator is not None and train and not frozen:
+    if drops and generator is not None and mode:
         masks = [m.draw(generator, x.shape[0], x.device) for m in drops]
+    runs = []      # the BatchNorm updates of each run of ``call``
 
     def call(x, *masks):
         for m, mask in zip(drops, masks):
             m.mask = mask
+        was_training = tower.training
+        tower.train(mode)
+        updates = []
+        _BN_UPDATES.append(updates)
         try:
-            return tower(x)
+            y = tower(x)
         finally:
+            _BN_UPDATES.pop()
+            tower.train(was_training)
             for m in drops:
                 m.mask = None
+        runs.append(updates)
+        return y
 
-    was_training = tower.training
-    tower.train(train and not frozen)
-    try:
-        if frozen:
-            with torch.no_grad():
-                y = call(x, *masks)
-        elif remat and torch.is_grad_enabled():
-            from torch.utils import checkpoint as ckpt
-
-            # the towers draw nothing themselves: their dropout masks are
-            # arguments of the checkpointed call
-            kw = {"preserve_rng_state": False}
-            if remat == "convs":
-                kw["context_fn"] = functools.partial(
-                    ckpt.create_selective_checkpoint_contexts,
-                    _save_only_convs)
-            y = ckpt.checkpoint(call, x, *masks, use_reentrant=False, **kw)
-        else:
+    if frozen:
+        with torch.no_grad():
             y = call(x, *masks)
-    finally:
-        tower.train(was_training)
+    elif remat and torch.is_grad_enabled():
+        from torch.utils import checkpoint as ckpt
+
+        # the towers draw nothing themselves: their dropout masks are
+        # arguments of the checkpointed call
+        kw = {"preserve_rng_state": False}
+        if remat == "convs":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_only_convs)
+        y = ckpt.checkpoint(call, x, *masks, use_reentrant=False, **kw)
+    else:
+        y = call(x, *masks)
+    for bn, mean, var in runs[0]:
+        bn.update(mean, var)
     y = y.permute(0, 2, 3, 1)
     if out_f32:
         y = y.to(torch.float32)

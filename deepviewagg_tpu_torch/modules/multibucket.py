@@ -125,10 +125,15 @@ class MultiBucketBranch(nn.Module):
         return self
 
     def forward(self, x_3d: Optional[torch.Tensor], mm: Dict,
-                num_points: Optional[int] = None, bucket_images=None):
+                num_points: Optional[int] = None, bucket_images=None,
+                generator: Optional[torch.Generator] = None):
         """``bucket_images``: per-bucket image tensors shared across fusion
         levels (``batch['bucket_images']``); falls back to images embedded in
-        the bucket dicts."""
+        the bucket dicts.  ``generator`` feeds the tower's channel dropouts
+        in training: each bucket's tower call draws its own masks, in bucket
+        order, as each call of the JAX tower draws from the ``dropout`` rng;
+        each call also moves the tower's BatchNorm statistics, in the same
+        order."""
         view = mm["view"]
         vc = view["view_valid"].shape[0]
         if x_3d is not None:
@@ -145,7 +150,8 @@ class MultiBucketBranch(nn.Module):
                     self.tower, images, self.training,
                     remat=self.remat_tower, frozen=self.frozen,
                     bf16=self.tower_bf16,
-                    out_f32=not (self.pool_bf16 and self.tower_bf16))
+                    out_f32=not (self.pool_bf16 and self.tower_bf16),
+                    generator=generator)
             else:
                 feats_2d = images
             ref_size = (images.shape[1], images.shape[2])

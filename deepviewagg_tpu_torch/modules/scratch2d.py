@@ -10,7 +10,8 @@ formulas (modalities/image.py):
     (in, kh, kw), UNBIASED std, ``w / ((std + 1e-5) * sqrt(cin))``;
   * ``ReLUWS`` (image.py:110-125): ``relu(x) * sqrt(2 / (1 - 1/pi))``;
   * reflect padding on every 3x3 conv, zeros for the transposed convs;
-  * GroupNorm with ``groups = max(c // 16, 1)`` and eps 1e-5;
+  * GroupNorm with ``groups = max(c // 16, 1)`` and eps 1e-5, or
+    BatchNorm (momentum 0.9, eps 1e-5: :class:`image_encoders.BatchNorm`);
   * the ResBlock's activation BEFORE the residual add, a plain (non-WS)
     1x1 conv + norm shortcut;
   * ``ResNetDown``'s width rule ``nc_stride_out = nc_in if stride > 1 and
@@ -24,7 +25,6 @@ carry the flax names (``down<i>/conv_in``, ``block<j>/conv1``, ``last/conv``
 :class:`WSConv2d`, ``[in, out, kh, kw]`` for :class:`WSConvTranspose2d`,
 unflipped (``conv_transpose2d`` is the transposed convolution itself; the
 JAX module flips the kernel to run it as a dilated-input convolution).
-Only group-norm towers are ported.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .image_encoders import ChannelDropout
+from .image_encoders import BatchNorm, ChannelDropout
 
 __all__ = ["WSConv2d", "WSConvTranspose2d", "relu_ws", "RefResBlock",
            "ResNetDown2D", "ResNetUp2D", "UnaryConv2D", "UNetWS",
@@ -116,20 +116,24 @@ class WSConvTranspose2d(nn.Module):
 
 
 class _RefNorm(nn.Module):
-    """GroupNorm with the reference's group rule and eps 1e-5 (image.py:
-    293-299), statistics in float32, output in the input's dtype."""
+    """GroupNorm with the reference's group rule and eps 1e-5, or BatchNorm
+    (image.py:293-299), statistics in float32, output in the input's
+    dtype."""
 
     def __init__(self, channels: int, kind: str = "group", device=None):
         super().__init__()
-        if kind != "group":
-            raise NotImplementedError(
-                f"norm {kind!r}: only group-norm scratch towers are ported "
-                "yet (ROADMAP A.2.3)")
-        self.GroupNorm_0 = nn.GroupNorm(max(channels // 16, 1), channels,
-                                        eps=1e-5, device=device)
+        if kind == "group":
+            self.GroupNorm_0 = nn.GroupNorm(max(channels // 16, 1), channels,
+                                            eps=1e-5, device=device)
+        elif kind == "batch":
+            self.BatchNorm_0 = BatchNorm(channels, device=device)
+        else:
+            raise ValueError(f"norm {kind!r}")
+        self.kind = kind
 
     def forward(self, x):
-        return self.GroupNorm_0(x.to(torch.float32)).to(x.dtype)
+        norm = self.GroupNorm_0 if self.kind == "group" else self.BatchNorm_0
+        return norm(x.to(torch.float32)).to(x.dtype)
 
 
 class RefResBlock(nn.Module):

@@ -14,13 +14,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .sparse_blocks import ResBlock, SparseConvNormRelu
+from .sparse_blocks import (BottleneckBlock, ResBlock, SEBottleneckBlock,
+                            SEResBlock, SparseConvNormRelu)
 
 __all__ = ["Stem", "DownStage", "UpStage", "Res16UNet", "RES16_PRESETS"]
 
 # (layers, planes, block) per named variant — the JAX package's table
 # (modules/MinkowskiEngine/res16unet.py:246-588 and the DeepViewAgg compact
-# configs' channel plans); only the "basic" block is ported
+# configs' channel plans); 50/101 take the bottleneck block, the SE family
+# the squeeze-excitation blocks
 _BASE = (32, 64, 128, 256, 256, 256, 256, 256)
 RES16_PRESETS = {
     "Res16UNet14": ((1, 1, 1, 1, 1, 1, 1, 1), (32, 64, 128, 256, 128, 128, 96, 96), "basic"),
@@ -55,11 +57,28 @@ _SUB_K = 27    # 3x3x3 submanifold kernel
 _DOWN_K = 8    # 2x2x2 stride-2 kernel
 
 
-def _check_block(block: str) -> None:
-    if block != "basic":
-        raise NotImplementedError(
-            f"Res16UNet block {block!r} (the bottleneck and SE blocks of "
-            "Res16UNet50 / SERes16UNet34) is not ported yet (ROADMAP A.6)")
+_BLOCKS = {"basic": ResBlock, "bottleneck": BottleneckBlock,
+           "se_basic": SEResBlock, "se_bottleneck": SEBottleneckBlock}
+
+
+def _add_blocks(stage: nn.Module, block: str, in_channels: int,
+                out_channels: int, num_blocks: int, device) -> None:
+    """``num_blocks`` blocks of kind ``block`` under the flax auto-names
+    (``ResBlock_<i>``, ``BottleneckBlock_<i>``, ``SEResBlock_<i>`` ...)."""
+    cls = _BLOCKS[block]
+    stage.blocks = []
+    for i in range(num_blocks):
+        name = f"{cls.__name__}_{i}"
+        setattr(stage, name, cls(in_channels if i == 0 else out_channels,
+                                 out_channels, device=device))
+        stage.blocks.append(name)
+
+
+def _run_blocks(stage: nn.Module, x, level):
+    for name in stage.blocks:
+        x = getattr(stage, name)(x, level["sub_nbr"], level["valid"],
+                                 level.get("batch_idx"))
+    return x
 
 
 class Stem(nn.Module):
@@ -83,14 +102,9 @@ class DownStage(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_blocks: int,
                  block: str = "basic", device=None):
         super().__init__()
-        _check_block(block)
         self.SparseConvNormRelu_0 = SparseConvNormRelu(
             _DOWN_K, in_channels, in_channels, device=device)
-        for i in range(num_blocks):
-            c_in = in_channels if i == 0 else out_channels
-            setattr(self, f"ResBlock_{i}",
-                    ResBlock(c_in, out_channels, device=device))
-        self.num_blocks = num_blocks
+        _add_blocks(self, block, in_channels, out_channels, num_blocks, device)
 
     def forward(self, feats, graph, level_in: int):
         src = graph["levels"][level_in]
@@ -98,9 +112,7 @@ class DownStage(nn.Module):
         # the precomputed transpose map gives the gather-only backward
         x = self.SparseConvNormRelu_0(feats, src["down_nbr"], dst["valid"],
                                       nbr_t=src["up_nbr"])
-        for i in range(self.num_blocks):
-            x = getattr(self, f"ResBlock_{i}")(x, dst["sub_nbr"], dst["valid"])
-        return x
+        return _run_blocks(self, x, dst)
 
 
 class UpStage(nn.Module):
@@ -109,14 +121,10 @@ class UpStage(nn.Module):
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int,
                  num_blocks: int, block: str = "basic", device=None):
         super().__init__()
-        _check_block(block)
         self.SparseConvNormRelu_0 = SparseConvNormRelu(
             _DOWN_K, in_channels, out_channels, device=device)
-        for i in range(num_blocks):
-            c_in = out_channels + skip_channels if i == 0 else out_channels
-            setattr(self, f"ResBlock_{i}",
-                    ResBlock(c_in, out_channels, device=device))
-        self.num_blocks = num_blocks
+        _add_blocks(self, block, out_channels + skip_channels, out_channels,
+                    num_blocks, device)
 
     def forward(self, feats, skip, graph, level_out: int):
         dst = graph["levels"][level_out]
@@ -124,9 +132,7 @@ class UpStage(nn.Module):
         x = self.SparseConvNormRelu_0(feats, dst["up_nbr"], dst["valid"],
                                       nbr_t=dst["down_nbr"])
         x = torch.cat([x, skip], dim=-1)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"ResBlock_{i}")(x, dst["sub_nbr"], dst["valid"])
-        return x
+        return _run_blocks(self, x, dst)
 
 
 class Res16UNet(nn.Module):

@@ -21,6 +21,7 @@ belongs to; the module's type decides the leaf's name and layout:
   SparseConv ``kernel [K, Cin, Cout]`` -> ``SparseConv.weight`` as is
   ``scale`` / ``bias`` of norms       -> ``weight`` / ``bias``
   ``batch_stats`` ``mean`` / ``var``  -> ``running_mean`` / ``running_var``
+    (``MaskedBatchNorm`` and the towers' ``BatchNorm``)
 
 The load is strict: every flax leaf is consumed exactly once and every torch
 parameter and buffer is filled exactly once, or it raises.  Nothing depends
@@ -58,14 +59,15 @@ def flatten(tree: Mapping, prefix=()):
 
 def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
     """(torch attribute name, converted array) of one flax leaf."""
-    from ..modules.image_encoders import Conv2dWS
+    from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
     if collection == "batch_stats":
-        if isinstance(module, MaskedBatchNorm) and leaf in ("mean", "var"):
+        if isinstance(module, (MaskedBatchNorm, BatchNorm)) and leaf in (
+                "mean", "var"):
             return "running_" + leaf, value
     elif collection == "params":
         if isinstance(module, nn.Linear):
@@ -84,7 +86,7 @@ def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
                     else (2, 3, 0, 1))
         elif isinstance(module, SparseConv) and leaf == "kernel":
             return "weight", value
-        elif isinstance(module, (MaskedBatchNorm, nn.GroupNorm)):
+        elif isinstance(module, (MaskedBatchNorm, BatchNorm, nn.GroupNorm)):
             if leaf in ("scale", "bias"):
                 return {"scale": "weight", "bias": "bias"}[leaf], value
         elif isinstance(module, Gating) and leaf in ("weight", "bias"):
@@ -125,13 +127,14 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
 def _unconvert(module: nn.Module, name: str, value: np.ndarray):
     """(flax leaf name, flax-layout array) of one torch parameter or buffer:
     the inverse of :func:`_convert`."""
-    from ..modules.image_encoders import Conv2dWS
+    from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
-    if isinstance(module, MaskedBatchNorm) and name.startswith("running_"):
+    if isinstance(module, (MaskedBatchNorm, BatchNorm)) and name.startswith(
+            "running_"):
         return name[len("running_"):], value
     if isinstance(module, nn.Linear):
         if name == "weight":
@@ -148,7 +151,7 @@ def _unconvert(module: nn.Module, name: str, value: np.ndarray):
                 (2, 3, 1, 0) if isinstance(module, WSConv2d) else (2, 3, 0, 1))
     elif isinstance(module, SparseConv) and name == "weight":
         return "kernel", value
-    elif isinstance(module, (MaskedBatchNorm, nn.GroupNorm)):
+    elif isinstance(module, (MaskedBatchNorm, BatchNorm, nn.GroupNorm)):
         if name in ("weight", "bias"):
             return {"weight": "scale", "bias": "bias"}[name], value
     elif isinstance(module, Gating) and name in ("weight", "bias"):

@@ -194,6 +194,12 @@ def test_pretrained_token_warns_and_tower_weights_raise():
         spec = tzoo.resolve_spec_from_cfg(
             _model_cfg(name="Res16UNet34-L4-early-ade20k-interpolate"), 13)
     assert spec.branches[0][1].tower_deep_stem
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.3"):
-        tzoo.resolve_spec_from_cfg(_model_cfg(
-            name="Res16UNet34-L4-early", tower_weights="/x/ade20k.pth"), 13)
+    # tower_weights resolves as in the JAX package: BatchNorm towers, the
+    # stem of a checkpoint that cannot be read left as the spec has it
+    kw = dict(name="Res16UNet34-L4-early", tower_weights="/x/ade20k.pth")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = tzoo.resolve_spec_from_cfg(_model_cfg(**kw), 13)
+    want = jzoo.resolve_spec_from_cfg(jrun.ModelCfg(**kw), 13)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [b.tower_norm for _, b in got.branches] == ["batch"]

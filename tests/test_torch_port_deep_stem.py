@@ -25,10 +25,11 @@ from deepviewagg_tpu.modules import image_encoders as jt
 from deepviewagg_tpu_torch.config import zoo as tzoo
 from deepviewagg_tpu_torch.models import segmentation as tseg
 from deepviewagg_tpu_torch.modules import image_encoders as tt
-from deepviewagg_tpu_torch.utils.from_jax import load_flax_variables
+from deepviewagg_tpu_torch.utils.from_jax import (load_flax_variables,
+                                                  to_flax_tree)
 from torch_port_util import (_torch_threads, f32_sparse_convs,  # noqa: F401
-                             jax_tiny_batch, jax_variables, rel_err,
-                             torch_batch)
+                             flat_leaves, jax_tiny_batch, jax_variables,
+                             rel_err, torch_batch)
 
 RECIPE = "Res16UNet34-L4-early-ade20k-interpolate"
 
@@ -110,8 +111,20 @@ def test_make_tower_with_the_deep_stem(name, channels):
     assert tc == jc == channels
     stem = tower.ResNet18_0 if name == "resnet18_ppm" else tower
     assert stem.num_stem == 3
-    with pytest.raises(NotImplementedError, match="group-norm"):
-        tseg.make_tower(name, "batch", True, device="cpu")
+    # the BatchNorm tower (pretrained weights): plain convs, flax
+    # ``BatchNorm_0`` leaves, the JAX tree leaf for leaf
+    fac, jc = jseg.make_tower(name, "batch", True)
+    tower, tc = tseg.make_tower(name, "batch", True, device="cpu")
+    assert tc == jc == channels
+    shapes = jax.eval_shape(lambda: fac(parent=None).init(
+        jax.random.PRNGKey(0), np.zeros((1, 32, 24, 3), np.float32), False))
+    want = {k: tuple(v.shape) for k, v in flat_leaves(shapes).items()}
+    got = {k: tuple(v.shape) for c in ("params", "batch_stats")
+           for k, v in flat_leaves({c: to_flax_tree(tower, c)}).items()}
+    assert got == want
+    assert any("/BatchNorm_0/" in k for k in want)
+    assert not any(m.standardize for m in tower.modules()
+                   if isinstance(m, tt.Conv2dWS))
 
 
 def _tiny_specs(name, **overrides):

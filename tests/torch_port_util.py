@@ -703,3 +703,75 @@ def fake_kitti360_layout(root, seed: int = 11, density: float = 6.0,
             write_png(os.path.join(d, f"{frame:010d}.png"), img,
                       filters=np.arange(h) % 5)
     return root
+
+
+# --- pretrained ResNet-18 checkpoints ---------------------------------------
+
+def resnet18_state_dict(deep_stem: bool = False, ppm_channels=None,
+                        seed: int = 0):
+    """A random-weight ResNet-18 ``state_dict`` in a published key layout,
+    with non-trivial BatchNorm scales, biases and running statistics:
+    torchvision's (``conv1`` / ``bn1``, ``layer{i}.{j}.conv{k}`` /
+    ``bn{k}``, ``downsample.0/1``) built by
+    ``test_torch_convert.TorchResNet18``; with ``deep_stem`` the MIT-semseg
+    encoder's (``conv1..3`` / ``bn1..3`` of 64, 64, 128 channels, layer1's
+    first block projecting 128 -> 64), under ``encoder.``; with
+    ``ppm_channels`` also the MIT-semseg PPM decoder's keys under
+    ``decoder.`` (``ppm.{i}.1/2`` for bins 1, 2, 3, 6, ``conv_last.0/1``,
+    and the classifier ``conv_last.4`` that no tower takes)."""
+    import torch.nn as tnn
+    from test_torch_convert import TorchBasicBlock, TorchResNet18
+
+    torch.manual_seed(seed)
+    net = TorchResNet18()
+    if deep_stem:
+        net.conv1 = tnn.Conv2d(3, 64, 3, 2, 1, bias=False)
+        net.conv2 = tnn.Conv2d(64, 64, 3, 1, 1, bias=False)
+        net.bn2 = tnn.BatchNorm2d(64)
+        net.conv3 = tnn.Conv2d(64, 128, 3, 1, 1, bias=False)
+        net.bn3 = tnn.BatchNorm2d(128)
+        net.layer1[0] = TorchBasicBlock(128, 64)
+    parts = {("encoder." if deep_stem else ""): net}
+    if ppm_channels:
+        dec = tnn.Module()
+        dec.ppm = tnn.ModuleList([tnn.Sequential(
+            tnn.AdaptiveAvgPool2d(b), tnn.Conv2d(512, ppm_channels, 1,
+                                                 bias=False),
+            tnn.BatchNorm2d(ppm_channels), tnn.ReLU())
+            for b in (1, 2, 3, 6)])
+        dec.conv_last = tnn.Sequential(
+            tnn.Conv2d(512 + 4 * ppm_channels, ppm_channels, 3, padding=1,
+                       bias=False),
+            tnn.BatchNorm2d(ppm_channels), tnn.ReLU(), tnn.Dropout2d(0.1),
+            tnn.Conv2d(ppm_channels, 150, 1))
+        parts["decoder."] = dec
+    sd = {}
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for prefix, mod in parts.items():
+            for m in mod.modules():
+                if isinstance(m, tnn.BatchNorm2d):
+                    m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                                   + 0.5)
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen)
+                                 * 0.2)
+                    m.running_mean.copy_(torch.randn(
+                        m.running_mean.shape, generator=gen) * 0.3)
+                    m.running_var.copy_(torch.rand(
+                        m.running_var.shape, generator=gen) * 1.5 + 0.5)
+            sd.update({prefix + k: v.clone()
+                       for k, v in mod.state_dict().items()})
+    return sd
+
+
+def write_resnet18_checkpoint(path, deep_stem: bool = False,
+                              ppm_channels=None, seed: int = 0,
+                              wrap: bool = False):
+    """:func:`resnet18_state_dict` saved with ``torch.save`` at ``path``
+    (``wrap``: as ``{"state_dict": ...}`` with ``module.`` keys, a
+    DataParallel save); returns ``str(path)``."""
+    sd = resnet18_state_dict(deep_stem, ppm_channels, seed)
+    if wrap:
+        sd = {"state_dict": {"module." + k: v for k, v in sd.items()}}
+    torch.save(sd, str(path))
+    return str(path)
