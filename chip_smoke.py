@@ -230,6 +230,21 @@ exit) on any fault:
                   ``Res16UNet50-L4-early`` at the presets' widths, every
                   segment call of each first forward and backward against
                   plain and timed against ``torch.segment_reduce``
+              9j  the reference-config path on 9e's layout
+                  (``loop_reference``, ``REF_ENTRIES``): ``cli.preprocess``
+                  in two shards, each cache byte-equal (else array-equal) to
+                  9e's in-line one, ms per area; a conf tree in the
+                  upstream's YAML DSL written here, the flagship entry equal
+                  to its zoo spec but ``drop_hard``; ``cli.train`` (4 steps,
+                  an eval) and ``cli.eval --voting_runs 2`` through
+                  ``model.name=ref:sparseconv3d/<entry>`` and
+                  ``data.ref=s3disfused-sparse`` of (a) a shared trunk (15 +
+                  10 launches a step), (b) tower reuse (18 + 15) and (c) the
+                  raw-RGB branch on the ingested crop ladder (one atomic pool
+                  per bucket + 2, no backward), every segment call of each
+                  first forward and backward against plain; (a) card vs CPU
+                  at phases 4 / 7's bounds and in float32 at 7g's; then
+                  ``cli.scale_rehearsal`` at its defaults
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -248,7 +263,8 @@ same for phase 9c's first eval batch; ``loop_s3dis`` and
 model (each path with ``pad_share``, the padding-row share of its widest
 call), ``loop_pretrained`` / ``loop_pretrained_eval`` for 9i's first train
 and eval batches and ``families_se_<model>`` for each 9i model that launches
-a kernel;
+a kernel, ``loop_reference_<model>`` for 9j's first train batch through each
+``ref:`` model;
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
 predictions).  Needs a CUDA card,
 ``nvcc`` and the repository checkout.
@@ -260,6 +276,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -3829,7 +3846,8 @@ def family_kernels(model, batch, phase: str, forward: int,
                    backward: int) -> tuple:
     """Every segment call of one forward (eval mode) and of one train-mode
     forward and backward of ``model`` on ``batch``, held against the plain
-    versions and timed; ``forward`` / ``backward`` calls expected."""
+    versions and timed; ``forward`` / ``backward`` calls expected (no
+    backward: none measured, ``None`` in its place)."""
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != forward:
         raise AssertionError(f"{phase}: {len(calls)} segment calls in one "
@@ -3841,7 +3859,8 @@ def family_kernels(model, batch, phase: str, forward: int,
     if len(bwd_calls) != backward:
         raise AssertionError(f"{phase}: {len(bwd_calls)} segment backwards "
                              f"in one step, expected {backward}")
-    bwd = measure_backward_calls(bwd_calls, phase, FAMILY_TIME_ITERS)
+    bwd = (measure_backward_calls(bwd_calls, phase, FAMILY_TIME_ITERS)
+           if backward else None)
     return fwd, bwd
 
 
@@ -3856,14 +3875,17 @@ def forward_ms(model, batch) -> float:
     return time_ms(forward, 3)
 
 
-def kernel_fields(fwd: dict, bwd: dict) -> dict:
+def kernel_fields(fwd: dict, bwd) -> dict:
     """The segment kernels' device time, share of the byte bound and the
-    widest call's padding-row share, forward and backward."""
-    return {"kernel_ms_forward": f"{fwd['ms']:.4f}",
-            "bound_share_forward": f"{fwd['bound_ms'] / fwd['ms']:.3f}",
-            "pad_share_forward": fwd["pad_share"],
-            "kernel_ms_backward": f"{bwd['ms']:.4f}",
-            "bound_share_backward": f"{bwd['bound_ms'] / bwd['ms']:.3f}"}
+    widest call's padding-row share, forward and backward (none where the
+    step launches no backward)."""
+    out = {"kernel_ms_forward": f"{fwd['ms']:.4f}",
+           "bound_share_forward": f"{fwd['bound_ms'] / fwd['ms']:.3f}",
+           "pad_share_forward": fwd["pad_share"]}
+    if bwd is not None:
+        out.update(kernel_ms_backward=f"{bwd['ms']:.4f}",
+                   bound_share_backward=f"{bwd['bound_ms'] / bwd['ms']:.3f}")
+    return out
 
 
 def family_model(name: str, set_encoder, num_classes: int):
@@ -4480,6 +4502,528 @@ def loop_se(cli, root: Path, tmp: Path) -> dict:
             "paths": {"seres16unet34": (fwd, bwd)}}
 
 
+
+# --- phase 9j: reference-YAML ingest, the ingest-only branches, preprocess --
+
+# phase 9j: on 9e's S3DIS layout (written anew, with its in-line caches, when
+# 9j runs alone): cli.preprocess --dataset s3dis in two shards against 9e's
+# in-line caches; a conf tree in the upstream's YAML DSL written here
+# (REF_MODELS, REF_DATA_BASE, REF_DATA) under DVA_REFERENCE_CONF /
+# DVA_REFERENCE_DATA_CONF; the flagship entry against its zoo name; then
+# cli.train (REF_SPHERES spheres: 4 steps of batch 4, an eval) and cli.eval
+# --voting_runs 2 with model.name=ref:sparseconv3d/<entry> and
+# data.ref=s3disfused-sparse for (a) the shared trunk, (b) tower reuse and
+# (c) the tower-less raw-RGB branch, at the recipe's width (16 panoramas of
+# 1024 x 512 a batch, 5 cm, 2 m spheres); (a) card vs CPU; the scale
+# rehearsal at its defaults.  Segment launches, from the code: a max-pooled
+# branch launches its atomic max, the view count and the view max forward,
+# and the two maxima's backwards (its taps take gradient); a group-pooled
+# one the flagship's 6 + 5; the raw-RGB branch one atomic max per ladder
+# bucket, the view count and the view max, and no backward (nothing before
+# its max pools takes a gradient)
+REF_SPHERES = 16
+REF_LOOP = ("training.epochs=1", f"data.samples_per_epoch={REF_SPHERES}",
+            "data.kwargs.keep_raw=true")
+REF_FLAT = ("data.crop_ladder_min=0",)     # (a) and (b) take flat batches
+REF_ENTRIES = (  # (label, entry, forward, backward; None: per ladder bucket)
+    ("shared", "Res16UNet34-Res16Image-max", 5 * 3, 5 * 2),
+    ("reuse", "Res16UNet34-L4-all", 3 * FORWARD_LAUNCHES,
+     3 * BACKWARD_LAUNCHES),
+    ("raw", "Res16UNet34-RGB-identity-early", None, 0),
+)
+REF_FLAGSHIP = "Res16UNet34-L4-early-ade20k-interpolate"
+REF_REHEARSAL = ()                          # the rehearsal's defaults
+
+_REF_BACKBONE = """\
+        define_constants:
+            in_feat: 32
+            block: ResBlock
+            mod: {mod}
+        down_conv:
+            module_name: ResNetDown
+            block: block
+            conv3d_after_fusion: False
+            N: [0, 2, 3, 4, 6]
+            down_conv_nn:
+                [
+                    [FEAT + mod, in_feat],
+                    [in_feat, in_feat],
+                    [in_feat, 2*in_feat],
+                    [2*in_feat, 4*in_feat],
+                    [4*in_feat, 8*in_feat],
+                ]
+            kernel_size: [3, 2, 2, 2, 2]
+            stride: [1, 2, 2, 2, 2]
+"""
+_REF_UP = """\
+        up_conv:
+            module_name: ResNetUp
+            block: block
+            N: [1, 1, 1, 1, 1]
+            up_conv_nn:
+                [
+                    [8*in_feat, 4*in_feat, 8*in_feat],
+                    [8*in_feat, 2*in_feat, 4*in_feat],
+                    [4*in_feat, in_feat, 3*in_feat],
+                    [3*in_feat, in_feat, 3*in_feat],
+                    [3*in_feat, 0, 3*in_feat],
+                ]
+            stride: [2, 2, 2, 2, 1]
+"""
+_REF_HEAD = """\
+{name}:
+    class: sparseconv3d.APIModel
+    conv_type: "SPARSE"
+    backend: "minkowski"
+    backbone:
+"""
+REF_MODELS = (
+    "# multimodal entries in the upstream's DSL, at the recipe's widths\n"
+    + _REF_HEAD.format(name=REF_FLAGSHIP)
+    + _REF_BACKBONE.format(mod=512) + """\
+            image:
+                down_conv:
+                    module_name: ADE20KResNet18TruncatedLayer4
+                    frozen: False
+                atomic_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                view_pooling:
+                    module_name: GroupBimodalCSRPool
+                    in_map: 8
+                    in_mod: mod
+                    num_groups: 4
+                    use_mod: False
+                    gating: True
+                    group_scaling: True
+                    map_encoder: DeepSetFeat
+                    use_num: True
+                fusion:
+                    module_name: BimodalFusion
+                    mode: concatenation
+                branching_index: 0
+                interpolate: True
+""" + _REF_UP + "\n"
+    # (a) the Res16Image shared trunk at ConvDown2D's published defaults,
+    # its five taps at levels 0-4
+    + _REF_HEAD.format(name=REF_ENTRIES[0][1])
+    + _REF_BACKBONE.format(mod=32) + """\
+            image:
+                down_conv:
+                    module_name: ResNetDown
+                    block: ResBlock
+                    N: [0, 2, 2, 2, 2]
+                    down_conv_nn:
+                        [
+                            [3, 32],
+                            [32, 32],
+                            [32, 64],
+                            [64, 128],
+                            [128, 256],
+                        ]
+                    kernel_size: [3, 3, 3, 3, 3]
+                    stride: [1, 2, 2, 2, 2]
+                    normalization: GroupNorm
+                    weight_standardization: True
+                atomic_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                view_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                fusion:
+                    module_name: BimodalFusion
+                    mode: concatenation
+                branching_index: [0, 2, 3, 4, 5]
+                interpolate: True
+""" + _REF_UP + "\n"
+    # (b) XYZ-RGB-L4-all: one deep-stem L4 tower at level 0, its maps
+    # gathered again at levels 1 and 3
+    + _REF_HEAD.format(name=REF_ENTRIES[1][1])
+    + _REF_BACKBONE.format(mod=512) + """\
+            image:
+                down_conv:
+                    module_name:
+                        - ADE20KResNet18TruncatedLayer4
+                        - ModalityIdentity
+                        - ModalityIdentity
+                atomic_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                view_pooling:
+                    module_name: GroupBimodalCSRPool
+                    in_mod: [512, 512, 512]
+                    out_mod: [mod, in_feat, 4*in_feat]
+                    num_groups: 4
+                    gating: True
+                    group_scaling: True
+                    map_encoder: DeepSetFeat
+                    use_num: True
+                fusion:
+                    module_name: BimodalFusion
+                    mode: [concatenation, residual, residual]
+                branching_index: [0, 2, 4]
+                interpolate: True
+""" + _REF_UP + "\n"
+    # (c) ModalityIdentity only: the raw RGB gathered and pooled
+    + _REF_HEAD.format(name=REF_ENTRIES[2][1])
+    + _REF_BACKBONE.format(mod=3) + """\
+            image:
+                down_conv:
+                    module_name: ModalityIdentity
+                atomic_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                view_pooling:
+                    module_name: BimodalCSRPool
+                    mode: max
+                fusion:
+                    module_name: BimodalFusion
+                    mode: concatenation
+                branching_index: 0
+                interpolate: True
+""" + _REF_UP)
+REF_DATA_BASE = """\
+# @package data
+task: segmentation
+class: s3dis.S3DISFusedDataset
+dataroot: data
+fold: 5
+first_subsampling: 0.04
+sample_per_epoch: 3000
+"""
+REF_DATA = """\
+# @package data
+defaults:
+    - /data/segmentation/s3disfused
+
+class: s3dis.S3DISFusedDataset
+first_subsampling: 0.05
+resolution_2d: [1024, 512]
+exact_splatting_2d: True
+min_size_2d: 64
+
+multimodal:
+    modality: image
+    settings:
+        mapping_key: mapping_index
+        proj_upscale: 2
+        r_max: 8
+        r_min: 0.05
+        train_pixel_credit: 4
+        test_pixel_credit: 4
+        k_coverage: 2
+        use_bbox: True
+    pre_transform:
+        - transform: LoadImages
+          params:
+              ref_size: ${data.resolution_2d}
+        - transform: NonStaticMask
+          params:
+              ref_size: ${data.resolution_2d}
+              proj_upscale: ${data.multimodal.settings.proj_upscale}
+              n_sample: 5
+        - transform: MapImages
+          params:
+              method: SplattingVisibility
+              ref_size: ${data.resolution_2d}
+              proj_upscale: ${data.multimodal.settings.proj_upscale}
+              voxel: ${data.first_subsampling}
+              r_max: ${data.multimodal.settings.r_max}
+              r_min: ${data.multimodal.settings.r_min}
+              exact: ${data.exact_splatting_2d}
+              camera: s3dis_equirectangular
+        - transform: NeighborhoodBasedMappingFeatures
+          params:
+              k: 50
+              voxel: ${data.first_subsampling}
+              density: True
+              occlusion: True
+    train_transforms:
+        - transform: SelectMappingFromPointId
+        - transform: PickImagesFromMappingArea
+          params:
+              use_bbox: ${data.multimodal.settings.use_bbox}
+        - transform: PickImagesFromMemoryCredit
+          params:
+              img_size: ${data.resolution_2d}
+              k_coverage: ${data.multimodal.settings.k_coverage}
+              n_img: ${data.multimodal.settings.train_pixel_credit}
+        - transform: CenterRoll
+          params:
+              angular_res: 16
+        - transform: CropImageGroups
+          params:
+              padding: 8
+              min_size: ${data.min_size_2d}
+        - transform: JitterMappingFeatures
+          params:
+              sigma: 0.02
+              clip: 0.03
+        - transform: ColorJitter
+          params:
+              brightness: 0.6
+              contrast: 0.6
+              saturation: 0.7
+        - transform: RandomHorizontalFlip
+        - transform: ToFloatImage
+
+train_transforms:
+    - transform: RandomNoise
+      params:
+          sigma: 0.001
+    - transform: RandomRotate
+      params:
+          degrees: 180
+          axis: 2
+    - transform: RandomScaleAnisotropic
+      params:
+          scales: [0.8, 1.2]
+    - transform: RandomSymmetry
+      params:
+          axis: [True, False, False]
+    - transform: RandomSphere
+      params:
+          radius: 2.0
+          strategy: RANDOM
+"""
+
+
+def write_reference_conf(root: Path) -> Path:
+    """The 9j conf tree under ``<root>/conf`` (the ancestor named ``conf``
+    anchors the data file's ``defaults:``); returns it."""
+    conf = root / "conf"
+    for rel, text in (
+            ("models/segmentation/multimodal/sparseconv3d.yaml", REF_MODELS),
+            ("data/segmentation/s3disfused.yaml", REF_DATA_BASE),
+            ("data/segmentation/multimodal/s3disfused-sparse.yaml",
+             REF_DATA)):
+        (conf / rel).parent.mkdir(parents=True, exist_ok=True)
+        (conf / rel).write_text(text)
+    return conf
+
+
+def s3dis_inline_caches(root: Path) -> None:
+    """9e's in-line caches (``cli.train``'s S3DIS loader with
+    ``conf/s3dis_benchmark.yaml``'s options), built when 9j runs alone."""
+    from deepviewagg_tpu_torch.data.datasets.s3dis import make_s3dis_dataset
+
+    for train in (True, False):
+        make_s3dis_dataset(str(root), train=train, fold=5, voxel_size=0.05,
+                           keep_raw=True)
+
+
+def preprocess_shards(root: Path, out: Path) -> dict:
+    """``cli.preprocess --dataset s3dis`` in two shards into ``out``; each
+    cache held against 9e's in-line one: byte-equal, else equal array by
+    array (the zip container of ``np.savez_compressed`` carries a time).
+    Returns the ms per area."""
+    import filecmp
+
+    from deepviewagg_tpu_torch.cli import preprocess as cli_pre
+
+    ms = {}
+    with s3dis_probe() as pre:
+        for shard in (0, 1):
+            cli_pre.main(["--dataset", "s3dis", "--root", str(root), "--out",
+                          str(out), "--voxel-size", "0.05", "--keep-raw",
+                          "--shard", str(shard), "--num-shards", "2"])
+    inline = root / "processed_dva"
+    names = sorted(p.name for p in out.iterdir())
+    if names != sorted(p.name for p in inline.iterdir()):
+        raise AssertionError(f"cli.preprocess wrote {names}")
+    equal = {}
+    for name in names:
+        a, b = out / name, inline / name
+        if filecmp.cmp(a, b, shallow=False):
+            equal[name] = "bytes"
+            continue
+        za, zb = np.load(a, allow_pickle=True), np.load(b, allow_pickle=True)
+        if sorted(za.files) != sorted(zb.files) or not all(
+                np.array_equal(za[k], zb[k]) for k in za.files):
+            raise AssertionError(f"{name}: cli.preprocess differs from the "
+                                 "in-line cache")
+        equal[name] = "arrays"
+    for area, t in pre.clouds.items():
+        ms[area] = t["total"]
+    log("9j preprocess", shards=2, areas=sorted(ms),
+        ms_per_area={a: f"{v:.0f}" for a, v in sorted(ms.items())},
+        equal=equal)
+    return ms
+
+
+def check_flagship_ingest(path: str) -> None:
+    """The flagship entry ingests to the zoo's spec of its name, but for
+    ``drop_hard`` (the upstream builder never threads it), which does
+    nothing at the entry's zero dropouts."""
+    from deepviewagg_tpu_torch.config.reference_ingest import load_model_spec
+    from deepviewagg_tpu_torch.config.zoo import get_model_spec
+
+    got = load_model_spec(path, REF_FLAGSHIP, 13, 4)
+    zoo = get_model_spec(REF_FLAGSHIP, 13, 4)
+    (lvl, b), = got.branches
+    same = dataclasses.replace(got, branches=((lvl, dataclasses.replace(
+        b, drop_hard=zoo.branches[0][1].drop_hard)),))
+    if same != zoo or b.drop_modality or b.drop_3d:
+        raise AssertionError(f"flagship ingest {got} != zoo {zoo}")
+    log("9j flagship ingest", entry=REF_FLAGSHIP, equal_to_zoo=True,
+        but="drop_hard False (inert at drop 0)")
+
+
+def ref_kinds(spec, label: str) -> None:
+    """The ingested spec is the branch kind 9j means to run."""
+    towers = [b.tower for _, b in spec.branches]
+    ok = {"shared": spec.shared_tower is not None
+          and towers == [f"shared:{i}" for i in range(5)],
+          "reuse": towers == ["resnet18_l4", "reuse", "reuse"],
+          "raw": towers == [None]}[label]
+    if not ok or spec.num_classes != 13 or spec.backbone != "Res16UNet34":
+        raise AssertionError(f"9j {label}: not the entry's spec: {spec}")
+
+
+def loop_reference(cli, cli_eval, tmp: Path) -> dict:
+    """9j: reference-YAML ingest end to end (see ``REF_ENTRIES``):
+    preprocess shards, the flagship ingest, then for each of (a) the shared
+    trunk, (b) tower reuse and (c) the raw-RGB branch ``cli.train`` (4
+    steps and an eval) and ``cli.eval --voting_runs 2`` through ``ref:``
+    and ``data.ref``, every segment call of the first forward and backward
+    held against plain; (a) card vs CPU; the scale rehearsal."""
+    from deepviewagg_tpu_torch.cli import scale_rehearsal
+    from deepviewagg_tpu_torch.config.zoo import get_model_spec
+
+    root = tmp / "s3dis_raw"
+    if not (root / "Area_5").exists():
+        write_s3dis_layout(root)
+    if not (root / "processed_dva" / "area_5.npz").exists():
+        s3dis_inline_caches(root)
+    out = {"paths": {}, "launches": {}}
+    log("9j reference cuts", spheres=f"{REF_SPHERES} a model (4 steps), 1 "
+        "epoch (recipe 200 x 2000)", widths="none cut",
+        batch="4 spheres x 4 image slots of 1024x512 as ingested",
+        rehearsal=" ".join(REF_REHEARSAL) or "defaults")
+    out["preprocess_ms"] = preprocess_shards(root, tmp / "ref_caches")
+    conf = write_reference_conf(tmp / "ref")
+    env = {"DVA_REFERENCE_CONF": str(conf / "models/segmentation"),
+           "DVA_REFERENCE_DATA_CONF": str(conf / "data/segmentation/"
+                                                 "multimodal")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check_flagship_ingest(str(conf / "models/segmentation/multimodal/"
+                                         "sparseconv3d.yaml"))
+        for label, entry, fwd_n, bwd_n in REF_ENTRIES:
+            ref_run(cli, cli_eval, root, tmp, label, entry, fwd_n, bwd_n, out)
+        shared = get_model_spec(f"ref:sparseconv3d/{REF_ENTRIES[0][1]}", 4,
+                                4)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref_card_vs_cpu(shared)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["rehearsal"] = scale_rehearsal.main(list(REF_REHEARSAL))
+    log("9j scale rehearsal", seconds=f"{time.perf_counter() - t0:.1f}",
+        **out["rehearsal"])
+    return out
+
+
+def ref_run(cli, cli_eval, root: Path, tmp: Path, label: str, entry: str,
+            fwd_n, bwd_n, out: dict) -> None:
+    """One 9j model through ``cli.train`` and ``cli.eval``."""
+    flat = () if label == "raw" else REF_FLAT
+    run_dir = tmp / f"ref_{label}_run"
+    args = [f"data.root={root}", "data.ref=s3disfused-sparse",
+            f"model.name=ref:sparseconv3d/{entry}",
+            f"training.run_dir={run_dir}", "training.tensorboard=false",
+            *REF_LOOP, *flat]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with LoopProbe() as probe:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    model, batch = probe.trainer.model, probe.batch
+    ref_kinds(model.spec, label)
+    ladder = "buckets" in batch["mappings"][0]
+    if ladder != (label == "raw"):
+        raise AssertionError(f"9j {label}: ladder batch {ladder}")
+    if fwd_n is None:
+        # one atomic pool per ladder bucket, the view count and the max
+        fwd_n = len(probe.train_images[0]) + 2
+    probe.check_steps(f"9j {label} loop", fwd_n, bwd_n)
+    records = read_records(run_dir)
+    if len(records) != 1 or "val_miou" not in records[0]:
+        raise AssertionError(f"9j {label} metrics.jsonl: {records}")
+    log(f"9j {label} loop", model=f"ref:sparseconv3d/{entry}",
+        data_ref="s3disfused-sparse", flat=" ".join(flat) or "ladder",
+        params=sum(p.numel() for p in model.parameters()),
+        images=probe.train_images[0], **probe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_step=probe.step_launches[0], launches=launches,
+        val_miou=f"{records[0]['val_miou']:.2f}")
+    out["launches"][label] = launches
+    del probe
+    fwd, bwd = out["paths"][label] = family_kernels(
+        model, batch, f"9j {label} kernels", fwd_n, bwd_n)
+    log(f"9j {label} loop", forward_ms=f"{forward_ms(model, batch):.1f}",
+        **kernel_fields(fwd, bwd))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    metrics, eprobe, eval_launches = run_eval(cli_eval, [
+        "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
+        *flat], forward=fwd_n)
+    worst = check_doubled(eprobe, eprobe.votes.num_classes)
+    log(f"9j {label} eval", voting_runs=EVAL_VOTING_RUNS, **eprobe.summary(),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_batch=eprobe.step_launches[0], launches=eval_launches,
+        votes_twice_rel_err=f"{worst:.2e}",
+        **{k: f"{v:.3f}" for k, v in metrics.items()})
+    out["launches"][f"{label}_eval"] = eval_launches
+    del eprobe
+    torch.cuda.empty_cache()
+
+
+def ref_card_vs_cpu(spec) -> None:
+    """(a) at full width on a small flat request with mappings at every
+    level, card vs CPU: the bounds of phases 4 and 7; then, as 7g, one step
+    in float32 everywhere, held to the ``ALL_F32_*`` bounds, its update
+    against the CPU's with the card's max routing imposed (the trunk's five
+    atomic maxima behind bilinear taps route near ties apart), beside the
+    CPU against itself on half its threads."""
+    phase = "9j shared f32 card vs cpu"
+    np_batch, _ = make_request(0, "cuda", branch_levels=(0, 1, 2, 3, 4),
+                               **CHECK_REQUEST)
+    model = MultimodalSeg(spec, device="cuda", seed=0).eval()
+    phase_card_vs_cpu(model, np_batch, phase="9j shared card vs cpu")
+    phase_train_card_vs_cpu(model, np_batch,
+                            phase="9j shared train card vs cpu")
+    got = variant_steps(model, np_batch, 1, all_f32=True, routing=True,
+                        branch_changes={"tower_bf16": False})
+    (loss_err,), (norm_err,) = (
+        rel_errs(got["cuda"][k], got["cpu"][k]) for k in ("losses", "norms"))
+    log(phase, loss_rel_err=f"{loss_err:.3e}",
+        grad_norm_rel_err=f"{norm_err:.3e}")
+    for i, diff in enumerate(routing_differences(got["routing"]["cuda"],
+                                                 got["routing"]["cpu"])):
+        log(phase, routing="card/cpu", max_call=i, **diff)
+    card = got["cuda"]["params"]
+    log_update_gap(phase, card, got["cpu"]["params"], 0)
+    routed = log_update_gap(phase, card, got["cpu_card_routing"]["params"], 0,
+                            "cpu_card_routing")
+    log_update_gap(phase + " cpu", got["cpu_threads"]["params"],
+                   got["cpu"]["params"], 0, "cpu_half_threads")
+    if not (loss_err <= ALL_F32_LOSS_RTOL
+            and norm_err <= ALL_F32_GRAD_NORM_RTOL
+            and routed <= ALL_F32_UPDATE_RTOL):
+        raise AssertionError(f"{phase}: {loss_err}, {norm_err}, {routed}")
+    del model, got
+    torch.cuda.empty_cache()
+
+
 def phase_loop() -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
@@ -4509,13 +5053,14 @@ def phase_loop() -> dict:
         kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
         families = part("9h", loop_families, cli, cli_eval, tmp)
         pretrained = part("9i", loop_pretrained, cli, cli_eval, tmp)
+        reference = part("9j", loop_reference, cli, cli_eval, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
             "predict": predict, "s3dis": s3dis, "scannet": scannet,
             "kitti360": kitti360, "families": families,
-            "pretrained": pretrained}
+            "pretrained": pretrained, "reference": reference}
 
 
 def kernel_family(name: str) -> str:
@@ -4700,6 +5245,14 @@ def main() -> None:
     pre_launches = {(f"launches_loop_{k}" if k.startswith("pretrained")
                      or k == "pyramid" else f"launches_families_se_{k}"): v
                     for k, v in pre["launches"].items()}
+    # ``loop_reference_<model>``: the same sums over the calls of one forward
+    # / train step of phase 9j's first batch through each ``ref:`` model;
+    # ``launches_loop_reference_<run>``: the counts over 9j's train and eval
+    # runs of each
+    ref = loop["reference"]
+    ref_paths = {f"loop_reference_{k}": v for k, v in ref["paths"].items()}
+    ref_launches = {f"launches_loop_reference_{k}": v
+                    for k, v in ref["launches"].items()}
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -4714,7 +5267,8 @@ def main() -> None:
                "loop_kitti360_eval": kitti360_run["eval_forward"],
                **{k: v[0] for k, v in fam_paths.items()},
                **{k: (v if k == "loop_pretrained_eval" else v[0])
-                  for k, v in pre_paths.items()}},
+                  for k, v in pre_paths.items()},
+               **{k: v[0] for k, v in ref_paths.items()}},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -4733,7 +5287,8 @@ def main() -> None:
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr"],
               **{k: v["segment_csr"] for k, v in fam_launches.items()},
-              **{k: v["segment_csr"] for k, v in pre_launches.items()}),
+              **{k: v["segment_csr"] for k, v in pre_launches.items()},
+              **{k: v["segment_csr"] for k, v in ref_launches.items()}),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -4744,7 +5299,9 @@ def main() -> None:
                "loop_kitti360": kitti360_run["backward"],
                **{k: v[1] for k, v in fam_paths.items()},
                **{k: v[1] for k, v in pre_paths.items()
-                  if k != "loop_pretrained_eval"}},
+                  if k != "loop_pretrained_eval"},
+               **{k: v[1] for k, v in ref_paths.items()
+                  if v[1] is not None}},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -4765,7 +5322,8 @@ def main() -> None:
               launches_loop_kitti360_eval=kitti360_run["eval_launches"][
                   "segment_csr_bwd"],
               **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in pre_launches.items()}),
+              **{k: v["segment_csr_bwd"] for k, v in pre_launches.items()},
+              **{k: v["segment_csr_bwd"] for k, v in ref_launches.items()}),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -165,8 +165,25 @@ def load_run_config(path: Optional[str] = None,
 
 
 def _apply_data_ref(cfg: RunConfig) -> None:
-    """``data.ref`` ingests a published reference data YAML in the JAX
-    package; the ingest is not ported."""
-    raise NotImplementedError(
-        f"data.ref={cfg.data.ref!r}: reference data-YAML ingest is not ported "
-        "yet (ROADMAP A.2.3)")
+    """Merge a published reference data YAML (``data.ref=<name>``: a path,
+    or a name under ``$DVA_REFERENCE_DATA_CONF``) into the data section:
+    resolution, pixel credits, and the transform-chain parameterization
+    (``mapping_params`` / ``aug_params`` under ``data.kwargs``, beneath the
+    user's own ``data.kwargs``)."""
+    import os
+
+    from .reference_ingest import load_data_cfg
+
+    name = cfg.data.ref
+    base = os.environ.get(
+        "DVA_REFERENCE_DATA_CONF",
+        "/root/reference/conf/data/segmentation/multimodal")
+    path = name if os.path.exists(name) else os.path.join(
+        base, name if name.endswith(".yaml") else f"{name}.yaml")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"data.ref '{name}' not found at {path}")
+    ingested = load_data_cfg(path)
+    kw = ingested.pop("kwargs", {})
+    for k, v in ingested.items():
+        setattr(cfg.data, k, v)
+    cfg.data.kwargs = {**kw, **cfg.data.kwargs}

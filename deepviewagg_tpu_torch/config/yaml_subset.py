@@ -1,22 +1,31 @@
-"""A reader for the YAML subset of the run configurations.
+"""A reader for the YAML subset of the run configurations and of the
+reference's published Hydra / Torch-Points3D files.
 
-The card's machine has no PyYAML, so the port reads ``conf/*.yaml`` and the
-``key=value`` override values itself, always (not as a fallback).  The subset:
+The card's machine has no PyYAML, so the port reads ``conf/*.yaml``, the
+``key=value`` override values and the reference YAMLs of ``ref:`` models and
+``data.ref`` itself, always (not as a fallback).  The subset:
 
   * block mappings nested by indentation (``key: value`` / ``key:`` + a more
     indented block; an empty value with no block below is ``None``);
+  * block sequences (``- item``), of scalars, of flow values, of mappings
+    (``- transform: RandomNoise`` with ``params:`` on the next, more indented
+    lines) and of sequences (``- - a``, or ``-`` and a more indented block),
+    also at the indentation of the key that holds them (``defaults:`` then
+    ``- /data/segmentation/kitti360-sparse``);
   * ``#`` comments, whole-line or after whitespace, outside quotes;
-  * flow sequences and mappings, nested: ``[1024, 512]``, ``[]``,
-    ``{n_areas: 2, size: [64, 32]}``;
+  * flow sequences and mappings, nested, on one line or over several
+    (``down_conv_nn:`` then ``[`` ... ``[FEAT, 32], ...`` ... ``]``):
+    ``[1024, 512]``, ``[]``, ``{n_areas: 2, size: [64, 32]}``;
   * scalars resolved as PyYAML's ``safe_load`` resolves them (YAML 1.1):
     ``true``/``false`` (and ``yes``/``no``/``on``/``off``), ``null``/``~``,
     decimal / octal / hex / binary ints, floats with a dot (``1e-4`` without
     one stays a string, as in PyYAML), ``.inf`` / ``.nan``, bare and quoted
-    strings.
+    strings (``${data.resolution_2d}``, ``FEAT + l4``).
 
-Anything else (block sequences, anchors, tags, multi-line scalars,
-sexagesimal numbers, timestamps, several documents) raises ``ValueError``
-instead of being read differently from PyYAML.
+Anything else (anchors and aliases, tags, block scalars, multi-line plain or
+quoted scalars, sexagesimal numbers, timestamps, several documents, a plain
+scalar holding a flow indicator inside a flow collection) raises
+``ValueError`` instead of being read differently from PyYAML.
 """
 
 from __future__ import annotations
@@ -159,6 +168,9 @@ class _Flow:
             j += 1
         raw = t[self.i:j].strip()
         self.i = j
+        if stops and any(c in raw for c in "[]{}"):
+            # PyYAML ends a plain scalar at a flow indicator here
+            raise ValueError(f"flow indicator in plain scalar {raw!r}")
         return _scalar(raw)
 
     def _seq(self) -> List:
@@ -225,6 +237,58 @@ def _split_key(content: str):
     return _scalar(m.group(1).strip()), (m.group(2) or "").strip()
 
 
+def _is_item(content: str) -> bool:
+    """Whether a line's content opens a block sequence item."""
+    return content == "-" or content.startswith("- ")
+
+
+def _flow_end(text: str) -> int:
+    """Depth of the open ``[`` / ``{`` at the end of ``text`` (quotes
+    skipped); below zero when a bracket closes that did not open."""
+    depth, i, quote = 0, 0, None
+    while i < len(text):
+        c = text[i]
+        if quote:
+            if c == quote:
+                if quote == "'" and text[i + 1:i + 2] == "'":
+                    i += 1
+                else:
+                    quote = None
+            elif quote == '"' and c == "\\":
+                i += 1
+        elif c in "'\"" and (i == 0 or text[i - 1] in " \t[{,:"):
+            quote = c
+        elif c in "[{":
+            depth += 1
+        elif c in "]}":
+            depth -= 1
+        i += 1
+    return depth
+
+
+def _value(lines, i: int, text: str):
+    """The value ``text`` that starts on line ``i - 1``, with the following
+    lines of a flow collection that spans lines joined to it; returns
+    ``(value, index of the next line)``."""
+    if text[0] in "[{":
+        while _flow_end(text) > 0:
+            if i >= len(lines):
+                raise ValueError(f"unterminated flow collection {text!r}")
+            text += " " + lines[i][1]
+            i += 1
+    return _inline(text), i
+
+
+def _node(lines, i: int, indent: int):
+    """The block node whose first line ``lines[i]`` sits at ``indent``."""
+    content = lines[i][1]
+    if _is_item(content):
+        return _block_seq(lines, i, indent)
+    if _split_key(content) is not None:
+        return _block_map(lines, i, indent)
+    return _value(lines, i + 1, content)
+
+
 def safe_load(text: str) -> Any:
     """The value of a YAML document in the subset of the module docstring;
     ``None`` for an empty document."""
@@ -240,14 +304,33 @@ def safe_load(text: str) -> Any:
                           content.strip()))
     if not lines:
         return None
-    if _split_key(lines[0][1]) is None:
-        if len(lines) > 1:
-            raise ValueError("multi-line values are not supported")
-        return _inline(lines[0][1])
-    value, end = _block_map(lines, 0, lines[0][0])
+    value, end = _node(lines, 0, lines[0][0])
     if end != len(lines):
         raise ValueError(f"bad indentation at {lines[end][1]!r}")
     return value
+
+
+def _block_seq(lines, start: int, indent: int):
+    """The block sequence whose items start at ``indent``.  An item's text
+    after ``- `` is read as a node at its own column (a compact mapping or
+    sequence continues on the following lines at that column)."""
+    out = []
+    i = start
+    while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+        rest = lines[i][1][1:]
+        item = rest.lstrip(" ")
+        if item:
+            col = indent + 1 + len(rest) - len(item)
+            lines[i] = (col, item)
+            value, i = _node(lines, i, col)
+        elif i + 1 < len(lines) and lines[i + 1][0] > indent:
+            value, i = _node(lines, i + 1, lines[i + 1][0])
+        else:
+            value, i = None, i + 1
+        out.append(value)
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"bad indentation at {lines[i][1]!r}")
+    return out, i
 
 
 def _block_map(lines, start: int, indent: int):
@@ -260,9 +343,11 @@ def _block_map(lines, start: int, indent: int):
         key, rest = kv
         i += 1
         if rest:
-            out[key] = _inline(rest)
-        elif i < len(lines) and lines[i][0] > indent:
-            out[key], i = _block_map(lines, i, lines[i][0])
+            out[key], i = _value(lines, i, rest)
+        elif i < len(lines) and (lines[i][0] > indent or (
+                lines[i][0] == indent and _is_item(lines[i][1]))):
+            # a more indented block, or a sequence at the key's column
+            out[key], i = _node(lines, i, lines[i][0])
         else:
             out[key] = None
     if i < len(lines) and lines[i][0] > indent:

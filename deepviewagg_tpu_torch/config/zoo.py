@@ -2,9 +2,9 @@
 
 The port of ``deepviewagg_tpu/config/zoo.py``: the same names, grammar and
 specs.  Name resolution is pure data, so every name resolves and every
-zoo name builds; a tower that is not ported (``None``, ``reuse``,
-``shared:``) raises.  ``ref:`` names raise (reference ingest is not
-ported).  Every field of every spec is the JAX one; like the JAX
+zoo name builds; ``ref:<file>/<entry>`` names ingest a published reference
+YAML entry (:mod:`.reference_ingest`).  Every field of every spec is the
+JAX one; like the JAX
 ``_to_spec``, a zoo entry's ``head_dropout`` override is dropped (build a
 model with ``dataclasses.replace(spec, head_dropout=p)`` for MC dropout).
 The JAX docstring follows.
@@ -254,12 +254,14 @@ def get_model_spec(name: str, num_classes: int, in_channels: int = 4,
     the role of ``instantiate_model`` + ``resolve_model``
     (models/model_factory.py:8-46).
 
-    ``ref:<file>/<entry>`` names (reference YAML ingest) raise here.
-    ``overrides`` update the zoo entry before it becomes a spec."""
+    ``ref:<file>/<entry>`` ingests a published reference YAML entry
+    (:mod:`.reference_ingest`) from ``$DVA_REFERENCE_CONF`` (the
+    reference's ``conf/models/segmentation``): ``multimodal/<file>.yaml``
+    first, then ``<file>.yaml``, falling through only when the entry is
+    absent; its ``overrides`` apply by ``ModelSpec`` field name.  Other
+    names' ``overrides`` update the zoo entry before it becomes a spec."""
     if name.startswith("ref:"):
-        raise NotImplementedError(
-            f"model {name!r}: reference model-YAML ingest is not ported yet "
-            "(ROADMAP A.2.3)")
+        return _ref_spec(name, num_classes, in_channels, overrides)
     entry = MODEL_ZOO.get(name) or parse_model_name(name)
     if entry is None:
         # any Res16UNet preset name is a valid bare 3D-only backbone
@@ -277,6 +279,36 @@ def get_model_spec(name: str, num_classes: int, in_channels: int = 4,
     if overrides:
         entry.update(overrides)
     return _to_spec(entry, num_classes, in_channels)
+
+
+def _ref_spec(name: str, num_classes: int, in_channels: int,
+              overrides: Optional[dict]) -> ModelSpec:
+    """The spec of a ``ref:<file>/<entry>`` name (see get_model_spec)."""
+    import dataclasses as _dc
+    import os
+
+    from .reference_ingest import load_model_spec, load_yaml_doc
+
+    fname, entry_name = name[4:].split("/", 1)
+    base = os.environ.get("DVA_REFERENCE_CONF",
+                          "/root/reference/conf/models/segmentation")
+    candidates = [p for p in (f"{base}/multimodal/{fname}.yaml",
+                              f"{base}/{fname}.yaml") if os.path.exists(p)]
+    spec = None
+    for path in candidates:
+        # only fall through when the ENTRY is absent: genuine ingest errors
+        # (unknown DSL keys etc.) surface, not as a name typo
+        if entry_name in (load_yaml_doc(path) or {}):
+            spec = load_model_spec(path, entry_name, num_classes, in_channels)
+            break
+    if spec is None:
+        raise KeyError(f"entry '{entry_name}' not found for '{name}' "
+                       f"(searched {candidates})")
+    if overrides:
+        known = {f.name for f in _dc.fields(spec)}
+        spec = _dc.replace(
+            spec, **{k: v for k, v in overrides.items() if k in known})
+    return spec
 
 
 def resolve_spec_from_cfg(model_cfg, num_classes: int) -> ModelSpec:

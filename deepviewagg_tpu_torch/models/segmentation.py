@@ -115,10 +115,13 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
     ``resnet18_pyramid_raw`` (its raw tap concat), the ``resnet18_l<level>``
     truncations (7x7 or deep stem), ``scratch_unet`` (the reference-exact
     compact tower of ``tower_cfg``, weight-standardized with ``ws``),
-    ``unet2d_light`` (the light no3d UNet, 32 channels) and
-    ``unet2d[_<channels>]``.  ``norm``: ``'group'`` (GroupNorm, the ResNet
-    towers' convs weight-standardized) or ``'batch'`` (BatchNorm after plain
-    convs: the towers that take pretrained weights)."""
+    ``unet2d_light`` (the light no3d UNet, 32 channels),
+    ``unet2d[_<channels>]`` and ``None`` (no tower: the branch pools the
+    images' 3 channels).  ``"reuse"`` and ``"shared:<i>"`` are
+    :class:`MultimodalSeg`'s and raise ``KeyError`` here.  ``norm``:
+    ``'group'`` (GroupNorm, the ResNet towers' convs weight-standardized) or
+    ``'batch'`` (BatchNorm after plain convs: the towers that take
+    pretrained weights)."""
     if norm not in ("group", "batch"):
         raise ValueError(f"tower_norm {norm!r}")
     if name == "scratch_unet":
@@ -128,10 +131,10 @@ def make_tower(name: str, norm: str = "group", deep_stem: bool = False,
             raise ValueError("scratch_unet needs BranchSpec.tower_cfg")
         return (unetws_from_cfg(tower_cfg, norm=norm, ws=ws, device=device),
                 tower_cfg_out_channels(tower_cfg))
-    if name in (None, "reuse") or str(name).startswith("shared:"):
-        raise NotImplementedError(
-            f"tower {name!r} (the tower-less, reuse and shared-trunk "
-            "branches) is not ported yet (ROADMAP A.6)")
+    if name is None:
+        # tower-less branch: gather/pool the raw image channels (the
+        # reference's ModalityIdentity)
+        return None, 3
     if name == "resnet18_ppm":
         return towers.ResNet18PPM(out_channels=128, deep_stem=deep_stem,
                                   norm=norm, device=device), 128
@@ -171,12 +174,21 @@ def _check_branch(spec: BranchSpec) -> None:
         raise ValueError(f"set_encoder {spec.set_encoder!r}")
 
 
-def _branch(b: BranchSpec, channels_3d: int, device, **changes):
-    """The ``UnimodalBranch`` of a branch spec over its own tower."""
+def _spec_tower(b: BranchSpec, device):
+    """``make_tower`` of a branch spec's own tower."""
+    return make_tower(b.tower, b.tower_norm, b.tower_deep_stem,
+                      device=device, tower_cfg=b.tower_cfg, ws=b.tower_ws)
+
+
+def _branch(b: BranchSpec, channels_3d: int, device, feeds=None, **changes):
+    """The ``UnimodalBranch`` of a branch spec over its own tower, or,
+    with ``feeds`` (its channels), over no tower: it then takes feature
+    maps made outside it (a shared trunk's tap, a reused tower's maps)."""
     _check_branch(b)
-    tower, c2 = make_tower(b.tower, b.tower_norm, b.tower_deep_stem,
-                           device=device, tower_cfg=b.tower_cfg,
-                           ws=b.tower_ws)
+    if feeds is None:
+        tower, c2 = _spec_tower(b, device)
+    else:
+        tower, c2 = None, feeds
     kw = dict(
         atomic_reduce=b.atomic_reduce, view_pool=b.view_pool,
         num_groups=b.num_groups, use_mod=b.use_mod,
@@ -198,24 +210,61 @@ class MultimodalSeg(nn.Module):
     """DeepViewAgg: Res16UNet with image branches interleaved at encoder
     levels; ``forward(batch, generator=None)`` returns ``{"logits",
     "x_seen"}`` in training and eval mode alike.  ``generator`` feeds every
-    dropout (modality, 3D and head); without one they are the identity."""
+    dropout (modality, 3D and head); without one they are the identity.
+
+    Besides a branch with its own tower, the three kinds that only reference
+    ingest builds: a tower-less branch (``tower=None``: the raw image
+    channels, flat and crop-ladder batches alike), the shared trunk
+    (``spec.shared_tower``: ``shared_tower``, run once a forward, its tap
+    ``i`` feeding the branch that says ``"shared:<i>"``) and tower reuse
+    (``reuse_tower``, built from the first branch with a real tower and run
+    once a forward, feeding that branch and every ``"reuse"`` one).  These
+    branches own no ``tower``; shared and reuse take flat batches only."""
 
     def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if spec.shared_tower is not None:
-            raise NotImplementedError(
-                "shared_tower (the shared-trunk branches) is not ported yet "
-                "(ROADMAP A.6)")
         self.spec = spec
         self._ladder: Dict[str, nn.Module] = {}   # see _ladder_branch
         layers, planes, block = backbone_plan(spec)
         self.n_down = n_down = len(layers) // 2
         branch_at = spec.branch_levels()
+        # the branches fed from outside them, name -> ("shared", tap) or
+        # ("reuse",): see _feeds
+        self._fed: Dict[str, tuple] = {}
+        # shared progressive trunk (Res16Image families): ONE encoder runs
+        # once a forward; its stage-i tap is gathered/pooled at the level
+        # whose branch says tower="shared:i"
+        self._shared_by = self._reuse_by = None
+        if spec.shared_tower is not None:
+            widths, blocks, strides = spec.shared_tower
+            self._shared_by = next(b for _, b in spec.branches
+                                   if str(b.tower).startswith("shared:"))
+            self.shared_tower = towers.ConvDown2D(
+                tuple(widths), tuple(blocks), tuple(strides), device=device)
+        # single-tower reuse (XYZ-RGB-L4-all): the first real tower runs once
+        # a forward and every branch with a tower, the one that declares it
+        # included, gathers/pools its maps at its own level
+        if any(str(b.tower) == "reuse" for _, b in spec.branches):
+            self._reuse_by = next((b for _, b in spec.branches
+                                   if b.tower not in (None, "reuse")), None)
+            if self._reuse_by is None:
+                raise ValueError("tower-reuse branches need a branch with "
+                                 "a tower of its own")
+            self.reuse_tower, self._reuse_channels = _spec_tower(
+                self._reuse_by, device)
 
         def add_branches(level, c):
             for k, b in enumerate(branch_at.get(level, ())):
-                branch = _branch(b, c, device)
                 name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
+                feeds = None
+                if str(b.tower).startswith("shared:"):
+                    tap = int(b.tower[len("shared:"):])
+                    self._fed[name] = ("shared", tap)
+                    feeds = self.shared_tower.tap_channels[tap]
+                elif self._reuse_by is not None and b.tower is not None:
+                    self._fed[name] = ("reuse",)
+                    feeds = self._reuse_channels
+                branch = _branch(b, c, device, feeds=feeds)
                 setattr(self, name, branch)
                 c = branch.out_channels
             return c
@@ -249,7 +298,36 @@ class MultimodalSeg(nn.Module):
         ladder.training = branch.training
         return ladder
 
-    def _run_branches(self, level, x, batch, seen_all, generator):
+    def _feeds(self, batch, generator) -> Dict[str, Any]:
+        """The shared trunk's taps (``"shared"``) and the reused tower's
+        maps (``"reuse"``) of this forward, each run once; both need a
+        flat image batch.  Like the JAX model, a tap is the float32 output
+        of ``run_tower`` and is not cast again by the branch."""
+        images = batch.get("images")   # absent on crop-ladder batches
+        out: Dict[str, Any] = {}
+        if self.spec.shared_tower is not None:
+            if images is None:
+                raise ValueError(
+                    "shared_tower needs a flat image batch; crop-ladder "
+                    "(bucketed) collate is not supported with shared trunks")
+            sb = self._shared_by
+            out["shared"] = towers.run_tower(
+                self.shared_tower, images, self.training,
+                remat=sb.remat_tower, frozen=sb.frozen, bf16=sb.tower_bf16,
+                generator=generator)
+        if self._reuse_by is not None:
+            if images is None:
+                raise ValueError(
+                    "tower-reuse branches need a flat image batch; "
+                    "crop-ladder (bucketed) collate is not supported")
+            ob = self._reuse_by
+            out["reuse"] = towers.run_tower(
+                self.reuse_tower, images, self.training,
+                remat=ob.remat_tower, frozen=ob.frozen, bf16=ob.tower_bf16,
+                generator=generator)
+        return out
+
+    def _run_branches(self, level, x, batch, seen_all, feeds, generator):
         k = 0
         while True:
             name = f"branch_l{level}" if k == 0 else f"branch_l{level}_{k}"
@@ -264,7 +342,12 @@ class MultimodalSeg(nn.Module):
                     generator=generator)
             else:
                 images = batch["images"]
-                x, seen = branch(x, images, mm,
+                fed = self._fed.get(name)
+                maps = (images if fed is None else feeds["reuse"]
+                        if fed[0] == "reuse" else feeds["shared"][fed[1]])
+                # pixel coords live at the images' size; the gather
+                # rescales them to a tap's
+                x, seen = branch(x, maps, mm,
                                  (images.shape[1], images.shape[2]),
                                  generator=generator)
             seen_all = seen if seen_all is None else (seen_all | seen)
@@ -274,13 +357,15 @@ class MultimodalSeg(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         graph = batch["graph"]
-        x, x_seen = self._run_branches(0, batch["feats"], batch, None,
+        feeds = self._feeds(batch, generator)
+        x, x_seen = self._run_branches(0, batch["feats"], batch, None, feeds,
                                        generator)
         x = self.stem(x, graph)
         skips = [x]
         for i in range(self.n_down):
             x = getattr(self, f"down{i}")(x, graph, i)
-            x, _ = self._run_branches(i + 1, x, batch, None, generator)
+            x, _ = self._run_branches(i + 1, x, batch, None, feeds,
+                                      generator)
             if i < self.n_down - 1:
                 skips.append(x)
         for j in range(self.n_down):

@@ -74,7 +74,10 @@ class UnimodalBranch(nn.Module):
     """One image branch at one fusion point.
 
     ``tower`` is a module mapping channels-first images to feature maps with
-    ``tower_channels`` channels; ``channels_3d`` is the width of the 3D
+    ``tower_channels`` channels, or None: the branch then gathers from
+    ``images`` as given (``[I, Wf, Hf, tower_channels]``: raw images, a
+    shared trunk's tap or a reused tower's maps, pixel coordinates rescaled
+    from ``ref_size``); ``channels_3d`` is the width of the 3D
     stream it fuses into (0 where there is none: the no3d family).
     ``view_pool`` picks the aggregation: ``'group'`` (the paper's attention),
     ``'qkv'`` (queries from the 3D stream), ``'heuristic'`` (the closest
@@ -83,7 +86,7 @@ class UnimodalBranch(nn.Module):
     the view-level extras ``{x_view, attention, view_point_id, view_valid}``.
     """
 
-    def __init__(self, tower: nn.Module, tower_channels: int,
+    def __init__(self, tower: Optional[nn.Module], tower_channels: int,
                  channels_3d: int, out_channels: int,
                  atomic_reduce: str = "max", view_pool: str = "group",
                  num_groups: int = 1,
@@ -152,11 +155,16 @@ class UnimodalBranch(nn.Module):
         if x_3d is not None:
             num_points = x_3d.shape[0]
 
-        feats_2d = run_tower(self.tower, images, self.training,
-                             remat=self.remat_tower, frozen=self.frozen,
-                             bf16=self.tower_bf16,
-                             out_f32=not (self.pool_bf16 and self.tower_bf16),
-                             generator=generator)
+        if self.tower is None:
+            # the images themselves, or maps made outside the branch (a
+            # shared trunk's tap), as they come: no bf16 policy
+            feats_2d = images
+        else:
+            feats_2d = run_tower(
+                self.tower, images, self.training, remat=self.remat_tower,
+                frozen=self.frozen, bf16=self.tower_bf16,
+                out_f32=not (self.pool_bf16 and self.tower_bf16),
+                generator=generator)
 
         # --- pixels -> views (atomic pool) -------------------------------
         pix_feats = gather_pixel_features(feats_2d, mapping, ref_size,

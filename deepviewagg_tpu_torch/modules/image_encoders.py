@@ -4,7 +4,8 @@ with BatchNorm for converted pretrained weights.
 The port of ``deepviewagg_tpu/modules/image_encoders.py`` (``Conv2dWS``,
 ``f32_convs``, ``run_tower``, ``_Norm``, ``_BasicBlock2d``, ``ResNet18``,
 ``PPM``, ``ResNet18PPM``, ``ResNet18Pyramid``, ``PersistentDropout2d``,
-``UNet2D``; the reference's modules/multimodal/modalities/image.py).
+``UNet2D``, ``ConvDown2D``; the reference's
+modules/multimodal/modalities/image.py).
 Public tensors keep the JAX layout ``[I, W, H, C]`` (W before H); the
 towers run channels-first ``[I, C, W, H]`` inside.  Sub-modules carry the
 flax auto-names so :mod:`deepviewagg_tpu_torch.utils.from_jax` maps
@@ -34,7 +35,7 @@ from torch import nn
 
 __all__ = ["BatchNorm", "Conv2dWS", "ResNet18", "PPM", "ResNet18PPM",
            "ResNet18Pyramid", "ChannelDropout", "PersistentDropout2d",
-           "UNet2D", "OUT_CHANNELS", "f32_convs", "run_tower"]
+           "UNet2D", "ConvDown2D", "OUT_CHANNELS", "f32_convs", "run_tower"]
 
 # channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
 # stem gives 128 at level 0)
@@ -460,6 +461,45 @@ class UNet2D(nn.Module):
             getattr(self, f"Conv2dWS_{i}")(x)))
 
 
+class ConvDown2D(nn.Module):
+    """Configurable GN+WS conv-ResBlock trunk with per-stage taps (the JAX
+    ``ConvDown2D``): the reference's generic ``ResNetDown`` image encoder as
+    the Res16Image families configure it (``image.down_conv``: per-stage
+    out widths, residual-block counts and strides; GroupNorm + weight
+    standardization).  Stage ``i`` is ``stage{i}_conv`` (3x3, its stride) +
+    ``stage{i}_norm`` + relu, then ``stage{i}_block{b}`` basic blocks.
+    Returns the TUPLE of per-stage maps, so one trunk feeds gather/pool
+    taps at successive 3D levels.  Channels-first in and out."""
+
+    def __init__(self, widths: Sequence[int] = (32, 32, 64, 128, 256),
+                 blocks: Sequence[int] = (0, 2, 2, 2, 2),
+                 strides: Sequence[int] = (1, 2, 2, 2, 2),
+                 norm: str = "group", in_channels: int = 3, device=None):
+        super().__init__()
+        self.plan = tuple(zip(widths, blocks, strides))
+        c = in_channels
+        for i, (w, n, s) in enumerate(self.plan):
+            setattr(self, f"stage{i}_conv", Conv2dWS(
+                c, w, (3, 3), (s, s), standardize=norm == "group",
+                device=device))
+            setattr(self, f"stage{i}_norm", _Norm(w, norm, device=device))
+            for b in range(n):
+                setattr(self, f"stage{i}_block{b}",
+                        _BasicBlock2d(w, w, norm=norm, device=device))
+            c = w
+        self.tap_channels = tuple(int(w) for w in widths)
+
+    def forward(self, x):
+        taps = []
+        for i, (_, n, _) in enumerate(self.plan):
+            x = F.relu(getattr(self, f"stage{i}_norm")(
+                getattr(self, f"stage{i}_conv")(x)))
+            for b in range(n):
+                x = getattr(self, f"stage{i}_block{b}")(x)
+            taps.append(x)
+        return tuple(taps)
+
+
 def _save_only_convs(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat='convs'``: the outputs of the
     convolutions are kept, everything else is recomputed."""
@@ -473,11 +513,12 @@ def _save_only_convs(ctx, op, *args, **kwargs):
 def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
               remat=False, frozen: bool = False, bf16: bool = True,
               out_f32: bool = True,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None):
     """Tower driver of the branch: ``images [I, W, H, 3]`` ->
-    ``[I, Wf, Hf, C]``.  ``bf16`` runs the activations in bf16 (parameters
-    and conv accumulation stay float32); the output is float32 unless
-    ``out_f32`` is False.
+    ``[I, Wf, Hf, C]``, or the tuple of such maps of a tower that returns
+    several taps (:class:`ConvDown2D`).  ``bf16`` runs the activations in
+    bf16 (parameters and conv accumulation stay float32); every output is
+    float32 unless ``out_f32`` is False.
 
     ``remat`` is ``False`` (autograd keeps every activation), ``True`` (the
     backward pass runs the whole tower forward again: one more tower forward
@@ -545,7 +586,11 @@ def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
         y = call(x, *masks)
     for bn, mean, var in runs[0]:
         bn.update(mean, var)
-    y = y.permute(0, 2, 3, 1)
-    if out_f32:
-        y = y.to(torch.float32)
-    return y.contiguous()
+
+    def channels_last(t):
+        t = t.permute(0, 2, 3, 1)
+        return (t.to(torch.float32) if out_f32 else t).contiguous()
+
+    if isinstance(y, tuple):
+        return tuple(channels_last(t) for t in y)
+    return channels_last(y)

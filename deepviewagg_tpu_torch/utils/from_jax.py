@@ -31,7 +31,10 @@ KITTI-360 PointPyramid's five) map by those names both ways, as do the no3d
 and late-fusion families' ``branch``, ``branch_<k>``, ``backbone``,
 ``head``, ``head3d``, ``head2d[_<k>]`` and ``mix``, the QKV pool's
 ``e_main`` / ``key_enc`` / ``e_mod`` / ``e_mix_k`` / ``e_mix_q`` / ``q`` /
-``k`` and the scratch towers' ``down<i>`` / ``up<i>`` / ``last``; a branch's
+``k``, the scratch towers' ``down<i>`` / ``up<i>`` / ``last``, the shared
+trunk's ``shared_tower/stage<i>_conv`` / ``stage<i>_norm`` /
+``stage<i>_block<b>`` and the reused tower's ``reuse_tower/...`` (a
+tower-less, shared-tap or reuse branch owns no ``tower``); a branch's
 crop-ladder wrapper is not a module and owns no parameter.
 """
 

@@ -362,14 +362,35 @@ def test_other_set_encoders_have_the_jax_parameter_count(set_encoder):
 
 
 def test_tower_less_and_shared_branches_stay_refused():
+    """Each of the ingest-only towers builds now: ``None`` (no tower: the
+    branch pools the images' 3 channels), ``"reuse"`` (beside a branch
+    with a tower of its own, which feeds both from one ``reuse_tower``)
+    and ``"shared:0"`` (a tap of ``spec.shared_tower``); none of their
+    branches owns a ``tower``.  The name is kept from when they were
+    refused."""
     spec = tzoo.get_model_spec("Res16UNet14-L1-early-group2", 4, 4,
                                {"backbone": "Res16UNetTest"})
-    for tower in (None, "reuse", "shared:0"):
-        bad = dataclasses.replace(spec, branches=tuple(
-            (lvl, dataclasses.replace(b, tower=tower))
-            for lvl, b in spec.branches))
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            tseg.build_model(bad, device="cpu")
+    (lvl, b), = spec.branches
+    variants = {
+        None: dict(branches=((lvl, dataclasses.replace(b, tower=None)),)),
+        "reuse": dict(branches=((lvl, b), (2, dataclasses.replace(
+            b, tower="reuse")))),
+        "shared:0": dict(shared_tower=((16,), (1,), (1,)),
+                         branches=((lvl, dataclasses.replace(
+                             b, tower="shared:0")),)),
+    }
+    for tower, changes in variants.items():
+        model = tseg.build_model(dataclasses.replace(spec, **changes),
+                                 device="cpu")
+        assert isinstance(model, tseg.MultimodalSeg)
+        assert not any(getattr(br, "tower", None) is not None
+                       for name, br in model.named_children()
+                       if name.startswith("branch"))
+        assert hasattr(model, "reuse_tower") == (tower == "reuse")
+        assert hasattr(model, "shared_tower") == (tower == "shared:0")
+    with pytest.raises(ValueError, match="a tower of its own"):
+        tseg.build_model(dataclasses.replace(spec, branches=((lvl, (
+            dataclasses.replace(b, tower="reuse"))),)), device="cpu")
 
 
 # --- cli.train + cli.eval on the CPU -----------------------------------------
