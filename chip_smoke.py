@@ -245,6 +245,28 @@ exit) on any fault:
                   first forward and backward against plain; (a) card vs CPU
                   at phases 4 / 7's bounds and in float32 at 7g's; then
                   ``cli.scale_rehearsal`` at its defaults
+  10. parallel  data and view parallelism (``deepviewagg_tpu_torch/
+              parallel/``), the flagship at full width:
+              10a NCCL in this process at world 1 (``torch.cuda.
+                  device_count()`` is 1 on a one-card machine, and NCCL
+                  refuses two ranks on one card): ``data_parallel_step``
+                  on the bench request against the plain step from the
+                  same weights (the loss equal, the update within the
+                  plain step's own run-to-run gap), 6 + 5 launches, every
+                  segment call of that step held against its plain version
+                  and timed; step ms of both; one all-reduce of the 202 MB
+                  of gradients and the step's bucketed mean; the
+                  collectives' NCCL paths; then ``cli.train`` with
+                  ``training.data_parallel=true`` on 9e's layout (4 steps
+                  and an eval), resumed for one step, the restore bit-equal
+              10b two gloo ranks in spawned processes, the model on the
+                  card, float32 everywhere at 7g's bounds: data parallel on
+                  the bench request and a variant of it (the same voxels,
+                  other labels, colours and images) against one process on
+                  their union, both ranks bit-equal; the batches swapped
+                  (the loss within 1e-6); view parallel 1 x 2 against one
+                  process on the bench request; which collectives gloo runs
+                  on CUDA tensors
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -266,7 +288,10 @@ and eval batches and ``families_se_<model>`` for each 9i model that launches
 a kernel, ``loop_reference_<model>`` for 9j's first train batch through each
 ``ref:`` model;
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
-predictions).  Needs a CUDA card,
+predictions; ``parallel_dp``: the sums over the calls of 10a's
+data-parallel step, ``launches_parallel_dp`` its counts,
+``launches_loop_parallel`` the counts over 10a's ``cli.train`` run).
+Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
 
@@ -5024,14 +5049,12 @@ def ref_card_vs_cpu(spec) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_loop() -> dict:
+def phase_loop(tmp: Path) -> dict:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
-    under a temporary directory that is deleted afterwards."""
+    under ``tmp``."""
     from deepviewagg_tpu_torch.cli import eval as cli_eval
     from deepviewagg_tpu_torch.cli import train as cli
-
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
 
     def part(name, fn, *args):
         """``fn(*args)``, its seconds on the host clock logged."""
@@ -5041,26 +5064,497 @@ def phase_loop() -> dict:
         log("9 loop", part=name, seconds=f"{time.perf_counter() - t0:.1f}")
         return out
 
-    try:
-        quick = part("9a", loop_quick, cli, tmp)
-        recipe = part("9b", loop_recipe, cli, tmp)
-        evaluation = part("9c", loop_eval, cli_eval, tmp)
-        part("9c'", loop_mc_dropout, cli_eval, tmp)
-        part("9c''", loop_eval_card_vs_cpu, cli_eval, tmp)
-        predict = part("9d", loop_predict, tmp)
-        s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
-        scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
-        kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
-        families = part("9h", loop_families, cli, cli_eval, tmp)
-        pretrained = part("9i", loop_pretrained, cli, cli_eval, tmp)
-        reference = part("9j", loop_reference, cli, cli_eval, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        torch.cuda.empty_cache()
+    quick = part("9a", loop_quick, cli, tmp)
+    recipe = part("9b", loop_recipe, cli, tmp)
+    evaluation = part("9c", loop_eval, cli_eval, tmp)
+    part("9c'", loop_mc_dropout, cli_eval, tmp)
+    part("9c''", loop_eval_card_vs_cpu, cli_eval, tmp)
+    predict = part("9d", loop_predict, tmp)
+    s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
+    scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
+    kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
+    families = part("9h", loop_families, cli, cli_eval, tmp)
+    pretrained = part("9i", loop_pretrained, cli, cli_eval, tmp)
+    reference = part("9j", loop_reference, cli, cli_eval, tmp)
     return {"quick": quick, "recipe": recipe, "eval": evaluation,
             "predict": predict, "s3dis": s3dis, "scannet": scannet,
             "kitti360": kitti360, "families": families,
             "pretrained": pretrained, "reference": reference}
+
+
+# phase 10: data and view parallelism (deepviewagg_tpu_torch/parallel/).
+# 10a runs NCCL in this process at world 1 (the script needs one card, and
+# NCCL refuses two ranks on one card): the flagship's
+# data-parallel step on the bench request against the plain step from the
+# same weights (the loss equal, the update within the plain step's own
+# run-to-run gap on the card), the step ms of both, one all-reduce of the
+# flagship's 202 MB of gradients, the collectives' NCCL paths, then
+# cli.train with training.data_parallel=true on 9e's layout
+# (PARALLEL_LOOP: 4 steps of the S3DIS recipe and an eval), resumed for one
+# step (PARALLEL_RESUME) with the restore checked bit for bit.  10b holds
+# the two-rank arithmetic in GLOO_WORLD spawned gloo ranks with the model on
+# the one card, float32 everywhere at 7g's bounds: data parallel on the bench
+# request and a variant of it (the same voxels and mapping, so the same
+# valid counts, with other labels, colours and images) against one process
+# on their union; the batches swapped; view parallel (1 x 2) against one
+# process on the bench request.
+PARALLEL_TIMED_STEPS = 3
+PARALLEL_SPHERES = 16                  # 4 steps of batch 4
+PARALLEL_LOOP = ("training.epochs=1",
+                 f"data.samples_per_epoch={PARALLEL_SPHERES}",
+                 "training.eval_frequency=1",
+                 "data.kwargs={fold: 5, keep_raw: true}",
+                 "training.data_parallel=true")
+PARALLEL_RESUME = ("data.samples_per_epoch=4", "training.eval_frequency=2",
+                   "training.resume=true")
+ALLREDUCE_ITERS = 5
+GLOO_WORLD = 2
+GLOO_TIMEOUT_S = 300
+SWAP_RTOL = 1e-6                       # two ranks' sums, in either order
+# 10a: the card's updates are not bit-reproducible (the atomic index_add_
+# backward of the pixel gather): two plain steps' updates differed by
+# 1.8e-3 to 3.3e-3 relative on an H100, and a pair of runs can also be
+# bit-equal, so the DP step's update is held to three times the plain
+# pair's gap, at least DP_UPDATE_FLOOR (three times the larger gap)
+DP_UPDATE_FLOOR = 1e-2
+_CARD = []
+
+
+def card_tag() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0].replace(" ", "_"))
+    return _CARD[0]
+
+
+def sgd_state(model):
+    """Phase 6's optimizer (SGD + momentum 0.9, LR 0.1, weight decay 1e-4,
+    clip 10) bound to ``model``."""
+    return TrainState.create(model, make_optimizer(
+        make_schedule("constant", 0.1), grad_clip=10.0))
+
+
+def update_of(model, start: dict) -> torch.Tensor:
+    """The parameters' update since ``start``, flat, float64."""
+    return torch.cat([(p.detach() - start[k]).double().flatten()
+                      for k, p in model.named_parameters()])
+
+
+def record_step_calls(step, state, batch) -> tuple:
+    """``step(state, batch, None)`` with every ``segment_csr`` call (inputs
+    cloned) and every ``segment_csr_bwd`` call recorded."""
+    fwd, bwd = [], []
+    inner_f, inner_b = seg.segment_csr, seg.segment_csr_bwd
+
+    def rf(x, ptr, valid, reduce):
+        fwd.append((x.detach().clone(), ptr.clone(),
+                    None if valid is None else valid.clone(), reduce))
+        return inner_f(x, ptr, valid, reduce)
+
+    def rb(g, x, out, ptr, valid, reduce, num_rows=None):
+        bwd.append((g.clone(), x, out, ptr, valid, reduce, num_rows))
+        return inner_b(g, x, out, ptr, valid, reduce, num_rows)
+
+    seg.segment_csr, seg.segment_csr_bwd = rf, rb
+    try:
+        state, metrics = step(state, batch, None)
+    finally:
+        seg.segment_csr, seg.segment_csr_bwd = inner_f, inner_b
+    torch.cuda.synchronize()
+    return state, metrics, fwd, bwd
+
+
+def timed_steps(step, state, batch, n: int) -> float:
+    """Mean host ms of ``n`` steps, each closed by a synchronisation."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, None)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times))
+
+
+def nccl_collectives(col) -> None:
+    """The collectives' NCCL paths at world 1 (all_gather_into_tensor,
+    reduce_scatter_tensor, all_reduce), forward and gradient."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(3, 5, device="cuda", generator=g, requires_grad=True)
+    w = torch.randn(3, 5, device="cuda", generator=g)
+    y = col.all_gather_blocks(x)
+    z = col.all_reduce_sum(x)
+    ((y + z) * w).sum().backward()
+    if not (torch.equal(y, x) and torch.equal(z, x)
+            and torch.equal(x.grad, 2 * w)):
+        raise AssertionError("10a: NCCL collectives at world 1 are not the "
+                             "identity")
+
+
+def parallel_step_check(model, np_batch) -> dict:
+    """10a at the library level (see PARALLEL_*): returns the kernels'
+    sums over the DP step's segment calls and its launch counts."""
+    import torch.distributed as dist
+
+    from deepviewagg_tpu_torch.parallel import collectives as col
+    from deepviewagg_tpu_torch.parallel import mesh as pmesh
+
+    batch = batch_to_torch(np_batch, "cuda")
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    mesh = pmesh.make_mesh()
+    plain = []
+    for _ in range(2):
+        m = copy.deepcopy(model).train()
+        state = sgd_state(m)
+        step = make_train_step(m)
+        state, metrics = step(state, batch, None)
+        torch.cuda.synchronize()
+        plain.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                      update_of(m, start)))
+        plain_ms = timed_steps(step, state, batch, PARALLEL_TIMED_STEPS)
+        del m, state, step
+    m = copy.deepcopy(model).train()
+    pmesh.replicate(m, mesh)
+    state = sgd_state(m)
+    step = pmesh.data_parallel_step(
+        make_train_step(m, group=mesh.data_group), mesh)
+    zero_launches()
+    state, metrics, fwd_calls, bwd_calls = record_step_calls(step, state,
+                                                             batch)
+    launches = dict(seg.LAUNCHES)
+    if launches != {"segment_csr": FORWARD_LAUNCHES,
+                    "segment_csr_bwd": BACKWARD_LAUNCHES}:
+        raise AssertionError(f"10a dp step launches {launches}")
+    loss, gnorm, upd = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        update_of(m, start))
+    gap = norm_rel(plain[1][2], plain[0][2])
+    dp_gap = norm_rel(upd, plain[0][2])
+    loss_gap = abs(plain[1][0] - plain[0][0])
+    if abs(loss - plain[0][0]) > loss_gap + 1e-6 * abs(plain[0][0]) \
+            or dp_gap > max(3 * gap, DP_UPDATE_FLOOR):
+        raise AssertionError(f"10a dp vs plain: loss {loss} vs {plain[0][0]}"
+                             f" (plain gap {loss_gap}), update {dp_gap} vs "
+                             f"the plain steps' own gap {gap}")
+    dp_ms = timed_steps(step, state, batch, PARALLEL_TIMED_STEPS)
+    # one all-reduce of the gradients as one flat buffer, and the step's
+    # bucketed mean (flatten, all-reduce, divide, copy back)
+    grads = [p.grad for p in m.parameters() if p.grad is not None]
+    flat = torch.cat([g.flatten() for g in grads])
+    ar_ms = time_ms(lambda: dist.all_reduce(flat), ALLREDUCE_ITERS)
+    mean_ms = time_ms(lambda: col.all_reduce_mean_(grads), ALLREDUCE_ITERS)
+    nccl_collectives(col)
+    log("10a dp step", card=card_tag(), backend=dist.get_backend(),
+        world=dist.get_world_size(), devices=torch.cuda.device_count(),
+        params=sum(p.numel() for p in m.parameters()),
+        loss_dp=f"{loss:.7f}", loss_plain=f"{plain[0][0]:.7f}/"
+        f"{plain[1][0]:.7f}", loss_bit_equal=loss == plain[0][0],
+        grad_norm_dp=f"{gnorm:.6f}", grad_norm_plain=f"{plain[0][1]:.6f}",
+        update_rel_gap_dp=f"{dp_gap:.3e}",
+        update_rel_gap_plain_runs=f"{gap:.3e}",
+        step_ms_plain=f"{plain_ms:.1f}", step_ms_dp=f"{dp_ms:.1f}",
+        launches=launches, nccl_identity=True)
+    log("10a allreduce", card=card_tag(), bytes=flat.numel() * 4,
+        all_reduce_ms=f"{ar_ms:.3f}", bucketed_mean_ms=f"{mean_ms:.3f}",
+        buckets=-(-flat.numel() * 4 // col.BUCKET_BYTES),
+        gb_per_s=f"{flat.numel() * 4 / ar_ms / 1e6:.1f}")
+    del state, step, grads, flat
+    fwd = measure_forward_calls(fwd_calls, "10a dp kernels",
+                                "calls_per_forward", FAMILY_TIME_ITERS)
+    bwd = measure_backward_calls(bwd_calls, "10a dp kernels",
+                                 FAMILY_TIME_ITERS)
+    del m, fwd_calls, bwd_calls
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd, "launches": launches}
+
+
+def loop_parallel(cli, tmp: Path) -> dict:
+    """10a through the entry point: ``cli.train`` with
+    ``training.data_parallel=true`` on 9e's layout in this process's
+    process group, then resumed."""
+    root = tmp / "s3dis_raw"
+    if not (root / "Area_5").exists():
+        write_s3dis_layout(root)
+    run_dir = tmp / "parallel_run"
+    args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
+            f"data.root={root}", f"training.run_dir={run_dir}",
+            "training.tensorboard=false", *PARALLEL_LOOP]
+    zero_launches()
+    with LoopProbe() as probe:
+        cli.main(args)
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("10a parallel loop")
+    mesh = probe.trainer.mesh
+    records = read_records(run_dir)
+    if (mesh is None or len(probe.losses) != PARALLEL_SPHERES // 4
+            or len(records) != 1 or "val_miou" not in records[0]
+            or not (run_dir / "latest.pt").exists()):
+        raise AssertionError(f"10a parallel loop: mesh {mesh}, "
+                             f"{len(probe.losses)} steps, {records}")
+    log("10a parallel loop", card=card_tag(), world=mesh.n_data,
+        **probe.summary(), launches=launches,
+        val_miou=f"{records[0]['val_miou']:.2f}")
+    saved = torch.load(run_dir / "latest.pt", map_location="cpu",
+                       weights_only=True)
+    restored = []
+    with LoopProbe(on_fit=lambda tr: restored.append(
+            state_matches(tr, saved))) as resumed:
+        cli.main(args + list(PARALLEL_RESUME))
+    resumed.check_steps("10a parallel resume")
+    if restored != [[]]:
+        raise AssertionError(f"10a resume: restored state differs {restored}")
+    log("10a parallel resume", card=card_tag(), restored_bit_equal=True,
+        saved_step=saved["step"], steps=len(resumed.losses),
+        step_ms=resumed.summary()["first_step_ms"])
+    return launches
+
+
+def variant_samples(samples, num_classes: int) -> list:
+    """The same voxels and mapping (so the same valid counts) with other
+    labels, colours and images."""
+    out = []
+    for s in samples:
+        lab = s.labels
+        out.append(dataclasses.replace(
+            s, labels=np.where(lab >= 0, (lab + 1) % num_classes, lab),
+            feats=np.concatenate([np.roll(s.feats[:, :3], 1, axis=1),
+                                  s.feats[:, 3:]], axis=1),
+            images=np.roll(s.images, 1, axis=-1)))
+    return out
+
+
+def state_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gloo_collectives() -> dict:
+    """Which collectives gloo runs on CUDA tensors (True) or refuses (the
+    error's type)."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(GLOO_WORLD)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * GLOO_WORLD, device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // GLOO_WORLD, device="cuda"), x),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = True
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = type(e).__name__
+    return out
+
+
+def gloo_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of 10b's gloo ranks, a spawned process with the model on the
+    card: data parallel on the two batches, then swapped, then view
+    parallel on the first; writes ``rank<r>.pt``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from deepviewagg_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=GLOO_WORLD,
+        rank=rank, timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    try:
+        with open(Path(out_dir) / "batches.pkl", "rb") as f:
+            batches = [batch_to_torch(b, "cuda") for b in pickle.load(f)]
+        res = {"gloo_cuda": gloo_collectives()}
+        model = MultimodalSeg(flagship_spec(), device="cuda", seed=0)
+        res["start_digest"] = state_digest(model)
+        start_sd = copy.deepcopy(model.state_dict())
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        with f32_everywhere():
+            for name, order, n_model in (("dp", (0, 1), 1),
+                                         ("swapped", (1, 0), 1),
+                                         ("hybrid", (0, 0), 2)):
+                model.load_state_dict(start_sd)
+                mesh = (pmesh.make_hybrid_mesh(n_model) if n_model > 1
+                        else pmesh.make_mesh())
+                state = sgd_state(model.train())
+                if n_model > 1:
+                    step = pmesh.hybrid_parallel_step(
+                        make_train_step(model, group=mesh.world), mesh)
+                else:
+                    step = pmesh.data_parallel_step(
+                        make_train_step(model, group=mesh.data_group), mesh)
+                t0 = time.perf_counter()
+                state, m = step(state, batches[order[mesh.data_rank]], None)
+                torch.cuda.synchronize()
+                res[name] = {"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "digest": state_digest(model),
+                             "ms": (time.perf_counter() - t0) * 1e3}
+                if rank == 0 and name != "swapped":
+                    res[name]["update"] = update_of(model, start).float().cpu()
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def one_process_step(model, np_batch) -> dict:
+    """One float32-everywhere SGD step of a copy of ``model`` on the card."""
+    m = copy.deepcopy(model).train()
+    start = {k: p.detach().clone() for k, p in m.named_parameters()}
+    with f32_everywhere():
+        _, metrics = make_train_step(m)(sgd_state(m),
+                                        batch_to_torch(np_batch, "cuda"), None)
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "update": update_of(m, start).float().cpu()}
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gloo(model, tmp: Path) -> None:
+    """10b: GLOO_WORLD spawned gloo ranks on the one card against one
+    process (this one) on the union batch and on the first batch."""
+    import multiprocessing
+    import pickle
+
+    from deepviewagg_tpu_torch.data.collate import collate
+    from deepviewagg_tpu_torch.data.toy import toy_batch
+
+    batch_a, bucket, samples = toy_batch(seed=0, device="cuda",
+                                         **SERVE_REQUEST)
+    other = variant_samples(samples, model.spec.num_classes)
+    batch_b = collate(other, bucket, branch_levels=(0,))
+    union_bucket = dataclasses.replace(
+        bucket, level_caps=[c * 2 for c in bucket.level_caps],
+        num_batches=bucket.num_batches * 2, view_cap=bucket.view_cap * 2,
+        pix_cap=bucket.pix_cap * 2, image_cap=bucket.image_cap * 2)
+    union = collate(samples + other, union_bucket, branch_levels=(0,))
+    if valid_voxels(batch_a) != valid_voxels(batch_b) or \
+            valid_voxels(union) != 2 * valid_voxels(batch_a):
+        raise AssertionError("10b: the batches' valid counts differ")
+    out_dir = tmp / "gloo"
+    out_dir.mkdir()
+    with open(out_dir / "batches.pkl", "wb") as f:
+        pickle.dump([{k: v for k, v in b.items() if k != "meta"}
+                     for b in (batch_a, batch_b)], f)
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank, args=(r, port, str(out_dir)))
+             for r in range(GLOO_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        ref_union = one_process_step(model, union)
+        ref_a = one_process_step(model, batch_a)
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > GLOO_TIMEOUT_S:
+                raise AssertionError(
+                    f"10b gloo ranks: exit codes "
+                    f"{[p.exitcode for p in procs]}")
+            time.sleep(0.1)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"10b gloo ranks: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    got = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+           for r in range(GLOO_WORLD)]
+    if {g["start_digest"] for g in got} != {state_digest(model)}:
+        raise AssertionError("10b: the ranks' seeded weights differ from "
+                             "this process's")
+    for name in ("dp", "swapped", "hybrid"):
+        if len({g[name]["digest"] for g in got}) != 1 or \
+                len({g[name]["loss"] for g in got}) != 1:
+            raise AssertionError(f"10b {name}: the ranks differ after the "
+                                 "step")
+    checks = {}
+    for name, ref in (("dp", ref_union), ("hybrid", ref_a)):
+        mine = got[0][name]
+        checks[name] = dict(
+            loss=abs(mine["loss"] - ref["loss"]) / abs(ref["loss"]),
+            grad_norm=abs(mine["grad_norm"] - ref["grad_norm"])
+            / ref["grad_norm"],
+            update=norm_rel(mine["update"], ref["update"]))
+        c = checks[name]
+        if not (c["loss"] <= ALL_F32_LOSS_RTOL
+                and c["grad_norm"] <= ALL_F32_GRAD_NORM_RTOL
+                and c["update"] <= ALL_F32_UPDATE_RTOL):
+            raise AssertionError(f"10b {name} vs one process: {c}")
+    swap = abs(got[0]["swapped"]["loss"] - got[0]["dp"]["loss"]) \
+        / abs(got[0]["dp"]["loss"])
+    if swap > SWAP_RTOL:
+        raise AssertionError(f"10b: swapping the batches moved the loss by "
+                             f"{swap}")
+    log("10b gloo", card=card_tag(), world=GLOO_WORLD,
+        gloo_cuda_collectives=got[0]["gloo_cuda"],
+        valid_voxels_each=valid_voxels(batch_a),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    for name, c in checks.items():
+        log(f"10b {name}", card=card_tag(),
+            vs="union (one process)" if name == "dp" else "one process",
+            loss=f"{got[0][name]['loss']:.7f}",
+            loss_rel=f"{c['loss']:.2e}", grad_norm_rel=f"{c['grad_norm']:.2e}",
+            update_rel=f"{c['update']:.2e}", ranks_bit_equal=True,
+            step_ms_rank0=f"{got[0][name]['ms']:.1f}")
+    log("10b swapped", card=card_tag(), loss_rel_to_dp=f"{swap:.2e}",
+        ranks_bit_equal=True)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(model, np_batch, cli, tmp: Path) -> dict:
+    """Phase 10: data and view parallelism (see PARALLEL_*, GLOO_*)."""
+    import torch.distributed as dist
+
+    from deepviewagg_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(device="cuda")
+    try:
+        step = parallel_step_check(model, np_batch)
+        log("10 parallel", part="10a step",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        loop = loop_parallel(cli, tmp)
+        log("10 parallel", part="10a loop",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    phase_gloo(model, tmp)
+    log("10 parallel", part="10b", seconds=f"{time.perf_counter() - t0:.1f}")
+    return {**step, "loop_launches": loop}
 
 
 def kernel_family(name: str) -> str:
@@ -5181,7 +5675,17 @@ def main() -> None:
         trace_forward_and_train(model, train_model, requests[0][0])
     del train_model
     torch.cuda.empty_cache()
-    loop = phase_loop()
+    # phases 9 and 10 share one temporary directory (10a trains on 9e's
+    # layout), deleted afterwards
+    from deepviewagg_tpu_torch.cli import train as cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    try:
+        loop = phase_loop(tmp)
+        parallel = phase_parallel(model, requests[0][0], cli, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
     def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
@@ -5268,7 +5772,8 @@ def main() -> None:
                **{k: v[0] for k, v in fam_paths.items()},
                **{k: (v if k == "loop_pretrained_eval" else v[0])
                   for k, v in pre_paths.items()},
-               **{k: v[0] for k, v in ref_paths.items()}},
+               **{k: v[0] for k, v in ref_paths.items()},
+               "parallel_dp": parallel["forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -5288,7 +5793,10 @@ def main() -> None:
                   "segment_csr"],
               **{k: v["segment_csr"] for k, v in fam_launches.items()},
               **{k: v["segment_csr"] for k, v in pre_launches.items()},
-              **{k: v["segment_csr"] for k, v in ref_launches.items()}),
+              **{k: v["segment_csr"] for k, v in ref_launches.items()},
+              launches_parallel_dp=parallel["launches"]["segment_csr"],
+              launches_loop_parallel=parallel["loop_launches"][
+                  "segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -5301,7 +5809,8 @@ def main() -> None:
                **{k: v[1] for k, v in pre_paths.items()
                   if k != "loop_pretrained_eval"},
                **{k: v[1] for k, v in ref_paths.items()
-                  if v[1] is not None}},
+                  if v[1] is not None},
+               "parallel_dp": parallel["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -5323,7 +5832,10 @@ def main() -> None:
                   "segment_csr_bwd"],
               **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()},
               **{k: v["segment_csr_bwd"] for k, v in pre_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in ref_launches.items()}),
+              **{k: v["segment_csr_bwd"] for k, v in ref_launches.items()},
+              launches_parallel_dp=parallel["launches"]["segment_csr_bwd"],
+              launches_loop_parallel=parallel["loop_launches"][
+                  "segment_csr_bwd"]),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,15 +24,34 @@ checkpoint into every image branch's tower (BatchNorm towers, the stem read
 from the checkpoint and pinned into the stored config as
 ``model.overrides.tower_deep_stem``); ``model.tower_frozen=true`` keeps the
 towers out of the optimizer and runs them in eval mode.
+
+``training.data_parallel=true`` trains on every card of the host, one
+process per card (NCCL), each on its own batches; under torchrun (or any
+launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``) each process joins that group instead, on the card of its
+``LOCAL_RANK`` or, with ``--device cpu``, over gloo; with ``--device cpu``
+and no such launcher it is a world of one, as on a host with one card; a
+caller that has brought up the default process group itself keeps it.
+``training.view_parallel=m`` also splits each batch's images over groups of
+``m`` processes (GroupNorm towers only)::
+
+    torchrun --nproc_per_node 4 -m deepviewagg_tpu_torch.cli.train \
+        --config conf/synthetic.yaml training.data_parallel=true \
+        training.view_parallel=2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import socket
+import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.run import load_run_config
 from ..config.zoo import resolve_spec_from_cfg
@@ -40,10 +59,12 @@ from ..data.collate import Bucket
 from ..data.datasets.base import BatchLoader
 from ..models.segmentation import build_model
 from ..ops import voxel as _voxel
+from ..parallel import multihost
 from ..train.trainer import Trainer, TrainerConfig
 from ..utils import pretrained
 
-__all__ = ["setup_device", "build_dataset", "auto_bucket", "main"]
+__all__ = ["setup_device", "build_dataset", "auto_bucket", "shard_batches",
+           "main"]
 
 
 def setup_device(name: str) -> torch.device:
@@ -224,6 +245,59 @@ def auto_bucket(cfg, dataset, branch_levels, probe: int = 8):
     )
 
 
+def shard_batches(batches, n_data: int, data_rank: int):
+    """The data-parallel contract (the JAX CLI's ``chunk_per_device``):
+    each step consumes one batch per data shard, so this rank takes the
+    batches ``i`` with ``i % n_data == data_rank``; the trailing
+    ``len % n_data`` batches are dropped on every rank (repeating batches
+    would give duplicated samples double gradient weight)."""
+    mine, seen = None, 0
+    for i, batch in enumerate(batches):
+        seen = i + 1
+        if i % n_data == data_rank:
+            mine = batch
+        if i % n_data == n_data - 1:
+            yield mine
+            mine = None
+    left = seen % n_data
+    if left and seen < n_data:
+        # an epoch smaller than the data shards would silently train ZERO
+        # steps under drop_last: a config error, not a remainder
+        raise ValueError(
+            f"data_parallel epoch produced {left} batch(es) for {n_data} "
+            f"devices — raise data.samples_per_epoch or shrink the mesh")
+    if left and multihost.is_primary():
+        print(f"data_parallel: dropped {left} trailing batch(es) short of "
+              f"the {n_data}-device step")
+
+
+def _rank_main(rank: int, argv, world: int, port: int, out) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    metrics = main(argv)
+    if rank == 0:
+        out.put(metrics)      # a few floats: fits the pipe, never blocks
+
+
+def _spawn_per_card(argv, world: int):
+    """One process per card of this host, each running :func:`main` in a
+    torchrun-style group; a process that fails ends the others and raises
+    here.  Returns rank 0's metrics."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = mp.get_context("spawn").SimpleQueue()
+    ranks = mp.start_processes(_rank_main, args=(argv, world, port, out),
+                               nprocs=world, join=False,
+                               start_method="spawn")
+    while not ranks.join():
+        pass
+    return out.get()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m deepviewagg_tpu_torch.cli.train")
@@ -234,14 +308,46 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*")
     # options may stand between or after the overrides
     args = parser.parse_intermixed_args(argv)
-    device = setup_device(args.device)
-
     cfg = load_run_config(args.config, args.overrides)
-    train_ds = build_dataset(cfg, train=True, device=device)
-    val_ds = build_dataset(cfg, train=False, device=device)
+    name = args.device
+    # a caller that brought the process group up keeps it (and its device)
+    if (cfg.training.data_parallel and torch.device(name).type == "cuda"
+            and not dist.is_initialized()):
+        if multihost.torchrun_env():
+            name = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+        elif torch.cuda.device_count() > 1:
+            # make_mesh() takes every device, as the JAX package's does
+            return _spawn_per_card(
+                sys.argv[1:] if argv is None else list(argv),
+                torch.cuda.device_count())
+    device = setup_device(name)
+    started = cfg.training.data_parallel and multihost.initialize(
+        device=device)
+    try:
+        return _train(cfg, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(cfg, device):
+    # the first process writes the caches, the others read them
+    with (multihost.primary_first() if cfg.training.data_parallel
+          else contextlib.nullcontext()):
+        train_ds = build_dataset(cfg, train=True, device=device)
+        val_ds = build_dataset(cfg, train=False, device=device)
     num_classes = getattr(train_ds, "num_classes", cfg.data.num_classes)
 
     spec = resolve_spec_from_cfg(cfg.model, num_classes)
+    if cfg.training.view_parallel > 1 and any(
+            b.tower_norm == "batch" for _, b in spec.branches):
+        # a tower BatchNorm computes per-shard statistics (and would
+        # include zero-pad images), silently diverging from the unsharded
+        # model: only GroupNorm towers shard exactly
+        raise ValueError(
+            "training.view_parallel requires GroupNorm towers "
+            "(tower_norm='group'); BatchNorm statistics are per-model-shard "
+            "under view sharding")
     freeze_paths = None
     if cfg.model.tower_frozen:
         freeze_paths = pretrained.freeze_paths_for_spec(spec)
@@ -303,7 +409,15 @@ def main(argv=None):
     if cfg.training.resume and trainer.checkpoint and trainer.checkpoint.has("latest"):
         trainer.state = trainer.checkpoint.restore_state("latest", trainer.state)
         print("resumed from latest checkpoint")
-    metrics = trainer.fit(lambda: iter(train_loader), lambda: iter(val_loader))
+    if trainer.mesh is not None:
+        mesh = trainer.mesh
+        make_train = lambda: shard_batches(  # noqa: E731
+            iter(train_loader), mesh.n_data, mesh.data_rank)
+    else:
+        make_train = lambda: iter(train_loader)  # noqa: E731
+    # eval runs the val loader unchunked on every rank, so every eval
+    # sphere is scored once, as by a plain run
+    metrics = trainer.fit(make_train, lambda: iter(val_loader))
     print("final:", {k: round(v, 3) for k, v in metrics.items()})
     return metrics
 

@@ -19,8 +19,9 @@ caller's generator before the tower runs, and its BatchNorms' running
 statistics are written by :func:`run_tower` once per call, after the
 forward.  :func:`run_tower` rematerializes the tower in the backward pass
 (``remat``: all of it, or all but the convolutions' outputs; a memory saving
-that changes no number) and freezes it (``frozen``).  View sharding is not
-ported.
+that changes no number) and freezes it (``frozen``); under
+:func:`view_shard_group` it runs the tower on this rank's block of the
+images and all-gathers the maps (view parallelism).
 """
 
 from __future__ import annotations
@@ -30,12 +31,16 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_gather_blocks
+
 __all__ = ["BatchNorm", "Conv2dWS", "ResNet18", "PPM", "ResNet18PPM",
            "ResNet18Pyramid", "ChannelDropout", "PersistentDropout2d",
-           "UNet2D", "ConvDown2D", "OUT_CHANNELS", "f32_convs", "run_tower"]
+           "UNet2D", "ConvDown2D", "OUT_CHANNELS", "f32_convs", "run_tower",
+           "view_shard_group"]
 
 # channels of each tap level for ResNet18: stem, layer1..layer4 (the deep
 # stem gives 128 at level 0)
@@ -54,6 +59,25 @@ def f32_convs():
         yield
     finally:
         _CONV_F32.pop()
+
+
+# Step-scoped process group of VIEW PARALLELISM: while set, every tower runs
+# only on this rank's block of the image axis and the feature maps are
+# all-gathered back, so the 2D towers split over the group while the
+# segment-structured 3D path stays replicated.  Same pattern as
+# ``nn.norm.bn_process_group``.
+_VIEW_SHARD_GROUP = [None]
+
+
+@contextlib.contextmanager
+def view_shard_group(group):
+    """While active, shard every tower's image batch over the ranks of
+    ``group`` (a ``torch.distributed`` group; None: no sharding)."""
+    _VIEW_SHARD_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _VIEW_SHARD_GROUP.pop()
 
 
 class Conv2dWS(nn.Module):
@@ -510,6 +534,24 @@ def _save_only_convs(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _shard_block(x, masks, group):
+    """This rank's block of the images ``x [I, C, W, H]`` (zero-padded to
+    an even split over ``group``) and of the per-image dropout masks."""
+    m, k = dist.get_world_size(group), dist.get_rank(group)
+    n_img = x.shape[0]
+    blk = -(-n_img // m)
+
+    def block(t, fill):
+        if t is None or (t.shape[0] == 1 and n_img != 1):
+            return t     # no mask, or one mask for every image
+        if blk * m != n_img:
+            pad = t.new_full((blk * m - n_img,) + t.shape[1:], fill)
+            t = torch.cat([t, pad])
+        return t[k * blk:(k + 1) * blk]
+
+    return block(x, 0), [block(mask, True) for mask in masks]
+
+
 def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
               remat=False, frozen: bool = False, bf16: bool = True,
               out_f32: bool = True,
@@ -537,19 +579,32 @@ def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
     the first forward, after the tower has run: a rematerialized forward in
     the backward pass (``torch.utils.checkpoint`` runs the BatchNorms again
     under ``'convs'`` too) collects its statistics and drops them, as flax's
-    ``nn.remat`` updates ``batch_stats`` once."""
+    ``nn.remat`` updates ``batch_stats`` once.
+
+    Under an active :func:`view_shard_group` of ``m`` ranks, the ``I``
+    images are zero-padded to ``m * ceil(I / m)`` and each rank runs the
+    tower on its block of ``ceil(I / m)`` (its block of the dropout masks,
+    which are drawn for all ``I`` images); the maps come back in rank order
+    through an all-gather, trimmed to ``I``.  The gather's backward is a
+    reduce-scatter, so each rank's tower gradient arrives ``m``-fold (see
+    ``parallel.mesh.hybrid_parallel_step``); a frozen tower gathers outside
+    autograd."""
     if remat not in (False, True, "convs"):
         # a typo like 'conv' would otherwise silently select FULL remat
         raise ValueError(f"remat must be False, True or 'convs'; got {remat!r}")
     if bf16:
         images = images.to(torch.bfloat16)
     x = images.permute(0, 3, 1, 2)
+    n_img = x.shape[0]
     mode = train and not frozen
     drops = [m for m in tower.modules()
              if isinstance(m, ChannelDropout) and m.p > 0]
     masks = [None] * len(drops)
     if drops and generator is not None and mode:
-        masks = [m.draw(generator, x.shape[0], x.device) for m in drops]
+        masks = [m.draw(generator, n_img, x.device) for m in drops]
+    group = _VIEW_SHARD_GROUP[-1]
+    if group is not None:
+        x, masks = _shard_block(x, masks, group)
     runs = []      # the BatchNorm updates of each run of ``call``
 
     def call(x, *masks):
@@ -586,6 +641,12 @@ def run_tower(tower: nn.Module, images: torch.Tensor, train: bool = False, *,
         y = call(x, *masks)
     for bn, mean, var in runs[0]:
         bn.update(mean, var)
+    if group is not None:
+        def gather(t):
+            return all_gather_blocks(t, group)[:n_img]
+
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            y = tuple(map(gather, y)) if isinstance(y, tuple) else gather(y)
 
     def channels_last(t):
         t = t.permute(0, 2, 3, 1)

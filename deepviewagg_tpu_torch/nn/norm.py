@@ -6,7 +6,9 @@ BatchNorm over active voxels; the static-shape sparse tensors carry padding
 rows, so the training statistics are taken over *valid* rows only.  In eval
 mode the layer applies its running statistics (``running_mean`` /
 ``running_var`` buffers, the flax ``batch_stats`` ``mean`` / ``var``) with
-eps 1e-5 in float32.  Cross-device (sync) statistics are not ported yet.
+eps 1e-5 in float32.  Under :func:`bn_process_group` the statistics are
+summed over the ranks of a process group (sync BN, the JAX
+``bn_axis_name``).
 """
 
 from __future__ import annotations
@@ -17,11 +19,32 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["MaskedBatchNorm", "bn_momentum"]
+from ..parallel.collectives import all_reduce_sum
+
+__all__ = ["MaskedBatchNorm", "bn_momentum", "bn_process_group"]
+
+# Step-scoped process group for cross-device (sync) batch norm: set by the
+# parallel step wrappers (parallel/mesh.py) so that every MaskedBatchNorm of
+# the model sums its statistics over it without threading a field through
+# all modules.  None: this rank's statistics alone.
+_BN_GROUP = [None]
 
 # Trainer-scoped momentum override: the reference's BN-momentum scheduler
 # (core/schedulers/bn_schedulers.py) decays momentum across epochs.
 _BN_MOMENTUM = [None]
+
+
+@contextlib.contextmanager
+def bn_process_group(group):
+    """While active, every MaskedBatchNorm in training mode sums its
+    statistics ``s1``, ``s2`` and ``n`` over the ranks of ``group`` (a
+    ``torch.distributed`` group object, e.g. ``dist.group.WORLD``; None:
+    no sync), through a differentiable all-reduce."""
+    _BN_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.pop()
 
 
 @contextlib.contextmanager
@@ -65,7 +88,16 @@ class MaskedBatchNorm(nn.Module):
             rows = tuple(range(xf.ndim - 1))
             s1 = torch.sum(xf * w, dim=rows)
             s2 = torch.sum(xf * xf * w, dim=rows)
-            n = torch.clamp(torch.sum(w), min=1.0)
+            n = torch.sum(w)
+            group = _BN_GROUP[-1]
+            if group is not None:
+                # one all-reduce of [s1, s2, n]: its backward sums the
+                # cotangents over the ranks, as psum's transpose does
+                c = s1.shape[0]
+                sums = all_reduce_sum(torch.cat([s1, s2, n.reshape(1)]),
+                                      group)
+                s1, s2, n = sums[:c], sums[c:2 * c], sums[2 * c]
+            n = torch.clamp(n, min=1.0)
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             mom = (self.momentum if _BN_MOMENTUM[-1] is None

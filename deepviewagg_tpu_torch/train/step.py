@@ -7,6 +7,11 @@ with float32 parameters and accumulation replace AMP.  The JAX step is a pure
 function over an immutable state; here the model's parameters, its running
 statistics and the optimizer's state are updated in place, and the returned
 state is the one passed in.
+
+Steps optionally run on every rank of a process group (see
+``parallel.mesh``): the gradients, the loss and the running statistics are
+then averaged over the group, as the JAX step ``pmean``s them over the mesh
+axis.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 
 from ..models.losses import segmentation_loss, view_level_loss
 from ..models.segmentation import No3DSeg
+from ..parallel.collectives import all_reduce_mean_
 from .optimizers import Optimizer, global_norm
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step"]
@@ -44,6 +50,7 @@ def make_train_step(
     class_weights=None,
     ignore_unseen: Optional[bool] = None,
     view_loss_weight: float = 0.0,
+    group=None,
 ) -> Callable:
     """Returns ``step(state, batch, generator) -> (state, metrics)`` with
     ``metrics = {loss, preds, grad_norm}``; ``grad_norm`` is the global norm
@@ -55,6 +62,16 @@ def make_train_step(
     (no3d.py:130-134); defaults to True for a ``No3DSeg``, False otherwise.
     ``view_loss_weight``: adds the reference's view-level loss over a
     model's ``view_logits`` (no3d.py:139-155) where it emits them.
+
+    ``group``: a ``torch.distributed`` group whose every rank runs the step
+    on its own batch (``parallel.mesh``).  After the backward pass the
+    gradients of the optimizer's parameters (None counts as zero) are
+    replaced by their mean over the group, before the gradient norm, the
+    clipping and the update (and, with gradient accumulation, before they
+    are accumulated); the loss and every running statistic (the buffers)
+    are replaced by theirs too: the masked batch norms' are equal across
+    the group already, a tower BatchNorm's were taken from its own rank's
+    images.
     """
     if ignore_unseen is None:
         ignore_unseen = isinstance(model, No3DSeg)
@@ -76,6 +93,16 @@ def make_train_step(
                 ex["view_valid"])
         model.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            params = [p for g in state.tx.groups for p in g.params]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss = loss.reshape(1)
+            all_reduce_mean_([p.grad for p in params] + [loss]
+                             + list(model.buffers()), group)
+            loss = loss[0]
         grad_norm = global_norm([p.grad for p in model.parameters()
                                  if p.grad is not None])
         # the schedule counts the optimizer's real updates (with gradient
@@ -83,7 +110,7 @@ def make_train_step(
         state.tx.update()
         state.step += 1
         metrics = {
-            "loss": loss.detach(),
+            "loss": loss,
             "preds": out["logits"].detach().argmax(dim=-1),
             "grad_norm": grad_norm,
         }

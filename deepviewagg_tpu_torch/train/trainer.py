@@ -1,27 +1,34 @@
 """The Trainer: epoch loop, eval, best-checkpointing, logging.
 
 The port of ``deepviewagg_tpu/train/trainer.py`` (reference
-torch_points3d/trainer.py:34-290) on one card: epoch loop over a host data
-source (collated numpy batches, moved to the model's device here), train and
-eval steps, tracker updates every ``track_every`` batches, per-eval-frequency
-val epochs, per-metric best checkpoints, gradient accumulation
-(``optax.MultiSteps`` semantics), the NaN guard, BN-momentum milestones and
-the debugging hooks (batch caps, conf/debugging).  ``data_parallel``,
-``view_parallel > 1`` (ROADMAP A.7) and ``visualize_every > 0`` raise.
+torch_points3d/trainer.py:34-290): epoch loop over a host data source
+(collated numpy batches, moved to the model's device here), train and eval
+steps, tracker updates every ``track_every`` batches, per-eval-frequency val
+epochs, per-metric best checkpoints, gradient accumulation
+(``optax.MultiSteps`` semantics), the NaN guard, BN-momentum milestones,
+per-epoch ``.ply`` sample dumps (``visualize_every``) and the debugging hooks
+(batch caps, conf/debugging).  With ``data_parallel`` every rank of the
+default process group (``parallel.multihost.initialize``) runs a trainer on
+its own batches (``view_parallel > 1``: ranks in groups of that many share
+a batch and split its images); checkpoints and logs are written by rank 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.collate import batch_to_torch, device_view
 from ..metrics.tracker import SegmentationTracker
 from ..nn.norm import bn_momentum
+from ..parallel import mesh as pmesh
+from ..parallel.multihost import is_primary
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager
 from .optimizers import make_optimizer, make_schedule
@@ -53,6 +60,9 @@ class TrainerConfig:
     track_every: int = 10
     num_batches_cap: Optional[int] = None    # debugging.num_batches
     data_parallel: bool = False
+    # view parallelism: shard the 2D towers' image axis over this many ranks
+    # per data shard (parallel/mesh.py hybrid_parallel_step); requires
+    # data_parallel and a world size it divides
     view_parallel: int = 1
     profile_epochs: tuple = ()               # epochs to trace (torch.profiler)
     class_weights: Optional[tuple] = None    # per-class CE weights
@@ -76,25 +86,34 @@ class Trainer:
     the built model before the optimizer binds to it (e.g. to load other
     initial weights).  The dropout generator is a CPU ``torch.Generator``
     seeded from ``seed``, so a seed draws the same masks on every device.
+
+    With ``cfg.data_parallel`` the default process group must be up; every
+    rank builds its trainer from the same model and seed and feeds it its
+    own batches (the same number per epoch on every rank).  Rank 0's
+    parameters and buffers are broadcast before the optimizer binds; the
+    step folds the data index into the generator (data rank 0 draws what a
+    plain trainer draws); the train metrics count every data rank's
+    predictions; each rank evaluates the whole val loader.
     """
 
     def __init__(self, model, num_classes: int, cfg: TrainerConfig,
                  seed: int = 0, run_config=None, init_hook=None):
-        if cfg.data_parallel or cfg.view_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel / view_parallel > 1 are not ported yet "
-                "(ROADMAP A.7)")
-        if cfg.visualize_every > 0:
-            raise NotImplementedError(
-                "visualize_every > 0: sample dumps are not ported yet")
         self.model = model
         self.cfg = cfg
         self.num_classes = num_classes
         self.run_config = run_config
         self.device = next(model.parameters()).device
         self.generator = torch.Generator().manual_seed(seed)
+        self.primary = is_primary()
+        hybrid = cfg.data_parallel and cfg.view_parallel > 1
+        self.mesh = None
+        if cfg.data_parallel:
+            self.mesh = (pmesh.make_hybrid_mesh(cfg.view_parallel) if hybrid
+                         else pmesh.make_mesh())
         if init_hook is not None:
             init_hook(model)
+        if self.mesh is not None:
+            pmesh.replicate(model, self.mesh)
         schedule = make_schedule(
             cfg.lr_schedule, cfg.base_lr, cfg.total_steps,
             cfg.lr_milestones, cfg.lr_gamma,
@@ -105,20 +124,32 @@ class Trainer:
             grad_accumulate=cfg.grad_accumulate,
         )
         self.state = TrainState.create(model, tx)
+        group = (None if self.mesh is None else
+                 self.mesh.world if hybrid else self.mesh.data_group)
         self._train_step = make_train_step(
             model, cfg.lovasz_weight,
             class_weights=(None if cfg.class_weights is None
                            else list(cfg.class_weights)),
-            view_loss_weight=cfg.view_loss_weight,
+            view_loss_weight=cfg.view_loss_weight, group=group,
         )
+        if hybrid:
+            self._train_step = pmesh.hybrid_parallel_step(self._train_step,
+                                                          self.mesh)
+        elif self.mesh is not None:
+            self._train_step = pmesh.data_parallel_step(self._train_step,
+                                                        self.mesh)
         self._eval_step = make_eval_step(model)
         self._bn_momentum = None
+        # every rank reads a checkpoint (resume), rank 0 alone writes one
         self.checkpoint = (
-            CheckpointManager(cfg.run_dir, run_config=run_config)
+            CheckpointManager(cfg.run_dir, run_config=(
+                run_config if self.primary else None))
             if cfg.run_dir else None
         )
         self.logger = MetricLogger(
-            cfg.run_dir, use_tensorboard=cfg.tensorboard, use_wandb=cfg.wandb,
+            cfg.run_dir if self.primary else None,
+            use_tensorboard=cfg.tensorboard and self.primary,
+            use_wandb=cfg.wandb and self.primary,
             wandb_kwargs=({"project": cfg.wandb_project}
                           if cfg.wandb_project else None),
         )
@@ -159,15 +190,22 @@ class Trainer:
                 self._track_train(tracker, batch, metrics)
         if self.cfg.nan_guard and prev_loss is not None:
             self._check_finite(prev_loss, n - 1)
+        if self.mesh is not None:
+            # the confusion over every data rank's predictions, as the JAX
+            # trainer tracks each device's
+            cm = torch.from_numpy(tracker.cm.m).to(self.device)
+            dist.all_reduce(cm, group=self.mesh.data_group)
+            tracker.cm.m[:] = cm.cpu().numpy()
         out = tracker.get_metrics()
         out["train_batches"] = n
         out["train_time_s"] = time.time() - t0
         return out
 
     def _check_finite(self, loss, step: int):
+        # the loss is replicated over the ranks: every rank stops here
         if np.isfinite(float(loss)):
             return
-        if self.checkpoint is not None:
+        if self.checkpoint is not None and self.primary:
             self.checkpoint.save_state("crash", self.state)
         raise FloatingPointError(
             f"non-finite loss at epoch {self.epoch} step {step} — state "
@@ -183,16 +221,38 @@ class Trainer:
             losses={"loss": float(metrics["loss"])},
         )
 
+    def _save_visuals(self, batch, preds):
+        """Per-epoch sample dump (the reference Visualizer role,
+        visualization/visualizer.py:10): one .ply with labels+preds."""
+        if "pos" not in batch or self.cfg.run_dir is None or not self.primary:
+            return
+        from ..visualization import save_ply_snapshot
+
+        n = batch["meta"]["num_valid"] if "meta" in batch else len(preds)
+        save_ply_snapshot(
+            os.path.join(self.cfg.run_dir, "viz", f"epoch_{self.epoch}.ply"),
+            np.asarray(batch["pos"])[:n],
+            labels=np.asarray(batch["labels"])[:n],
+            preds=np.asarray(preds)[:n],
+        )
+
     def eval_epoch(self, batches: Iterable, stage: str = "val") -> Dict[str, float]:
         tracker = SegmentationTracker(self.num_classes, stage)
+        visualized = self.cfg.visualize_every <= 0 or (
+            self.epoch % self.cfg.visualize_every != 0
+        )
         for i, batch in enumerate(batches):
             if self.cfg.num_batches_cap and i >= self.cfg.num_batches_cap:
                 break
             out = self._eval_step(self.state, self._to_device(batch))
+            preds = out["preds"].cpu().numpy()
             tracker.track(
-                out["preds"].cpu().numpy(), batch["labels"],
+                preds, batch["labels"],
                 np.asarray(batch["graph"]["levels"][0]["valid"]),
             )
+            if not visualized:
+                self._save_visuals(batch, preds)
+                visualized = True
         return tracker.get_metrics()
 
     # ------------------------------------------------------------------
@@ -206,13 +266,14 @@ class Trainer:
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             m = self.train_epoch(batches)
-        prof.export_chrome_trace(
-            f"{self.cfg.run_dir}/profile_ep{self.epoch}.json")
+        if self.primary:
+            prof.export_chrome_trace(
+                f"{self.cfg.run_dir}/profile_ep{self.epoch}.json")
         return m
 
     def fit(self, train_data: Callable, val_data: Optional[Callable] = None,
             epochs: Optional[int] = None) -> Dict[str, float]:
-        log = self.cfg.log_fn
+        log = self.cfg.log_fn if self.primary else (lambda line: None)
         all_metrics: Dict[str, float] = {}
         for _ in range(epochs or self.cfg.epochs):
             self.epoch += 1
@@ -230,7 +291,7 @@ class Trainer:
                 log(f"epoch {self.epoch} [val]: "
                     + " ".join(f"{k}={v:.3f}" for k, v in vm.items()))
             self.logger.log(all_metrics, self.epoch)
-            if self.checkpoint is not None:
+            if self.checkpoint is not None and self.primary:
                 directions = {
                     k: SegmentationTracker.metric_direction(k)
                     for k in all_metrics

@@ -422,12 +422,40 @@ def test_profile_epoch_writes_a_trace(epoch_batches, tmp_path):
     assert (tmp_path / "profile_ep1.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("cfg", [dict(data_parallel=True),
-                                 dict(view_parallel=2),
-                                 dict(visualize_every=1)])
-def test_trainer_refuses_unported_options(cfg):
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(_tiny_model(), 4, ttrainer.TrainerConfig(**cfg))
+@pytest.mark.parametrize("every,epochs,dumped", [(1, 2, (1, 2)),
+                                                  (2, 2, (2,)), (0, 1, ())])
+def test_visualize_every_dumps_the_first_val_batch(epoch_batches, tmp_path,
+                                                   every, epochs, dumped):
+    """Every ``visualize_every``-th epoch's eval writes
+    ``viz/epoch_<k>.ply``: the first val batch's valid points with their
+    labels and the predictions of that eval, as ``save_ply_snapshot``
+    writes them (the JAX trainer's ``_save_visuals``)."""
+    from deepviewagg_tpu_torch.visualization import save_ply_snapshot
+
+    train, val = epoch_batches
+    preds = []
+    tr = ttrainer.Trainer(_tiny_model(), 4, ttrainer.TrainerConfig(
+        **dict(LOOP, epochs=epochs, run_dir=str(tmp_path / "run"),
+               visualize_every=every, log_fn=lambda s: None)), seed=0)
+    step = tr._eval_step
+
+    def recording(state, batch):
+        out = step(state, batch)
+        preds.append(out["preds"].numpy())
+        return out
+
+    tr._eval_step = recording
+    tr.fit(lambda: iter(train[0][:1]), lambda: iter(val))
+    viz = tmp_path / "run" / "viz"
+    names = sorted(os.listdir(viz)) if viz.exists() else []
+    assert names == [f"epoch_{k}.ply" for k in dumped]
+    b = val[0]
+    n = b["meta"]["num_valid"]
+    for k in dumped:
+        want = tmp_path / f"want_{k}.ply"
+        save_ply_snapshot(str(want), b["pos"][:n], labels=b["labels"][:n],
+                          preds=preds[(k - 1) * len(val)][:n])
+        assert (viz / f"epoch_{k}.ply").read_bytes() == want.read_bytes()
 
 
 # --- the CLI -------------------------------------------------------------------
