@@ -267,6 +267,26 @@ exit) on any fault:
                   (the loss within 1e-6); view parallel 1 x 2 against one
                   process on the bench request; which collectives gloo runs
                   on CUDA tensors
+  11. tasks   the non-segmentation tasks through ``deepviewagg_tpu_torch.
+              cli.train_task.main`` at ``scripts/train_task.py``'s settings
+              (procedural data, ``TASK_BATCHES`` batches of one epoch):
+              11a classification (``SparseConv3dCls``, Res16UNet14, 1024
+                  points a shape, batch 2), detection (``VoteNetDet``, 4096
+                  points), panoptic (``PanopticSeg``, Res16UNet14, voxel
+                  0.15, batch 2) and registration (``RegistrationNet``,
+                  ``Res16UNetTest``): every step finite and through its
+                  launches (classification 3 + 2: the global mean pool's
+                  sum and count and the max pool forward, the sum and the
+                  max backward; the others none), the losses, step ms
+                  (median of the steps after the first) and peak memory
+              11b every segment call of one classification step held
+                  against its plain version and timed as in phases 2 / 2b
+              11c the first step of each task on the card and on the CPU
+                  from the same weights and batch: with bf16 conv operands
+                  the loss within 1e-2 and the gradient norm within 3e-2
+                  (phase 7's bounds), with float32 everywhere within 7g's
+                  1e-4 and 2e-3; registration's gradient norm is logged,
+                  not held (``TASK_GRAD_NORM_HELD``)
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -290,7 +310,9 @@ a kernel, ``loop_reference_<model>`` for 9j's first train batch through each
 ``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
 predictions; ``parallel_dp``: the sums over the calls of 10a's
 data-parallel step, ``launches_parallel_dp`` its counts,
-``launches_loop_parallel`` the counts over 10a's ``cli.train`` run).
+``launches_loop_parallel`` the counts over 10a's ``cli.train`` run;
+``loop_tasks``: the sums over the calls of 11b's classification step,
+``launches_loop_tasks_<task>`` the counts over each 11a run).
 Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
@@ -5557,6 +5579,248 @@ def phase_parallel(model, np_batch, cli, tmp: Path) -> dict:
     return {**step, "loop_launches": loop}
 
 
+# phase 11: the non-segmentation tasks through their entry point,
+# ``deepviewagg_tpu_torch.cli.train_task.main`` (the port of
+# scripts/train_task.py), each at that script's own settings: classification
+# (SparseConv3dCls, Res16UNet14, 1024 points a shape, batch 2, caps 2048 ..
+# 256), detection (VoteNetDet, SA channels (16, 32), (32, 64), 4096
+# points), panoptic (PanopticSeg, Res16UNet14, voxel 0.15, caps 12288 ..
+# 512, batch 2), registration (RegistrationNet, Res16UNetTest, descriptor
+# 16, caps 4096 .. 256), procedural data, TASK_BATCHES batches of one epoch,
+# the first step a warm-up.  11a: the run; every step closed by a
+# synchronisation and checked (finite loss, TASK_LAUNCHES); step ms (median
+# of the timed steps), peak memory.  11b: every segment_csr forward and
+# backward call of one classification step (the global mean and max pools
+# of the coarsest level's batch_idx into num_batches + 1 segments) held
+# against the plain versions and timed as in phases 2 / 2b.  11c: the first
+# step of each task on the card and on the CPU from the same weights and
+# batch (no dropout), twice: with the production bf16 conv operands, the
+# loss within phase 7's TRAIN_LOSS_RTOL and the gradient norm within its
+# TRAIN_GRAD_NORM_RTOL (bf16 operands whose rounding flips after the card's
+# and the CPU's GEMMs sum in another order; the atomic index_add_ behind
+# index_select's backward), then with float32 everywhere at 7g's ALL_F32_*
+# bounds; registration's gradient norm is logged, not held (see
+# TASK_GRAD_NORM_HELD).
+TASKS = ("classification", "detection", "panoptic", "registration")
+# scripts/train_task.py's default --batches (4), but registration's: the
+# third synthetic pair holds 1044 voxels at level 2, over the script's cap
+# of 1024, in both packages (ROADMAP C), so it takes the two pairs before it
+TASK_BATCHES = {"classification": 4, "detection": 4, "panoptic": 4,
+                "registration": 2}
+TASK_LAUNCHES = {"classification": (3, 2), "detection": (0, 0),
+                 "panoptic": (0, 0), "registration": (0, 0)}
+# registration's first gradient is dominated by rows whose raw descriptor
+# is 0 (every backbone channel cut by its ReLU, the head's bias 0): the L2
+# normalisation's rsqrt(|d|^2 + 1e-12) multiplies their cotangent by 1e6,
+# and which channels pass it back depends on ReLU gates at pre-activations
+# of rounding size, which any change of summation order flips.  Its norm
+# is discontinuous in the rounding: card vs CPU 4.6e-2 apart with bf16
+# operands and 0.22 with float32 ones in phase 11's second H100 run, the
+# loss 1.5e-4 and 1e-7.  So it is logged with the count of such rows, and
+# only the loss is held.
+TASK_GRAD_NORM_HELD = ("classification", "detection", "panoptic")
+ZERO_DESCRIPTOR = 1e-6                  # raw descriptor norm of such a row
+
+
+class TaskProbe(Seams):
+    """The seams of one ``cli.train_task.main`` run: every train step
+    (closed by a synchronisation: ms, loss, launches of each kernel), the
+    task's step builder with its arguments, the model's parameters and
+    running statistics as ``TaskTrainer.init`` left them, and the first
+    host batch."""
+
+    def __init__(self):
+        super().__init__()
+        self.step_ms, self.losses, self.launches = [], [], []
+        self.make = self.trainer = self.start = self.host_batch = None
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.train import task_steps
+
+        probe = self
+
+        def make_step(original):
+            def build(model, *args, **kwargs):
+                probe.make = lambda m: original(m, *args, **kwargs)
+                step = original(model, *args, **kwargs)
+
+                def run(state, batch, generator):
+                    before = dict(seg.LAUNCHES)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch, generator)
+                    torch.cuda.synchronize()
+                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    loss = float(metrics["loss"])
+                    if not np.isfinite(loss):
+                        raise AssertionError(
+                            f"step {len(probe.losses)}: loss {loss}")
+                    probe.losses.append(loss)
+                    probe.launches.append(
+                        {k: seg.LAUNCHES[k] - before[k] for k in before})
+                    return state, metrics
+                return run
+            return build
+
+        def init(original):
+            def run(trainer_self, *args, **kwargs):
+                state = original(trainer_self, *args, **kwargs)
+                probe.trainer = trainer_self
+                probe.start = {k: v.detach().clone() for k, v in
+                               trainer_self.model.state_dict().items()}
+                return state
+            return run
+
+        def to_device(original):
+            def run(batch, device="cuda"):
+                if probe.host_batch is None:
+                    probe.host_batch = batch
+                return original(batch, device)
+            return run
+
+        for task in TASKS:
+            self._patch(task_steps, f"make_{task}_step", make_step)
+        self._patch(task_steps.TaskTrainer, "init", init)
+        self._patch(task_steps, "batch_to_torch", to_device)
+        return self
+
+
+def task_adam(model):
+    """``TaskTrainer``'s optimizer (Adam, constant LR 3e-3, clip 10, no
+    weight decay) bound to ``model``."""
+    return TrainState.create(model, make_optimizer(
+        make_schedule("constant", 3e-3), optimizer="adam", weight_decay=0.0,
+        grad_clip=10.0))
+
+
+def task_first_step(probe, device: str) -> dict:
+    """The run's first step again on ``device``: a copy of the model with the
+    parameters and running statistics ``init`` gave it, the first batch, no
+    dropout generator."""
+    model = copy.deepcopy(probe.trainer.model).to(device)
+    model.load_state_dict(probe.start)
+    step = probe.make(model)
+    _, metrics = step(task_adam(model), batch_to_torch(probe.host_batch,
+                                                       device), None)
+    return {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+
+
+def zero_descriptor_rows(probe) -> dict:
+    """Valid rows of each registration fragment whose raw descriptor (before
+    the L2 normalisation) has a norm under ``ZERO_DESCRIPTOR``, on the card
+    at the start weights, in training mode as the step sees them."""
+    model = copy.deepcopy(probe.trainer.model)
+    model.load_state_dict(probe.start)
+    batch = batch_to_torch(probe.host_batch, "cuda")
+    out = {}
+    with torch.no_grad():
+        for side in ("a", "b"):
+            frag = batch[side]
+            raw = model.desc(model.backbone(frag["feats"], frag["graph"]))
+            valid = frag["graph"]["levels"][0]["valid"]
+            out[f"zero_descriptors_{side}"] = (
+                f"{int((raw.norm(dim=1)[valid] < ZERO_DESCRIPTOR).sum())}/"
+                f"{int(valid.sum())}")
+    return out
+
+
+def task_card_vs_cpu(task: str, probe) -> None:
+    """11c: the first step on the card and on the CPU, same weights and
+    batch, with bf16 conv operands and with float32 everywhere."""
+    extra = zero_descriptor_rows(probe) if task == "registration" else {}
+    for mode, ctx, bounds in (
+            ("bf16", contextlib.nullcontext,
+             (TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL)),
+            ("f32", f32_everywhere,
+             (ALL_F32_LOSS_RTOL, ALL_F32_GRAD_NORM_RTOL))):
+        with ctx():
+            card = task_first_step(probe, "cuda")
+            t0 = time.perf_counter()
+            cpu = task_first_step(probe, "cpu")
+            cpu_s = time.perf_counter() - t0
+        gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+                for k in cpu}
+        log("11c task card vs cpu", task=task, operands=mode,
+            loss_card=f"{card['loss']:.6f}", loss_cpu=f"{cpu['loss']:.6f}",
+            grad_norm_card=f"{card['grad_norm']:.4f}",
+            grad_norm_cpu=f"{cpu['grad_norm']:.4f}",
+            cpu_step_s=f"{cpu_s:.2f}", **extra,
+            **{f"{k}_rel_gap": f"{v:.2e}" for k, v in gaps.items()})
+        if gaps["loss"] > bounds[0] or (task in TASK_GRAD_NORM_HELD
+                                        and gaps["grad_norm"] > bounds[1]):
+            raise AssertionError(f"11c {task} {mode}: loss gap "
+                                 f"{gaps['loss']}, grad_norm gap "
+                                 f"{gaps['grad_norm']} (bounds {bounds})")
+
+
+def task_kernels(probe) -> tuple:
+    """11b: every segment call of one classification step (a copy of the
+    trained model, the first batch) against the plain versions, timed."""
+    model = copy.deepcopy(probe.trainer.model)
+    _, _, fwd, bwd = record_step_calls(
+        probe.make(model), task_adam(model),
+        batch_to_torch(probe.host_batch, "cuda"))
+    expect = TASK_LAUNCHES["classification"]
+    if (len(fwd), len(bwd)) != expect:
+        raise AssertionError(f"11b: {len(fwd)} + {len(bwd)} segment calls "
+                             f"in one classification step, expected "
+                             f"{expect}")
+    x, ptr, valid, _ = fwd[0]
+    log("11b task kernels", rows=x.shape[0], channels=x.shape[1],
+        segments=ptr.numel() - 1, live_rows=live_rows(ptr, valid,
+                                                      x.shape[0]),
+        ptr=ptr.tolist())
+    return (measure_forward_calls(fwd, "11b task kernels", "calls_per_step"),
+            measure_backward_calls(bwd, "11b task kernels"))
+
+
+def phase_tasks() -> dict:
+    """Phase 11 (see TASK_*): returns the kernels' sums over 11b's calls and
+    each task's launch counts over its 11a run."""
+    from deepviewagg_tpu_torch.cli import train_task as cli_task
+
+    launches, kernels = {}, None
+    for task in TASKS:
+        t0 = time.perf_counter()
+        zero_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with TaskProbe() as probe:
+            metrics = cli_task.main(["--task", task, "--batches",
+                                     str(TASK_BATCHES[task])])
+        launches[task] = dict(seg.LAUNCHES)
+        fwd, bwd = TASK_LAUNCHES[task]
+        want = {"segment_csr": fwd, "segment_csr_bwd": bwd}
+        if len(probe.losses) != TASK_BATCHES[task] or any(
+                d != want for d in probe.launches):
+            raise AssertionError(f"11a {task}: {len(probe.losses)} steps, "
+                                 f"launches {probe.launches}")
+        if launches[task] != {k: v * TASK_BATCHES[task]
+                              for k, v in want.items()}:
+            raise AssertionError(f"11a {task}: launches {launches[task]}")
+        off = [k for k, p in probe.trainer.model.named_parameters()
+               if p.device.type != "cuda"]
+        if off or not np.isfinite(metrics["loss"]):
+            raise AssertionError(f"11a {task}: off the card {off[:3]}, "
+                                 f"loss {metrics['loss']}")
+        log("11a tasks", task=task, model=type(probe.trainer.model).__name__,
+            params=sum(p.numel() for p in probe.trainer.model.parameters()),
+            steps=len(probe.losses),
+            losses="/".join(f"{v:.4f}" for v in probe.losses),
+            first_step_ms=f"{probe.step_ms[0]:.1f}",
+            step_ms_median=f"{np.median(probe.step_ms[1:]):.1f}",
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            launches=launches[task],
+            **{k: f"{v:.4f}" for k, v in metrics.items()
+               if k not in ("batches", "loss")})
+        if task == "classification":
+            kernels = task_kernels(probe)
+        task_card_vs_cpu(task, probe)
+        log("11 tasks", task=task, seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"forward": kernels[0], "backward": kernels[1],
+            "launches": launches}
+
+
 def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the trace summary."""
     low = name.lower()
@@ -5686,6 +5950,9 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tasks = phase_tasks()
+    log("11 tasks", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
@@ -5757,6 +6024,11 @@ def main() -> None:
     ref_paths = {f"loop_reference_{k}": v for k, v in ref["paths"].items()}
     ref_launches = {f"launches_loop_reference_{k}": v
                     for k, v in ref["launches"].items()}
+    # ``loop_tasks``: the same sums over the calls of one classification
+    # step of phase 11b; ``launches_loop_tasks_<task>``: the counts over
+    # each task's ``cli.train_task`` run of phase 11a
+    task_launches = {f"launches_loop_tasks_{k}": v
+                     for k, v in tasks["launches"].items()}
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -5773,7 +6045,8 @@ def main() -> None:
                **{k: (v if k == "loop_pretrained_eval" else v[0])
                   for k, v in pre_paths.items()},
                **{k: v[0] for k, v in ref_paths.items()},
-               "parallel_dp": parallel["forward"]},
+               "parallel_dp": parallel["forward"],
+               "loop_tasks": tasks["forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -5796,7 +6069,8 @@ def main() -> None:
               **{k: v["segment_csr"] for k, v in ref_launches.items()},
               launches_parallel_dp=parallel["launches"]["segment_csr"],
               launches_loop_parallel=parallel["loop_launches"][
-                  "segment_csr"]),
+                  "segment_csr"],
+              **{k: v["segment_csr"] for k, v in task_launches.items()}),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -5810,7 +6084,8 @@ def main() -> None:
                   if k != "loop_pretrained_eval"},
                **{k: v[1] for k, v in ref_paths.items()
                   if v[1] is not None},
-               "parallel_dp": parallel["backward"]},
+               "parallel_dp": parallel["backward"],
+               "loop_tasks": tasks["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -5835,7 +6110,8 @@ def main() -> None:
               **{k: v["segment_csr_bwd"] for k, v in ref_launches.items()},
               launches_parallel_dp=parallel["launches"]["segment_csr_bwd"],
               launches_loop_parallel=parallel["loop_launches"][
-                  "segment_csr_bwd"]),
+                  "segment_csr_bwd"],
+              **{k: v["segment_csr_bwd"] for k, v in task_launches.items()}),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,7 +24,8 @@ activations; the cotangent, the weights and the gathered rows are rounded to
 ``compute_dtype`` like the forward's operands, and only ``(feats, weights,
 nbr[, nbr_t])`` are saved: no im2col outlives its matmul.  Plain
 ``sparse_conv`` (with bias) keeps ordinary autograd.  The gather-GEMMs stay
-plain PyTorch in this version of the port.
+plain PyTorch in this version of the port.  ``sparse_global_pool`` (the
+classification head's per-sample pool) runs the sorted-segment kernels.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ from typing import Optional
 
 import torch
 
+from . import segment as _seg
+
 __all__ = ["sparse_conv", "sparse_conv_submanifold", "sparse_conv_pair",
-           "add_dump_row"]
+           "add_dump_row", "sparse_global_pool"]
 
 
 def add_dump_row(feats: torch.Tensor) -> torch.Tensor:
@@ -134,3 +137,13 @@ def sparse_conv_pair(feats, weights, nbr, nbr_t, compute_dtype=torch.bfloat16):
     precomputed with the graph (each one's transpose is the other's table);
     the backward gathers through ``nbr_t``."""
     return _PairConv.apply(feats, weights, nbr, nbr_t, compute_dtype)
+
+
+def sparse_global_pool(feats, batch_idx, num_batches: int, valid=None,
+                       reduce: str = "mean"):
+    """Per-sample global pooling over a sparse tensor (encoder heads):
+    ``batch_idx`` must be sorted (the graph's levels come out of
+    ``unique_coords`` in key order, padding in the last slot), since the
+    reduction runs through the sorted-segment kernel of :mod:`.segment`."""
+    return _seg.segment_reduce(feats, batch_idx, num_batches, reduce=reduce,
+                               valid=valid)

@@ -115,6 +115,12 @@ def build_unet_graph(
                 if capacities is not None
                 else max(_km.round_up(len(nxt), cap_multiple), cap_multiple)
             )
+            if len(nxt) > cap_next:
+                # before the down map is padded to it
+                raise ValueError(
+                    f"level {lvl + 1}: {len(nxt)} voxels exceed capacity "
+                    f"{cap_next}; increase bucket or subsample"
+                )
             down_map = _build_padded_map(
                 cur, nxt, 2, stride, cap, cap_next
             )

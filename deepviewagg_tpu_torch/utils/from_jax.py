@@ -35,7 +35,12 @@ and late-fusion families' ``branch``, ``branch_<k>``, ``backbone``,
 trunk's ``shared_tower/stage<i>_conv`` / ``stage<i>_norm`` /
 ``stage<i>_block<b>`` and the reused tower's ``reuse_tower/...`` (a
 tower-less, shared-tap or reuse branch owns no ``tower``); a branch's
-crop-ladder wrapper is not a module and owns no parameter.
+crop-ladder wrapper is not a module and owns no parameter.  The task heads
+carry theirs too: ``stem``, ``down<i>``, ``Dense_0``, ``head``
+(classification); ``_PointMLP_<i>`` with ``Dense_<j>`` /
+``MaskedBatchNorm_<j>``, ``vote_offset``, ``vote_feat``, ``objectness``,
+``center``, ``size``, ``cls`` (detection, PointNet++); ``backbone``,
+``sem_head``, ``offset_head`` (panoptic) and ``desc`` (registration).
 """
 
 from __future__ import annotations

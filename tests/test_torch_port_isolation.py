@@ -274,7 +274,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["train", "eval", "predict", "preprocess",
-                                   "scale_rehearsal"])
+                                   "scale_rehearsal", "train_task"])
 def test_cli_device_flags_default_to_the_card(entry):
     """Each CLI's ``--device`` defaults to ``cuda``."""
     import importlib
@@ -365,3 +365,41 @@ def test_parallel_modules_are_covered(rel):
         assert roots <= {"__future__", "typing", "torch"}
     if rel == "visualization/viewer.py":
         assert "from ..utils.ply import write_ply" in path.read_text()
+
+
+TASK_MODULES = ["ops/spatial.py", "nn/pointnet2.py", "ops/sparse_conv.py",
+                "models/classification.py", "models/detection.py",
+                "models/panoptic.py", "models/registration.py",
+                "metrics/detection.py", "data/datasets/tasks.py",
+                "train/task_steps.py", "cli/train_task.py"]
+
+
+@pytest.mark.parametrize("rel", TASK_MODULES)
+def test_task_modules_are_covered(rel):
+    """The non-segmentation tasks' files exist, are among the files the
+    import checks walk, and import neither JAX nor the JAX package (not even
+    its numpy-only metrics or dataset code) nor PyYAML; the numpy-only
+    metrics keep to numpy."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    assert "NotImplementedError" not in path.read_text()
+    if rel == "metrics/detection.py":
+        assert roots <= {"__future__", "typing", "numpy"}
+
+
+def test_task_models_default_to_the_card():
+    from deepviewagg_tpu_torch.models import (classification, detection,
+                                              panoptic, registration)
+    from deepviewagg_tpu_torch.nn import pointnet2
+    from deepviewagg_tpu_torch.train import task_steps
+
+    for fn in (classification.SparseConv3dCls.__init__,
+               detection.VoteNetDet.__init__, panoptic.PanopticSeg.__init__,
+               registration.RegistrationNet.__init__,
+               pointnet2.PointNet2Seg.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    fields = {f.name: f.default for f in
+              task_steps.TaskTrainer.__dataclass_fields__.values()}
+    assert fields["device"] == "cuda"
