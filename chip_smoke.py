@@ -287,6 +287,24 @@ exit) on any fault:
                   (phase 7's bounds), with float32 everywhere within 7g's
                   1e-4 and 2e-3; registration's gradient norm is logged,
                   not held (``TASK_GRAD_NORM_HELD``)
+  12. backbones  the point backbones (``nn/pointnet.py``, ``pvcnn.py``,
+              ``kpconv.py``, ``rsconv.py``, ``pointcnn.py``, ``ppnet.py``,
+              ``randlanet.py``) at their default widths, random weights from
+              a seed (see BACKBONE_*):
+              12a each model (PointNet segmentation and classification and
+                  PVCNN on 8 collated samples of 4096 points, the others on
+                  one-sample graphs of 16,384 points) takes one eval-mode
+                  forward and 2 + 4 Adam steps; losses finite, the segment
+                  launches of the forward and of every step asserted
+                  (PointNet 3 + 3 a step, PVCNN 6 + 2, the others none),
+                  step ms (median after the first), peak memory
+              12b every segment call of one train step of PointNet (both
+                  heads) and PVCNN held against its plain version and
+                  timed as in phases 2 / 2b
+              12c the first step of each model on the card and on the CPU
+                  from the same weights and batch: models with bf16
+                  operands (KPConv, PointCNN, PVCNN) within phase 7's
+                  bounds, the float32 ones within 7g's
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -312,7 +330,10 @@ predictions; ``parallel_dp``: the sums over the calls of 10a's
 data-parallel step, ``launches_parallel_dp`` its counts,
 ``launches_loop_parallel`` the counts over 10a's ``cli.train`` run;
 ``loop_tasks``: the sums over the calls of 11b's classification step,
-``launches_loop_tasks_<task>`` the counts over each 11a run).
+``launches_loop_tasks_<task>`` the counts over each 11a run;
+``loop_backbones_<model>``: the sums over the calls of 12b's step of each
+model that launches a kernel, ``launches_loop_backbones_<model>`` the
+counts over each 12a run).
 Needs a CUDA card,
 ``nvcc`` and the repository checkout.
 """
@@ -418,6 +439,9 @@ REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
 # about as many voxels as the cache's 6 cm grid gives
 CONF = Path(__file__).resolve().parent / "conf"
 QUICK_EPOCHS = 2
+# timed calls per segment call in 9b-9f (20 until phase 12 needed the time;
+# 9g-9j take 5 as well)
+LOOP_TIME_ITERS = 5
 # 9b takes the recipe's published augmentations (s3dis.py:272-275: centre
 # roll at train and eval, flip, mapping jitter, colour jitter at train) and
 # keeps the raw clouds for 9c's full-resolution remap
@@ -2413,13 +2437,14 @@ def loop_recipe(cli, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
     fwd = measure_forward_calls(calls, "9b recipe loop kernels",
-                                "calls_per_forward")
+                                "calls_per_forward", LOOP_TIME_ITERS)
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9b recipe loop kernels")
+    bwd = measure_backward_calls(bwd_calls, "9b recipe loop kernels",
+                                 LOOP_TIME_ITERS)
     del bwd_calls, model, batch
     return {"launches": launches, "forward": fwd, "backward": bwd}
 
@@ -2619,7 +2644,8 @@ def loop_eval(cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    fwd = measure_forward_calls(calls, "9c eval kernels", "calls_per_forward")
+    fwd = measure_forward_calls(calls, "9c eval kernels", "calls_per_forward",
+                                LOOP_TIME_ITERS)
     del calls, model, batch
     return {"launches": launches, "forward": fwd}
 
@@ -3046,13 +3072,14 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
     fwd = measure_forward_calls(calls, "9e s3dis loop kernels",
-                                "calls_per_forward")
+                                "calls_per_forward", LOOP_TIME_ITERS)
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9e s3dis loop kernels")
+    bwd = measure_backward_calls(bwd_calls, "9e s3dis loop kernels",
+                                 LOOP_TIME_ITERS)
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
     s3dis_zbuffer_card_vs_cpu(root)
@@ -3085,7 +3112,7 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
     eval_fwd = measure_forward_calls(calls, "9e s3dis eval kernels",
-                                     "calls_per_forward")
+                                     "calls_per_forward", LOOP_TIME_ITERS)
     del calls, model, batch
     return {"launches": launches, "eval_launches": eval_launches,
             "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
@@ -3290,13 +3317,14 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
     fwd = measure_forward_calls(calls, "9f scannet loop kernels",
-                                "calls_per_forward")
+                                "calls_per_forward", LOOP_TIME_ITERS)
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9f scannet loop kernels")
+    bwd = measure_backward_calls(bwd_calls, "9f scannet loop kernels",
+                                 LOOP_TIME_ITERS)
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
 
@@ -3323,7 +3351,7 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
     eval_fwd = measure_forward_calls(calls, "9f scannet eval kernels",
-                                     "calls_per_forward")
+                                     "calls_per_forward", LOOP_TIME_ITERS)
     del calls, model, batch
     return {"launches": launches, "eval_launches": eval_launches,
             "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
@@ -5821,6 +5849,306 @@ def phase_tasks() -> dict:
             "launches": launches}
 
 
+# --- phase 12: the point backbones ---------------------------------------------
+
+# Each model at its JAX class's default widths, random weights from a seed.
+# PointNet (segmentation and classification) and PVCNN take 8 samples of 4096
+# points, the PointNet paper's S3DIS block size: synthetic rooms
+# (data/synthetic.py) voxelized at 5 cm, 4096 voxels drawn from each, collated
+# as the JAX package's tests collate a PointNet batch (32,768 rows, every one
+# valid: the padding segment is empty).  The graph backbones take one-sample
+# graphs of 16,384 points of another room, with as many levels as the model
+# has widths (a multi-sample graph collapses under ``_separated``'s float32
+# shift in both packages, ROADMAP C): build_pointnet_graph at n_points (4096,
+# 1024, 256), radii (0.15, 0.3, 0.6) (KPConv's and PPNet's defaults; RSConv
+# and PointCNN have none of their own), k 32, self_k 16 for PPNet's
+# bottlenecks (one graph serves the four); build_randla_graph at decimation 4,
+# k 16.  PVCNN's grids at its default resolutions.
+BACKBONE_SAMPLES, BACKBONE_BLOCK = 8, 4096
+BACKBONE_VOXEL = 0.05
+BACKBONE_GRAPH_POINTS = 16384
+BACKBONE_LEVELS = (4096, 1024, 256)
+BACKBONE_RADII = (0.15, 0.3, 0.6)
+BACKBONE_K, PPNET_SELF_K = 32, 16
+RANDLA_DECIMATION, RANDLA_K = 4, 16
+PVCNN_RESOLUTIONS = (24, 16, 12)
+SEG_CLASSES, CLS_CLASSES = 13, 40
+BACKBONE_WARMUP, BACKBONE_TIMED = 2, 4       # train steps (Adam, task_adam)
+# name: ((forward, backward) sorted-segment launches per train step, bf16
+# operands).  PointNet: three masked maxima over batch_idx (T-Net 3, T-Net
+# 64, the global descriptor), each differentiated; PVCNN: the voxel mean's
+# sum and count per block, of which the sums of blocks 2 and 3 (whose input
+# takes a gradient) run backward; the others launch none
+BACKBONES = {
+    "pointnet_seg": ((3, 3), False), "pointnet_cls": ((3, 3), False),
+    "pvcnn": ((6, 2), True), "kpconv": ((0, 0), True),
+    "rsconv": ((0, 0), False), "pointcnn": ((0, 0), True),
+    "ppnet": ((0, 0), False), "randlanet": ((0, 0), False),
+}
+
+
+def backbone_blocks() -> dict:
+    """12's PointNet / PVCNN batch (see BACKBONE_*), as numpy: the collated
+    rows, ``valid`` and PVCNN's ``pv_*`` grid tables, ``cls_label`` one
+    class per sample."""
+    from deepviewagg_tpu_torch.data.collate import (Bucket, Sample, collate,
+                                                    device_view)
+    from deepviewagg_tpu_torch.data.synthetic import make_scene
+    from deepviewagg_tpu_torch.nn.pvcnn import normalize_to_grid
+    from deepviewagg_tpu_torch.ops.voxel import grid_sample
+
+    rng = np.random.default_rng(0)
+    samples = []
+    for s in range(BACKBONE_SAMPLES):
+        scene = make_scene(seed=s, n_cameras=1, image_size=(32, 16))
+        g = grid_sample(scene.pos, BACKBONE_VOXEL, feats=scene.rgb,
+                        labels=scene.labels)
+        take = np.sort(rng.choice(len(g["pos"]), BACKBONE_BLOCK,
+                                  replace=False))
+        samples.append(Sample(
+            coords=g["coords"][take, 1:], labels=g["labels"][take],
+            pos=g["pos"][take], feats=np.concatenate(
+                [g["feats"][take], np.ones((BACKBONE_BLOCK, 1), np.float32)],
+                1)))
+    rows = BACKBONE_SAMPLES * BACKBONE_BLOCK
+    batch = device_view(collate(samples, Bucket(
+        level_caps=[rows] * 5, num_batches=BACKBONE_SAMPLES), conv0_kernel=3))
+    lvl = batch["graph"]["levels"][0]
+    batch["valid"] = lvl["valid"]
+    batch["cls_label"] = (np.arange(BACKBONE_SAMPLES) % CLS_CLASSES).astype(
+        np.int32)
+    batch["pv_batch_idx"] = lvl["batch_idx"]
+    batch["pv_resolution"] = PVCNN_RESOLUTIONS[0]
+    batch["pv_grid_coords"] = normalize_to_grid(
+        batch["pos"], lvl["batch_idx"], lvl["valid"], PVCNN_RESOLUTIONS[0],
+        BACKBONE_SAMPLES)[0]
+    for r in PVCNN_RESOLUTIONS:
+        batch[f"pv_key_r{r}"] = normalize_to_grid(
+            batch["pos"], lvl["batch_idx"], lvl["valid"], r,
+            BACKBONE_SAMPLES)[1]
+    return batch
+
+
+def backbone_graphs() -> tuple:
+    """12's one-sample graph batches (see BACKBONE_*), as numpy: the
+    pointnet graph (with PPNet's same-level tables) and the RandLA one."""
+    from deepviewagg_tpu_torch.data.synthetic import make_scene
+    from deepviewagg_tpu_torch.nn.pointnet2 import build_pointnet_graph
+    from deepviewagg_tpu_torch.nn.randlanet import build_randla_graph
+
+    scene = make_scene(seed=100, n_cameras=1, image_size=(32, 16))
+    rng = np.random.default_rng(1)
+    take = np.sort(rng.choice(len(scene.pos), BACKBONE_GRAPH_POINTS,
+                              replace=False))
+    pos = scene.pos[take].astype(np.float32)
+    n = len(pos)
+    zeros, valid = np.zeros(n, np.int32), np.ones(n, bool)
+    points = {"feats": np.concatenate([scene.rgb[take].astype(np.float32),
+                                       np.ones((n, 1), np.float32)], 1),
+              "valid": valid, "labels": scene.labels[take].astype(np.int32)}
+    t0 = time.perf_counter()
+    pn = build_pointnet_graph(pos, zeros, valid, n_points=BACKBONE_LEVELS,
+                              radii=BACKBONE_RADII, k=BACKBONE_K,
+                              self_k=PPNET_SELF_K)
+    t1 = time.perf_counter()
+    rl = build_randla_graph(pos, zeros, valid, decimation=RANDLA_DECIMATION,
+                            num_levels=len(BACKBONE_LEVELS), k=RANDLA_K)
+    log("12 backbones", part="graphs", points=n,
+        pointnet_graph_s=f"{t1 - t0:.2f}",
+        randla_graph_s=f"{time.perf_counter() - t1:.2f}",
+        group_count_mean="/".join(f"{lvl['group_count'].mean():.1f}"
+                                  for lvl in pn["levels"]))
+    return dict(points, pn_graph=pn), dict(points, rl_graph=rl)
+
+
+def build_backbone(name: str, device: str, seed=0):
+    """Model ``name`` of BACKBONES at its JAX class's default widths."""
+    from deepviewagg_tpu_torch.nn import (kpconv, pointcnn, pointnet, ppnet,
+                                          pvcnn, randlanet, rsconv)
+
+    kw = dict(device=device, seed=seed)
+    return {
+        "pointnet_seg": lambda: pointnet.PointNetSeg(
+            SEG_CLASSES, 4, BACKBONE_SAMPLES, **kw),
+        "pointnet_cls": lambda: pointnet.PointNetCls(
+            CLS_CLASSES, 4, BACKBONE_SAMPLES, **kw),
+        "pvcnn": lambda: pvcnn.PVCNNSeg(SEG_CLASSES, 4,
+                                        resolutions=PVCNN_RESOLUTIONS,
+                                        num_batches=BACKBONE_SAMPLES, **kw),
+        "kpconv": lambda: kpconv.KPConvSeg(SEG_CLASSES, 4,
+                                           radii=BACKBONE_RADII, **kw),
+        "rsconv": lambda: rsconv.RSConvSeg(SEG_CLASSES, 4, **kw),
+        "pointcnn": lambda: pointcnn.PointCNNSeg(SEG_CLASSES, 4, BACKBONE_K,
+                                                 **kw),
+        "ppnet": lambda: ppnet.PPNetSeg(SEG_CLASSES, 4, radii=BACKBONE_RADII,
+                                        bottlenecks=True, **kw),
+        "randlanet": lambda: randlanet.RandLANetSeg(SEG_CLASSES, 4, **kw),
+    }[name]()
+
+
+def backbone_step(model, name: str):
+    """One Adam step of ``model``: CE over the samples for the classifier
+    (``make_classification_step``), the masked per-point CE for the
+    segmentation nets; metrics ``loss`` and ``grad_norm`` (before
+    clipping)."""
+    from deepviewagg_tpu_torch.train import task_steps
+
+    if name == "pointnet_cls":
+        return task_steps.make_classification_step(model)
+
+    def step(state, batch, generator=None):
+        model.train()
+        logits = model(batch)["logits"]
+        loss = segmentation_loss(logits, batch["labels"], batch["valid"])
+        # the task steps' backward, gradient norm and update
+        return task_steps._update(state, model, loss, {})
+
+    return step
+
+
+def backbone_run(name: str, host_batch: dict) -> tuple:
+    """12a: one eval-mode forward and BACKBONE_WARMUP + BACKBONE_TIMED train
+    steps of ``name`` on the card, every step's segment launches asserted;
+    returns the model's start state (parameters and running statistics),
+    the trained model, its optimizer state, the batch on the card and the
+    launch counts over the run."""
+    (fwd, bwd), _ = BACKBONES[name]
+    zero_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_backbone(name, "cuda")
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = batch_to_torch(host_batch, "cuda")
+    rows = (BACKBONE_SAMPLES if name == "pointnet_cls"
+            else host_batch["feats"].shape[0])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.eval()(batch)["logits"]
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    want_classes = CLS_CLASSES if name == "pointnet_cls" else SEG_CLASSES
+    if logits.shape != (rows, want_classes) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"12a {name}: eval logits {tuple(logits.shape)}"
+                             f", finite {bool(torch.isfinite(logits).all())}")
+    if seg.LAUNCHES != {"segment_csr": fwd, "segment_csr_bwd": 0}:
+        raise AssertionError(f"12a {name}: eval forward launched "
+                             f"{seg.LAUNCHES}, expected {fwd} + 0")
+    step, state = backbone_step(model, name), task_adam(model)
+    losses, ms = [], []
+    for i in range(BACKBONE_WARMUP + BACKBONE_TIMED):
+        before = dict(seg.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        got = {k: seg.LAUNCHES[k] - before[k] for k in before}
+        if got != {"segment_csr": fwd, "segment_csr_bwd": bwd}:
+            raise AssertionError(f"12a {name} step {i}: launches {got}, "
+                                 f"expected {fwd} + {bwd}")
+        if not (np.isfinite(losses[-1])
+                and np.isfinite(float(metrics["grad_norm"]))):
+            raise AssertionError(f"12a {name} step {i}: loss {losses[-1]}, "
+                                 f"grad_norm {float(metrics['grad_norm'])}")
+    off = [k for k, p in model.named_parameters() if p.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"12a {name}: parameters off the card {off[:3]}")
+    launches = dict(seg.LAUNCHES)
+    log("12a backbones", model=name, cls=type(model).__name__,
+        params=sum(p.numel() for p in model.parameters()), rows=rows,
+        forward_ms=f"{forward_ms:.1f}", steps=len(losses),
+        losses="/".join(f"{v:.4f}" for v in losses),
+        first_step_ms=f"{ms[0]:.1f}",
+        step_ms_median=f"{np.median(ms[1:]):.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        launches_per_step=f"{fwd}+{bwd}", launches=launches)
+    return start, model, state, batch, launches
+
+
+def backbone_kernels(name: str, model, state, batch) -> tuple:
+    """12b: every segment call of one train step of ``name`` (the trained
+    model) held against the plain versions and timed as 11b does."""
+    (fwd_n, bwd_n), _ = BACKBONES[name]
+    _, _, fwd, bwd = record_step_calls(backbone_step(model, name), state,
+                                       batch)
+    if (len(fwd), len(bwd)) != (fwd_n, bwd_n):
+        raise AssertionError(f"12b {name}: {len(fwd)} + {len(bwd)} segment "
+                             f"calls in one step, expected {fwd_n} + "
+                             f"{bwd_n}")
+    x, ptr, valid, _ = max(fwd, key=lambda c: c[0].numel())
+    log("12b backbone kernels", model=name, widest_rows=x.shape[0],
+        channels=x.shape[1], segments=ptr.numel() - 1,
+        live_rows=live_rows(ptr, valid, x.shape[0]))
+    phase = f"12b {name} kernels"
+    return (measure_forward_calls(fwd, phase, "calls_per_step",
+                                  FAMILY_TIME_ITERS),
+            measure_backward_calls(bwd, phase, FAMILY_TIME_ITERS))
+
+
+def backbone_card_vs_cpu(name: str, start: dict, host_batch: dict) -> None:
+    """12c: the first step of ``name`` on the card and on the CPU, from the
+    same weights and batch: bf16 operands within phase 7's bounds (loss
+    1e-2, gradient norm 3e-2), float32 models within 7g's (1e-4, 2e-3)."""
+    _, bf16 = BACKBONES[name]
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = build_backbone(name, device, seed=None)
+        model.load_state_dict(start)
+        t0 = time.perf_counter()
+        _, metrics = backbone_step(model, name)(
+            task_adam(model), batch_to_torch(host_batch, device), None)
+        got[device] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        got[device]["s"] = time.perf_counter() - t0
+        del model
+    bounds = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL) if bf16
+              else (ALL_F32_LOSS_RTOL, ALL_F32_GRAD_NORM_RTOL))
+    gaps = {k: abs(got["cuda"][k] - got["cpu"][k])
+            / max(abs(got["cpu"][k]), 1e-12) for k in ("loss", "grad_norm")}
+    log("12c backbone card vs cpu", model=name,
+        operands="bf16" if bf16 else "f32",
+        loss_card=f"{got['cuda']['loss']:.6f}",
+        loss_cpu=f"{got['cpu']['loss']:.6f}",
+        grad_norm_card=f"{got['cuda']['grad_norm']:.5f}",
+        grad_norm_cpu=f"{got['cpu']['grad_norm']:.5f}",
+        loss_rel_gap=f"{gaps['loss']:.2e}",
+        grad_norm_rel_gap=f"{gaps['grad_norm']:.2e}",
+        cpu_step_s=f"{got['cpu']['s']:.2f}", bounds=bounds)
+    if gaps["loss"] > bounds[0] or gaps["grad_norm"] > bounds[1]:
+        raise AssertionError(f"12c {name}: loss gap {gaps['loss']}, "
+                             f"grad_norm gap {gaps['grad_norm']} (bounds "
+                             f"{bounds})")
+
+
+def phase_backbones() -> dict:
+    """Phase 12 (see BACKBONE_*): returns each kernel-launching model's sums
+    over 12b's calls (``paths``) and each model's launch counts over its
+    12a run (``launches``)."""
+    t0 = time.perf_counter()
+    blocks = backbone_blocks()
+    graph, randla = backbone_graphs()
+    lvl = blocks["graph"]["levels"][0]
+    log("12 backbones", part="batches", rows=blocks["feats"].shape[0],
+        valid=int(lvl["valid"].sum()), samples=BACKBONE_SAMPLES,
+        graph_points=graph["feats"].shape[0],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    paths, launches = {}, {}
+    for name in BACKBONES:
+        t0 = time.perf_counter()
+        host = (blocks if name.startswith("pointnet") or name == "pvcnn"
+                else randla if name == "randlanet" else graph)
+        start, model, state, batch, launches[name] = backbone_run(name, host)
+        if BACKBONES[name][0] != (0, 0):
+            paths[name] = backbone_kernels(name, model, state, batch)
+        del model, state, batch
+        torch.cuda.empty_cache()
+        backbone_card_vs_cpu(name, start, host)
+        log("12 backbones", model=name,
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"paths": paths, "launches": launches}
+
+
 def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the trace summary."""
     low = name.lower()
@@ -5953,6 +6281,9 @@ def main() -> None:
     t0 = time.perf_counter()
     tasks = phase_tasks()
     log("11 tasks", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    backbones = phase_backbones()
+    log("12 backbones", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
@@ -6029,6 +6360,14 @@ def main() -> None:
     # each task's ``cli.train_task`` run of phase 11a
     task_launches = {f"launches_loop_tasks_{k}": v
                      for k, v in tasks["launches"].items()}
+    # ``loop_backbones_<model>``: the same sums over the calls of one train
+    # step of each phase 12 model that launches a kernel (PointNet and
+    # PVCNN); ``launches_loop_backbones_<model>``: the counts over each
+    # model's 12a run (an eval forward and six steps)
+    bb_paths = {f"loop_backbones_{k}": v
+                for k, v in backbones["paths"].items()}
+    bb_launches = {f"launches_loop_backbones_{k}": v
+                   for k, v in backbones["launches"].items()}
     kernels = [
         entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
@@ -6046,7 +6385,8 @@ def main() -> None:
                   for k, v in pre_paths.items()},
                **{k: v[0] for k, v in ref_paths.items()},
                "parallel_dp": parallel["forward"],
-               "loop_tasks": tasks["forward"]},
+               "loop_tasks": tasks["forward"],
+               **{k: v[0] for k, v in bb_paths.items()}},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -6070,7 +6410,8 @@ def main() -> None:
               launches_parallel_dp=parallel["launches"]["segment_csr"],
               launches_loop_parallel=parallel["loop_launches"][
                   "segment_csr"],
-              **{k: v["segment_csr"] for k, v in task_launches.items()}),
+              **{k: v["segment_csr"] for k, v in task_launches.items()},
+              **{k: v["segment_csr"] for k, v in bb_launches.items()}),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -6085,7 +6426,8 @@ def main() -> None:
                **{k: v[1] for k, v in ref_paths.items()
                   if v[1] is not None},
                "parallel_dp": parallel["backward"],
-               "loop_tasks": tasks["backward"]},
+               "loop_tasks": tasks["backward"],
+               **{k: v[1] for k, v in bb_paths.items()}},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -6111,7 +6453,8 @@ def main() -> None:
               launches_parallel_dp=parallel["launches"]["segment_csr_bwd"],
               launches_loop_parallel=parallel["loop_launches"][
                   "segment_csr_bwd"],
-              **{k: v["segment_csr_bwd"] for k, v in task_launches.items()}),
+              **{k: v["segment_csr_bwd"] for k, v in task_launches.items()},
+              **{k: v["segment_csr_bwd"] for k, v in bb_launches.items()}),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

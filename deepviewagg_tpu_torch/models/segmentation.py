@@ -549,13 +549,14 @@ def build_model(spec: ModelSpec, device="cuda",
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialization, drawn on the CPU so one seed gives the
-    same weights on every device: He-normal sparse and 2D conv kernels
-    (fan-in), the scratch towers' convs uniform with variance 1/(3 fan-in),
-    LeCun-normal linear weights, zero biases, unit norm scales, and fresh
+    same weights on every device: He-normal sparse, KPConv and 2D conv
+    kernels (fan-in), the scratch towers' convs uniform with variance 1/(3
+    fan-in), LeCun-normal linear weights and 3D conv kernels, zero biases, unit norm scales, and fresh
     running statistics (the flax initializers' families)."""
     from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
+    from ..nn.kpconv import KPConvLayer
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -563,9 +564,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     for m in model.modules():
-        if isinstance(m, SparseConv):
+        if isinstance(m, (SparseConv, KPConvLayer)):
             k, cin, _ = m.weight.shape
             normal_(m.weight, float(np.sqrt(2.0 / (k * cin))))
+        elif isinstance(m, nn.Conv3d):
+            # LeCun normal, flax Conv's default; fan in = kd * kh * kw * cin
+            normal_(m.weight, float(np.sqrt(1.0 / m.weight[0].numel())))
         elif isinstance(m, Conv2dWS):
             normal_(m.weight, float(np.sqrt(2.0 / m.weight[0].numel())))
         elif isinstance(m, (WSConv2d, WSConvTranspose2d)):

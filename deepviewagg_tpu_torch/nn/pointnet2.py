@@ -31,7 +31,9 @@ from torch import nn
 from ..ops import spatial as sp
 from .norm import MaskedBatchNorm
 
-__all__ = ["build_pointnet_graph", "PointNet2Seg", "set_abstraction"]
+__all__ = ["build_pointnet_graph", "PointNet2Seg", "set_abstraction",
+           "grouped_rows", "interpolate_up", "fp_decoder", "decode",
+           "graph_levels"]
 
 
 def _separated(pos, batch_idx, gap=1e4):
@@ -116,6 +118,63 @@ def grouped_rows(x: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, group.reshape(-1)).reshape(m, k, x.shape[-1])
 
 
+def interpolate_up(x: torch.Tensor, up_idx: torch.Tensor,
+                   up_d2: torch.Tensor) -> torch.Tensor:
+    """The coarse rows ``x`` at the finer level: inverse squared-distance
+    weights over the ``up_idx`` neighbours (the FP upsampling of the pointnet
+    graph's ``up_idx`` / ``up_d2``)."""
+    w = 1.0 / torch.clamp(up_d2, min=1e-10)
+    w = w / torch.sum(w, dim=1, keepdim=True)
+    return torch.sum(grouped_rows(x, up_idx) * w[..., None], dim=1)
+
+
+def graph_levels(graph: Dict, n_levels: int) -> List[Dict]:
+    """The graph's levels, which must be as many as the model's widths (the
+    JAX modules zip them with their widths and then walk every level)."""
+    levels = graph["levels"]
+    if len(levels) != n_levels:
+        raise ValueError(f"the graph has {len(levels)} levels, the model "
+                         f"{n_levels} widths")
+    return levels
+
+
+def fp_decoder(module: nn.Module, skip_widths: Sequence[int], width: int,
+               out_widths: Sequence[int], dense_first: int = 0,
+               norm_first: int = 0, momentum: float = 0.9,
+               device=None) -> int:
+    """Give ``module`` the FP stages of a graph backbone under the flax
+    names: ``Dense_<dense_first + j>`` (bias-free) and
+    ``MaskedBatchNorm_<norm_first + j>`` for the ``j``-th stage from the
+    coarsest level down.  ``skip_widths[li]`` is the width of level ``li``'s
+    skip (level 0: the input features), ``width`` the encoder's output
+    width, ``out_widths[li]`` the stage's output at level ``li``.  Returns
+    the last stage's width."""
+    for j, li in enumerate(reversed(range(len(out_widths)))):
+        setattr(module, f"Dense_{dense_first + j}", nn.Linear(
+            width + skip_widths[li], out_widths[li], bias=False,
+            device=device))
+        setattr(module, f"MaskedBatchNorm_{norm_first + j}", MaskedBatchNorm(
+            out_widths[li], momentum=momentum, device=device))
+        width = out_widths[li]
+    return width
+
+
+def decode(module: nn.Module, x, skips, levels, dense_first: int = 0,
+           norm_first: int = 0, act=F.relu) -> torch.Tensor:
+    """Run the stages of :func:`fp_decoder`: per level from the coarsest,
+    ``x`` upsampled by the level's ``up_idx`` / ``up_d2``, concatenated with
+    the skip, dense, masked batch norm over the skip's valid rows, ``act``.
+    ``skips[li]`` is ``(features, valid)`` at level ``li``."""
+    for j, li in enumerate(reversed(range(len(levels)))):
+        fine_x, fine_valid = skips[li]
+        up = interpolate_up(x, levels[li]["up_idx"], levels[li]["up_d2"])
+        x = getattr(module, f"Dense_{dense_first + j}")(
+            torch.cat([up, fine_x], -1))
+        x = act(getattr(module, f"MaskedBatchNorm_{norm_first + j}")(
+            x, fine_valid))
+    return x
+
+
 def set_abstraction(mlp: _PointMLP, x, src_pos, dst_pos, group, count,
                     center_valid) -> torch.Tensor:
     """One SA level: the relative positions and features of each centre's
@@ -180,10 +239,7 @@ class PointNet2Seg(nn.Module):
         n = self.n_levels
         for j, li in enumerate(reversed(range(n))):
             fine_x, fine_valid = skips[li]
-            w = 1.0 / torch.clamp(levels[li]["up_d2"], min=1e-10)
-            w = w / torch.sum(w, dim=1, keepdim=True)
-            up = torch.sum(grouped_rows(x, levels[li]["up_idx"])
-                           * w[..., None], dim=1)
+            up = interpolate_up(x, levels[li]["up_idx"], levels[li]["up_d2"])
             x = torch.cat([up, fine_x], dim=-1)
             x = getattr(self, f"_PointMLP_{n + j}")(x, fine_valid)
         return {"logits": self.head(x)}

@@ -1,17 +1,23 @@
 """Blockwise brute-force exact k-nearest-neighbors on the request's device.
 
-The port of ``deepviewagg_tpu/ops/knn.py::knn``: one tiled ``topk`` over
-distance blocks (``|x-y|^2 = |x|^2 + |y|^2 - 2 x.y``, one matmul per block),
-the role pykeops / FAISS / torch_cluster play in the reference's
-preprocessing.  Exact (no ANN); neighbors at exactly equal distance may come
-out in another order than the JAX package's ``lax.top_k``.
+The port of ``deepviewagg_tpu/ops/knn.py``: :func:`knn`, one tiled ``topk``
+over distance blocks (``|x-y|^2 = |x|^2 + |y|^2 - 2 x.y``, one matmul per
+block), the role pykeops / FAISS / torch_cluster play in the reference's
+preprocessing; :func:`radius_count`, the ball-query census; and
+:func:`dilated_knn`, a random ``k`` of the ``k * dilation`` nearest (the
+reference's DilatedKNNNeighbourFinder), drawn from a numpy ``Generator`` as
+the JAX package draws it.  Exact (no ANN); neighbors at exactly equal
+distance may come out in another order than the JAX package's
+``lax.top_k``.  (The JAX package's ``knn_grid`` stands on its native grid
+builder, which the port does not have yet: ROADMAP A.5.)
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["knn"]
+__all__ = ["knn", "radius_count", "dilated_knn"]
 
 
 def knn(query: torch.Tensor, points: torch.Tensor, k: int, valid=None,
@@ -37,3 +43,49 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, valid=None,
         dists.append(dv)
         idx.append(di)
     return torch.cat(dists), torch.cat(idx)
+
+
+def radius_count(query: torch.Tensor, points: torch.Tensor, radius: float,
+                 valid=None, block: int = 1024) -> torch.Tensor:
+    """Number of (valid) points within ``radius`` of each query, int64
+    ``[Nq]`` on the inputs' device: the expanded squared distance, not
+    clamped, against ``radius ** 2``, as the JAX package counts."""
+    query = query.to(torch.float32)
+    points = points.to(torch.float32)
+    pts_sq = torch.sum(points * points, dim=1)
+    r2 = radius * radius
+    out = []
+    for start in range(0, query.shape[0], block):
+        q = query[start:start + block]
+        d = (torch.sum(q * q, dim=1)[:, None] - 2.0 * (q @ points.T)
+             + pts_sq[None, :])
+        inside = d <= r2
+        if valid is not None:
+            inside = inside & valid[None, :]
+        out.append(torch.sum(inside, dim=1))
+    if not out:
+        return torch.zeros(0, dtype=torch.int64, device=query.device)
+    return torch.cat(out)
+
+
+def dilated_knn(query: torch.Tensor, points: torch.Tensor, k: int,
+                dilation: int, valid=None, rng=None, block: int = 1024):
+    """Dilated kNN: the ``k * dilation`` nearest neighbors, of which a random
+    ``k`` per query are kept, without replacement (a cheap receptive-field
+    expansion).  ``rng`` is a numpy ``Generator`` and is required when
+    ``dilation > 1``: a seeded default would pick the same subset on every
+    call.  The pick is ``argpartition`` of ``rng.random`` keys per row, the
+    JAX package's, so one ``Generator`` state gives both packages the same
+    subset.  ``dilation <= 1`` is :func:`knn`."""
+    if dilation <= 1:
+        return knn(query, points, k, valid=valid, block=block)
+    if rng is None:
+        raise ValueError(
+            "dilated_knn with dilation > 1 needs an explicit numpy Generator "
+            "rng: pass the dataset's or epoch's rng so that the k-of-"
+            "k*dilation subsample varies across calls")
+    d, i = knn(query, points, k * dilation, valid=valid, block=block)
+    keys = rng.random((i.shape[0], k * dilation))
+    pick = torch.from_numpy(np.argpartition(keys, k - 1, axis=1)[:, :k]).to(
+        i.device)
+    return torch.gather(d, 1, pick), torch.gather(i, 1, pick)

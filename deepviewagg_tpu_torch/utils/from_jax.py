@@ -19,7 +19,13 @@ belongs to; the module's type decides the leaf's name and layout:
                                          it to run a dilated-input conv,
                                          ``conv_transpose2d`` takes it as is)
   SparseConv ``kernel [K, Cin, Cout]`` -> ``SparseConv.weight`` as is
-  ``scale`` / ``bias`` of norms       -> ``weight`` / ``bias``
+  KPConv ``kernel [K, Cin, Cout]``    -> ``KPConvLayer.weight`` as is
+  ``Conv`` 3-D ``kernel``              -> ``nn.Conv3d.weight [Cout, Cin, kx,
+    ``[kx, ky, kz, Cin, Cout]``            ky, kz]`` (PVCNN's grids: channels
+                                         last in flax, first in torch)
+  ``scale`` / ``bias`` of norms       -> ``weight`` / ``bias`` (masked batch
+                                         norms, towers' BatchNorm, flax
+                                         ``GroupNorm``)
   ``batch_stats`` ``mean`` / ``var``  -> ``running_mean`` / ``running_var``
     (``MaskedBatchNorm`` and the towers' ``BatchNorm``)
 
@@ -40,7 +46,10 @@ carry theirs too: ``stem``, ``down<i>``, ``Dense_0``, ``head``
 (classification); ``_PointMLP_<i>`` with ``Dense_<j>`` /
 ``MaskedBatchNorm_<j>``, ``vote_offset``, ``vote_feat``, ``objectness``,
 ``center``, ``size``, ``cls`` (detection, PointNet++); ``backbone``,
-``sem_head``, ``offset_head`` (panoptic) and ``desc`` (registration).
+``sem_head``, ``offset_head`` (panoptic) and ``desc`` (registration).  So
+do the point backbones: ``kp<i>``, ``rs<i>``, ``xconv<i>``, ``pool<i>`` /
+``block<i>`` / ``pospool``, ``_AttentivePool_<i>``, ``encoder`` / ``stn3``
+/ ``stnf``, ``PVConv_<i>`` with ``Conv_<j>`` / ``GroupNorm_<j>``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
     from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
+    from ..nn.kpconv import KPConvLayer
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -92,8 +102,11 @@ def _convert(module: nn.Module, collection: str, leaf: str, value: np.ndarray):
                 return "weight", value.transpose(
                     (3, 2, 0, 1) if isinstance(module, WSConv2d)
                     else (2, 3, 0, 1))
-        elif isinstance(module, SparseConv) and leaf == "kernel":
+        elif (isinstance(module, (SparseConv, KPConvLayer))
+              and leaf == "kernel"):
             return "weight", value
+        elif isinstance(module, nn.Conv3d) and leaf == "kernel":
+            return "weight", value.transpose(4, 3, 0, 1, 2)
         elif isinstance(module, (MaskedBatchNorm, BatchNorm, nn.GroupNorm)):
             if leaf in ("scale", "bias"):
                 return {"scale": "weight", "bias": "bias"}[leaf], value
@@ -138,6 +151,7 @@ def _unconvert(module: nn.Module, name: str, value: np.ndarray):
     from ..modules.image_encoders import BatchNorm, Conv2dWS
     from ..modules.pooling import Gating
     from ..modules.scratch2d import WSConv2d, WSConvTranspose2d
+    from ..nn.kpconv import KPConvLayer
     from ..nn.norm import MaskedBatchNorm
     from ..nn.sparse_blocks import SparseConv
 
@@ -157,8 +171,10 @@ def _unconvert(module: nn.Module, name: str, value: np.ndarray):
         if name == "weight":
             return "kernel", value.transpose(
                 (2, 3, 1, 0) if isinstance(module, WSConv2d) else (2, 3, 0, 1))
-    elif isinstance(module, SparseConv) and name == "weight":
+    elif isinstance(module, (SparseConv, KPConvLayer)) and name == "weight":
         return "kernel", value
+    elif isinstance(module, nn.Conv3d) and name == "weight":
+        return "kernel", value.transpose(2, 3, 4, 1, 0)
     elif isinstance(module, (MaskedBatchNorm, BatchNorm, nn.GroupNorm)):
         if name in ("weight", "bias"):
             return {"weight": "scale", "bias": "bias"}[name], value

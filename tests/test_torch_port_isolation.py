@@ -403,3 +403,70 @@ def test_task_models_default_to_the_card():
     fields = {f.name: f.default for f in
               task_steps.TaskTrainer.__dataclass_fields__.values()}
     assert fields["device"] == "cuda"
+
+
+# the point backbones and the kNN helpers (ROADMAP A.9): each with the JAX
+# module's public names, but the native grid kNN (``knn_grid``, A.5)
+BACKBONE_MODULES = ["nn/pointnet.py", "nn/pvcnn.py", "nn/kpconv.py",
+                    "nn/rsconv.py", "nn/pointcnn.py", "nn/ppnet.py",
+                    "nn/randlanet.py", "ops/knn.py"]
+NOT_YET_PORTED = {"ops/knn.py": {"knn_grid"}}
+
+
+def _public_names(path: Path) -> set:
+    """The names a module lists in ``__all__``, read without importing it."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return {ast.literal_eval(e) for e in node.value.elts}
+    return set()
+
+
+@pytest.mark.parametrize("rel", BACKBONE_MODULES)
+def test_point_backbone_modules_are_covered(rel):
+    """The point backbones' and the kNN helpers' files exist, are among the
+    files the import checks walk, import neither JAX nor the JAX package,
+    refuse nothing, and offer every public name of their JAX counterpart
+    (``deepviewagg_tpu/<rel>``), each bound to a definition."""
+    import importlib
+
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    assert "NotImplementedError" not in path.read_text()
+    want = _public_names(ROOT / "deepviewagg_tpu" / rel)
+    want -= NOT_YET_PORTED.get(rel, set())
+    got = _public_names(path)
+    assert want and want <= got, sorted(want - got)
+    mod = importlib.import_module(
+        "deepviewagg_tpu_torch." + rel[:-3].replace("/", "."))
+    assert all(callable(getattr(mod, name)) for name in got)
+
+
+def test_nn_package_imports_what_the_jax_one_does():
+    """``deepviewagg_tpu_torch/nn/__init__.py`` imports the submodules the
+    JAX package's ``nn/__init__.py`` imports."""
+    def submodules(path):
+        return {alias.name for node in ast.parse(path.read_text()).body
+                if isinstance(node, ast.ImportFrom) and node.level == 1
+                for alias in node.names}
+
+    want = submodules(ROOT / "deepviewagg_tpu" / "nn" / "__init__.py")
+    assert want and submodules(PKG / "nn" / "__init__.py") == want
+
+
+@pytest.mark.parametrize("name", ["pointnet.PointNetSeg",
+                                  "pointnet.PointNetCls", "pvcnn.PVCNNSeg",
+                                  "kpconv.KPConvSeg", "rsconv.RSConvSeg",
+                                  "pointcnn.PointCNNSeg", "ppnet.PPNetSeg",
+                                  "randlanet.RandLANetSeg"])
+def test_point_backbones_default_to_the_card(name):
+    import importlib
+
+    mod, cls = name.split(".")
+    model = getattr(importlib.import_module(f"deepviewagg_tpu_torch.nn.{mod}"),
+                    cls)
+    assert inspect.signature(model.__init__).parameters[
+        "device"].default == "cuda"
