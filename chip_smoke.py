@@ -5,7 +5,8 @@ exit) on any fault:
 
   0. card     name and power limit; TF32 off for matmuls and convolutions
   1. build    compile every hand-written kernel (one nvcc per source, in
-              parallel) from the checkout's ``csrc/``
+              parallel) from the checkout's ``csrc/``, and the native host
+              builders (``native/kernelmap.cpp``, g++) beside them
   2. kernels  replay every sorted-segment call of one flagship forward
               (six, no two of them the same reduction) through the CUDA
               kernel and through its plain PyTorch version on the same inputs
@@ -305,6 +306,23 @@ exit) on any fault:
                   from the same weights and batch: models with bf16
                   operands (KPConv, PointCNN, PVCNN) within phase 7's
                   bounds, the float32 ones within 7g's
+  13. native  the native host builders, the viewer's demo and the kNN
+              transforms (see NATIVE_TIMED):
+              13a the UNet graph of 9b's first train batch (every level and
+                  kernel map) by the native builders and by their numpy
+                  versions, byte-equal, host ms of each (median of 5); the
+                  same for ``unique_coords`` / ``query_coords`` on 9e's
+                  Area_1 raw cloud
+              13b the scale rehearsal's cloud: the host's grid kNN against
+                  the card's brute force at the JAX package's bounds, ms of
+                  both, then ``pca_features`` through the host path (9j's
+                  rehearsal takes it too and logs its grid kNN ms)
+              13c ``cli.demo_synthetic`` on the card: the PLY and the HTML,
+                  the viewer's data and panels, 6 + 5 launches a step and 6
+                  an eval forward, every segment call of its first batch
+                  against plain and timed
+              13d ``RandomWalkDropout`` then ``DensityFilter`` on a sphere of
+                  9e's voxels, card against CPU: equal clouds
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -333,9 +351,10 @@ data-parallel step, ``launches_parallel_dp`` its counts,
 ``launches_loop_tasks_<task>`` the counts over each 11a run;
 ``loop_backbones_<model>``: the sums over the calls of 12b's step of each
 model that launches a kernel, ``launches_loop_backbones_<model>`` the
-counts over each 12a run).
-Needs a CUDA card,
-``nvcc`` and the repository checkout.
+counts over each 12a run; ``loop_demo``: the sums over the calls of one
+forward / train step of 13c's batch, ``launches_loop_demo`` the counts over
+the demo's run).
+Needs a CUDA card, ``nvcc``, ``g++`` and the repository checkout.
 """
 
 from __future__ import annotations
@@ -726,9 +745,10 @@ def phase_card() -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     cuda_build.build()
-    for name in cuda_build.KERNELS:
+    for name in (*cuda_build.KERNELS, *cuda_build.HOST):
         cuda_build.load(name)
     log("1 build", kernels=",".join(cuda_build.KERNELS),
+        host=",".join(cuda_build.HOST),
         seconds=f"{time.perf_counter() - t0:.2f}")
 
 
@@ -2389,7 +2409,7 @@ def loop_recipe(cli, tmp: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with LoopProbe() as probe:
+    with LoopProbe() as probe, FirstGraph() as first_graph:
         cli.main(args)
     launches = dict(seg.LAUNCHES)
     probe.check_steps("9b recipe loop")
@@ -2446,7 +2466,8 @@ def loop_recipe(cli, tmp: Path) -> dict:
     bwd = measure_backward_calls(bwd_calls, "9b recipe loop kernels",
                                  LOOP_TIME_ITERS)
     del bwd_calls, model, batch
-    return {"launches": launches, "forward": fwd, "backward": bwd}
+    return {"launches": launches, "forward": fwd, "backward": bwd,
+            "graph": first_graph.args}
 
 
 class EvalProbe(Seams):
@@ -4999,9 +5020,12 @@ def loop_reference(cli, cli_eval, tmp: Path) -> dict:
     ref_card_vs_cpu(shared)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out["rehearsal"] = scale_rehearsal.main(list(REF_REHEARSAL))
+    with KnnGridCalls() as grid:
+        out["rehearsal"] = scale_rehearsal.main(list(REF_REHEARSAL))
+    if len(grid.ms) != 1:
+        raise AssertionError(f"9j rehearsal: {len(grid.ms)} grid kNN calls")
     log("9j scale rehearsal", seconds=f"{time.perf_counter() - t0:.1f}",
-        **out["rehearsal"])
+        knn_grid_ms=f"{grid.ms[0]:.0f}", **out["rehearsal"])
     return out
 
 
@@ -6148,6 +6172,381 @@ def phase_backbones() -> dict:
             seconds=f"{time.perf_counter() - t0:.1f}")
     return {"paths": paths, "launches": launches}
 
+# phase 13: the native host builders (deepviewagg_tpu_torch/native:
+# kernelmap.cpp built by g++ in phase 1), the HTML viewer with its demo and
+# the kNN transforms.  13a: the UNet graph of 9b's first train batch (every
+# level's coordinates, maps and parents) built by the native builders and by
+# the numpy versions (``*_plain``), byte-equal, host ms of each (median of
+# NATIVE_TIMED); unique_coords / query_coords on 9e's Area_1 raw cloud at
+# the recipe's 5 cm, the same.  13b: the scale rehearsal's cloud (scene
+# seed 0 at its defaults, voxelized at 4 cm, centred: the brute force's
+# expanded form loses ~1e-4 at 24 m from the origin): the host's grid kNN at
+# the rehearsal's k against the card's brute force, at the JAX package's
+# own bounds (distances rtol 1e-3 / atol 2e-4 row by row; ids >= 99.9%
+# equal, or else every differing id a tie with the k-th distance within
+# that bound: the voxel means of planes hold many), ms of both, then
+# pca_features on the card through the host path.  13c:
+# ``cli.demo_synthetic`` on the card at its defaults (4 epochs of 8 steps):
+# the files, the viewer's data, each panel decoded to its image's bytes,
+# FORWARD_LAUNCHES + BACKWARD_LAUNCHES a step (the flagship's pools) and
+# FORWARD_LAUNCHES an eval forward, every segment call of its first batch's
+# forward and backward against plain.  13d: RandomWalkDropout then
+# DensityFilter on a sphere of 9e's Area_1 voxels, on the card and on the
+# CPU from one seed: equal clouds.  The sphere is centred and rounded to
+# multiples of TIES_LATTICE (within 1 m every product and sum of the kNN's
+# expanded squared distances is then exact in float32 on both devices), and
+# thinned until no point's TIES_K + 1 nearest hold equal distances.
+NATIVE_TIMED = 5
+GRID_K = 30                       # the rehearsal's pca_features k
+GRID_RTOL, GRID_ATOL, GRID_IDS = 1e-3, 2e-4, 0.999
+REHEARSAL_ROOM, REHEARSAL_POINTS, REHEARSAL_VOXEL = (24.0, 18.0, 3.0), 1e6, 0.04
+TIES_LATTICE, TIES_K, SPHERE_RADIUS = 2.0 ** -10, 9, 1.0
+DEMO_EPOCHS, DEMO_STEPS = 4, 8    # cli.demo_synthetic's defaults
+
+
+class FirstGraph(Seams):
+    """The arguments of the run's first ``build_unet_graph`` call (the
+    collate of its first train batch)."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = None
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.ops import sparse_graph
+
+        def make(original):
+            def run(coords, *args, **kwargs):
+                if self.args is None:
+                    self.args = (np.array(coords, copy=True), args,
+                                 dict(kwargs))
+                return original(coords, *args, **kwargs)
+            return run
+
+        self._patch(sparse_graph, "build_unet_graph", make)
+        return self
+
+
+class PlainBuilders(Seams):
+    """The numpy versions of the host builders in place of the native
+    ones, for one block."""
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.ops import kernel_map, sparse_graph, voxel
+
+        for owner, name in ((voxel, "unique_coords"), (voxel, "query_coords"),
+                            (kernel_map, "build_kernel_map"),
+                            (sparse_graph, "_build_padded_map")):
+            plain = getattr(owner, name + "_plain")
+            self._patch(owner, name, lambda original, plain=plain: plain)
+        return self
+
+
+class KnnGridCalls(Seams):
+    """The host ms of each ``ops.knn.knn_grid`` call (``pca_features``
+    past HOST_KNN_POINTS points)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ms = []
+
+    def __enter__(self):
+        from deepviewagg_tpu_torch.ops import knn
+
+        def grid(original):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = original(*args, **kwargs)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        self._patch(knn, "knn_grid", grid)
+        return self
+
+
+def host_ms(fn, n: int = NATIVE_TIMED) -> tuple:
+    """(median host ms of ``n`` calls of ``fn``, the last result)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def same_bytes(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def native_graph(first) -> None:
+    """13a: the graph of 9b's first batch, native against plain."""
+    from deepviewagg_tpu_torch.ops import sparse_graph as sg
+
+    coords, args, kwargs = first
+
+    def build():
+        return sg.build_unet_graph(coords, *args, **kwargs)
+
+    native_ms, native = host_ms(build)
+    with PlainBuilders():
+        plain_ms, plain = host_ms(build)
+    a, b = sg.graph_to_device(native), sg.graph_to_device(plain)
+    maps = 0
+    for lvl, (x, y) in enumerate(zip(a["levels"], b["levels"])):
+        for key in x:
+            if sorted(x) != sorted(y) or not same_bytes(x[key], y[key]):
+                raise AssertionError(f"13a level {lvl} {key}: native and "
+                                     "plain differ")
+            maps += key.endswith("_nbr")
+    if not same_bytes(a["conv0_nbr"], b["conv0_nbr"]):
+        raise AssertionError("13a conv0_nbr: native and plain differ")
+    log("13a native graph", voxels=len(coords),
+        levels="/".join(str(lvl.num_valid) for lvl in native.levels),
+        caps="/".join(str(len(lvl.valid)) for lvl in native.levels),
+        maps=maps + 1, equal="bytes", native_ms=f"{native_ms:.1f}",
+        plain_ms=f"{plain_ms:.1f}", speedup=f"{plain_ms / native_ms:.2f}")
+
+
+def native_grid(root: Path) -> None:
+    """13a: unique_coords / query_coords on 9e's Area_1 raw cloud."""
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+    from deepviewagg_tpu_torch.ops import voxel
+
+    raw = load_area(str(root / "processed_dva" / "area_1.npz"))["raw_pos"]
+    coords = np.concatenate([np.zeros((len(raw), 1), np.int32), np.round(
+        raw / 0.05).astype(np.int32)], 1)
+    u_ms, (uniq, inverse) = host_ms(lambda: voxel.unique_coords(coords))
+    up_ms, (uniq_p, inverse_p) = host_ms(
+        lambda: voxel.unique_coords_plain(coords))
+    q_ms, hit = host_ms(lambda: voxel.query_coords(uniq, coords))
+    qp_ms, hit_p = host_ms(lambda: voxel.query_coords_plain(uniq, coords))
+    if not (same_bytes(uniq, uniq_p) and same_bytes(inverse, inverse_p)
+            and same_bytes(hit, hit_p)):
+        raise AssertionError("13a Area_1 grid: native and plain differ")
+    if not np.array_equal(hit, inverse):
+        raise AssertionError("13a Area_1 grid: a row does not find its voxel")
+    log("13a native grid", raw_points=len(raw), voxels=len(uniq),
+        equal="bytes", unique_native_ms=f"{u_ms:.1f}",
+        unique_plain_ms=f"{up_ms:.1f}", query_native_ms=f"{q_ms:.1f}",
+        query_plain_ms=f"{qp_ms:.1f}")
+
+
+def boundary_ties(pos, idg, sg, sb) -> float:
+    """Over the rows whose two neighbour sets differ: how far each differing
+    id's exact (float64) distance lies outside the GRID_* bound around the
+    row's k-th distance (<= 0: every difference is a tie at the boundary,
+    which either kNN may break its own way)."""
+    p = pos.astype(np.float64)
+    worst = -np.inf
+    for r in np.nonzero((sg != sb).any(1))[0]:
+        diff = np.setxor1d(sg[r], sb[r])
+        d = ((p[diff] - p[r]) ** 2).sum(1)
+        kth = ((p[idg[r, -1]] - p[r]) ** 2).sum()
+        worst = max(worst, float((np.abs(d - kth)
+                                  - (GRID_ATOL + GRID_RTOL * kth)).max()))
+    return worst
+
+
+def native_knn() -> None:
+    """13b: the host's grid kNN against the card's brute force on the
+    rehearsal's cloud, then pca_features through the host path."""
+    from deepviewagg_tpu_torch.data import synthetic
+    from deepviewagg_tpu_torch.data.geometric import pca_features
+    from deepviewagg_tpu_torch.ops import knn
+    from deepviewagg_tpu_torch.ops.voxel import grid_sample
+
+    t0 = time.perf_counter()
+    room = REHEARSAL_ROOM
+    area = 2 * (room[0] * room[1] + room[0] * room[2] + room[1] * room[2])
+    scene = synthetic.make_scene(seed=0, room=room,
+                                 density=REHEARSAL_POINTS / area, n_boxes=10,
+                                 n_cameras=24, image_size=(512, 256),
+                                 r_max=16.0)
+    pos = grid_sample(scene.pos, REHEARSAL_VOXEL)["pos"]
+    pos = pos - pos.mean(0)
+    scene_s = time.perf_counter() - t0
+    grid_ms, (d2g, idg) = host_ms(lambda: knn.knn_grid(pos, pos, GRID_K), 2)
+    pos_t = torch.as_tensor(pos, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2b, idb = knn.knn(pos_t, pos_t, GRID_K)
+    torch.cuda.synchronize()
+    brute_ms = (time.perf_counter() - t0) * 1e3
+    d2b, idb = d2b.cpu().numpy(), idb.cpu().numpy()
+    bs = np.sort(d2b, 1)
+    excess = float((np.abs(np.sort(d2g, 1) - bs)
+                    - (GRID_ATOL + GRID_RTOL * np.abs(bs))).max())
+    sg, sb = np.sort(idg, 1), np.sort(idb, 1)
+    ids = float((sg == sb).mean())
+    tie = boundary_ties(pos, idg, sg, sb)
+    if excess > 0 or (ids < GRID_IDS and tie > 0):
+        raise AssertionError(f"13b grid vs brute: distances over the bound "
+                             f"by {excess:.3e}, ids {ids:.5f}, a differing "
+                             f"id {tie:.3e} off the k-th distance's bound")
+    if not np.array_equal(idg[:, 0], np.arange(len(pos))):
+        raise AssertionError("13b grid kNN: a point is not its own first")
+    del d2b, idb, bs, sg, sb
+    with KnnGridCalls() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        geo = pca_features(pos, k=GRID_K, device="cuda")
+        torch.cuda.synchronize()
+        pca_ms = (time.perf_counter() - t0) * 1e3
+    if len(calls.ms) != 1 or not np.array_equal(
+            geo["nn_idx"].cpu().numpy(), idg):
+        raise AssertionError(f"13b pca_features: {len(calls.ms)} grid kNN "
+                             "calls, or other neighbours")
+    if not all(bool(torch.isfinite(v).all()) for v in geo.values()
+               if v.dtype.is_floating_point):
+        raise AssertionError("13b pca_features: non-finite features")
+    log("13b native knn", raw_points=len(scene.pos), voxels=len(pos),
+        k=GRID_K, scene_s=f"{scene_s:.1f}", grid_ms=f"{grid_ms:.0f}",
+        brute_card_ms=f"{brute_ms:.0f}", ids_equal=f"{ids:.6f}",
+        differing_ids_off_kth_tie=f"{tie:.3e}", distance_excess=f"{excess:.3e}",
+        pca_ms=f"{pca_ms:.0f}", pca_grid_ms=f"{calls.ms[0]:.0f}",
+        rtol=GRID_RTOL, atol=GRID_ATOL)
+    del geo
+    torch.cuda.empty_cache()
+
+
+def panel_pixels(b64: str, tmp: Path) -> np.ndarray:
+    import base64
+
+    from deepviewagg_tpu_torch.utils.image_io import read_png
+
+    path = tmp / "panel.png"
+    path.write_bytes(base64.b64decode(b64))
+    return read_png(str(path))
+
+
+def native_demo(tmp: Path) -> dict:
+    """13c: ``cli.demo_synthetic`` on the card at its defaults."""
+    from deepviewagg_tpu_torch.cli import demo_synthetic
+
+    out_dir = tmp / "demo"
+    zero_launches()
+    t0 = time.perf_counter()
+    with LoopProbe() as probe:
+        out = demo_synthetic.main(["--out", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    launches = dict(seg.LAUNCHES)
+    probe.check_steps("13c demo")
+    steps, forwards = DEMO_EPOCHS * DEMO_STEPS, DEMO_EPOCHS + 1
+    want = {"segment_csr": (steps + forwards) * FORWARD_LAUNCHES,
+            "segment_csr_bwd": steps * BACKWARD_LAUNCHES}
+    if len(probe.losses) != steps or launches != want:
+        raise AssertionError(f"13c demo: {len(probe.losses)} steps, "
+                             f"launches {launches}, expected {want}")
+    html = Path(out["html"]).read_text()
+    start = html.index("const D = ") + len("const D = ")
+    data = json.loads(html[start:html.index(
+        ";\ndocument.getElementById('title')", start)])
+    sample = out["sample"]
+    if sorted(data) != ["modes", "panels", "pos", "title"] \
+            or len(data["pos"]) != len(sample.pos) \
+            or sorted(data["modes"]) != ["labels", "preds", "rgb"] \
+            or len(data["panels"]) != len(sample.images):
+        raise AssertionError(f"13c viewer data: {sorted(data)}")
+    for panel, img in zip(data["panels"], sample.images):
+        want_px = (np.clip(img, 0, 1) * 255).astype(np.uint8).transpose(
+            1, 0, 2)
+        if not np.array_equal(panel_pixels(panel["png"], tmp), want_px):
+            raise AssertionError("13c viewer: a panel is not its image")
+    log("13c demo", seconds=f"{seconds:.1f}", steps=len(probe.losses),
+        first_step_ms=f"{probe.step_ms[0]:.1f}",
+        step_ms_median=f"{np.median(probe.step_ms[1:]):.1f}",
+        losses=f"{probe.losses[0]:.4f}/{probe.losses[-1]:.4f}",
+        val_miou=f"{out['metrics']['val_miou']:.2f}",
+        launches=launches, ply_bytes=Path(out["ply"]).stat().st_size,
+        html_bytes=len(html), panels=len(data["panels"]),
+        points=len(data["pos"]))
+    model, batch = probe.trainer.model, probe.batch
+    del probe
+    calls = record_segment_calls(model.eval(), batch)
+    if len(calls) != FORWARD_LAUNCHES:
+        raise AssertionError(f"13c: {len(calls)} segment calls a forward")
+    fwd = measure_forward_calls(calls, "13c demo kernels",
+                                "calls_per_forward", LOOP_TIME_ITERS)
+    del calls
+    bwd_calls = record_backward_calls(model.train(), batch)
+    if len(bwd_calls) != BACKWARD_LAUNCHES:
+        raise AssertionError(f"13c: {len(bwd_calls)} segment backwards")
+    bwd = measure_backward_calls(bwd_calls, "13c demo kernels",
+                                 LOOP_TIME_ITERS)
+    del bwd_calls, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "forward": fwd, "backward": bwd}
+
+
+def ties_free(pos: np.ndarray) -> np.ndarray:
+    """Rows of ``pos`` (multiples of TIES_LATTICE) kept so that no point's
+    TIES_K + 1 nearest hold two equal distances (exact integers)."""
+    keep = np.arange(len(pos))
+    while True:
+        p = np.round(pos[keep] / TIES_LATTICE).astype(np.int64)
+        d = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+        near = np.sort(d, axis=1)[:, :TIES_K + 2]
+        tied = (np.diff(near, axis=1) == 0).any(axis=1)
+        if not tied.any():
+            return keep
+        keep = keep[~tied]
+
+
+def native_transforms(root: Path) -> None:
+    """13d: the kNN transforms on the card and on the CPU."""
+    from deepviewagg_tpu_torch.data import transforms3d as t3
+    from deepviewagg_tpu_torch.data.datasets.base import load_area
+
+    cache = load_area(str(root / "processed_dva" / "area_1.npz"))
+    pos = cache["pos"]
+    centre = pos[np.argmin(np.linalg.norm(pos - np.median(pos, 0), axis=1))]
+    near = np.nonzero(np.linalg.norm(pos - centre, axis=1)
+                      < SPHERE_RADIUS)[0]
+    q = (np.round((pos[near] - centre) / TIES_LATTICE) * TIES_LATTICE).astype(
+        np.float32)
+    _, first = np.unique(q, axis=0, return_index=True)
+    rows = np.sort(first)
+    rows = rows[ties_free(q[rows])]
+    cloud = {"pos": q[rows], "rgb": cache["rgb"][near][rows],
+             "labels": cache["labels"][near][rows]}
+    out, ms = {}, {}
+    for device in ("cuda", "cpu"):
+        chain = t3.Compose([t3.RandomWalkDropout(device=device),
+                            t3.DensityFilter(radius_nn=0.1, min_num=4,
+                                             device=device)])
+        t0 = time.perf_counter()
+        out[device] = chain(dict(cloud), np.random.default_rng(0))
+        ms[device] = (time.perf_counter() - t0) * 1e3
+    for key in cloud:
+        if not same_bytes(out["cuda"][key], out["cpu"][key]):
+            raise AssertionError(f"13d transforms: {key} differs card vs CPU")
+    kept = len(out["cuda"]["pos"])
+    if not 16 <= kept < len(cloud["pos"]):
+        raise AssertionError(f"13d transforms kept {kept} of "
+                             f"{len(cloud['pos'])}")
+    log("13d transforms", sphere_voxels=len(near), ties_free=len(rows),
+        kept=kept, equal="bytes", card_ms=f"{ms['cuda']:.1f}",
+        cpu_ms=f"{ms['cpu']:.1f}")
+
+
+def phase_native(loop: dict, tmp: Path) -> dict:
+    """Phase 13 (see NATIVE_TIMED); 9b's first graph from ``loop``, 9e's
+    layout under ``tmp``."""
+    root = tmp / "s3dis_raw"
+    parts = (("13a", lambda: (native_graph(loop["recipe"]["graph"]),
+                              native_grid(root))),
+             ("13b", native_knn), ("13c", lambda: native_demo(tmp)),
+             ("13d", lambda: native_transforms(root)))
+    out = {}
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log("13 native", part=name, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out["13c"]
+
 
 def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the trace summary."""
@@ -6275,6 +6674,10 @@ def main() -> None:
     try:
         loop = phase_loop(tmp)
         parallel = phase_parallel(model, requests[0][0], cli, tmp)
+        t0 = time.perf_counter()
+        demo = phase_native(loop, tmp)
+        log("13 native", part="all",
+            seconds=f"{time.perf_counter() - t0:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -6386,7 +6789,8 @@ def main() -> None:
                **{k: v[0] for k, v in ref_paths.items()},
                "parallel_dp": parallel["forward"],
                "loop_tasks": tasks["forward"],
-               **{k: v[0] for k, v in bb_paths.items()}},
+               **{k: v[0] for k, v in bb_paths.items()},
+               "loop_demo": demo["forward"]},
               launches=launches["segment_csr"],
               launches_training=train_launches["segment_csr"],
               launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
@@ -6411,7 +6815,8 @@ def main() -> None:
               launches_loop_parallel=parallel["loop_launches"][
                   "segment_csr"],
               **{k: v["segment_csr"] for k, v in task_launches.items()},
-              **{k: v["segment_csr"] for k, v in bb_launches.items()}),
+              **{k: v["segment_csr"] for k, v in bb_launches.items()},
+              launches_loop_demo=demo["launches"]["segment_csr"]),
         entry("segment_csr_bwd",
               "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
               "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
@@ -6427,7 +6832,8 @@ def main() -> None:
                   if v[1] is not None},
                "parallel_dp": parallel["backward"],
                "loop_tasks": tasks["backward"],
-               **{k: v[1] for k, v in bb_paths.items()}},
+               **{k: v[1] for k, v in bb_paths.items()},
+               "loop_demo": demo["backward"]},
               launches=train_launches["segment_csr_bwd"],
               launches_recipe_training=recipe["train_launches"][
                   "segment_csr_bwd"],
@@ -6454,7 +6860,8 @@ def main() -> None:
               launches_loop_parallel=parallel["loop_launches"][
                   "segment_csr_bwd"],
               **{k: v["segment_csr_bwd"] for k, v in task_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in bb_launches.items()}),
+              **{k: v["segment_csr_bwd"] for k, v in bb_launches.items()},
+              launches_loop_demo=demo["launches"]["segment_csr_bwd"]),
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,9 @@
 
 The port of ``deepviewagg_tpu/data/geometric.py`` (the reference's
 ``PCAComputePointwise`` + ``EigenFeatures``, core/data_transform/
-features.py:360,488): one blockwise exact kNN and a closed-form batched 3x3
-eigensolver, on the request's device.
+features.py:360,488): one exact kNN (blockwise brute force on the request's
+device, or the host's grid kNN past 100,000 points) and a closed-form
+batched 3x3 eigensolver on the request's device.
 
 Feature definitions (Demantke et al., eigenvalues l1 >= l2 >= l3,
 sqrt-scaled): linearity = (sl1 - sl2) / sl1, planarity = (sl2 - sl3) / sl1,
@@ -21,6 +22,8 @@ import torch
 from ..ops import knn as _knn
 
 __all__ = ["eigen_features", "pca_features"]
+
+HOST_KNN_POINTS = 100_000
 
 
 def sym3x3_eigvals(cov):
@@ -99,20 +102,33 @@ def pca_features(pos, k: int = 50, r_search=None, block: int = 1024,
     Returns a dict ``{linearity, planarity, scattering [N], normal [N,3],
     nn_idx [N,k]}`` of tensors on ``device``.  ``r_search`` caps the
     neighborhood radius the way ``PCAComputePointwise(r=...)`` does:
-    neighbors beyond it are replaced by the point itself.  Inputs are padded
-    to ``pad_multiple`` with far-away masked points, as the JAX package does.
+    neighbors beyond it are replaced by the point itself.  Up to
+    ``HOST_KNN_POINTS`` points the neighbours come from the brute-force kNN
+    on ``device``, over inputs padded to ``pad_multiple`` with far-away
+    masked points; past it from the host's grid kNN
+    (:func:`~deepviewagg_tpu_torch.ops.knn.knn_grid`) on the unpadded cloud,
+    as the JAX package does.  The eigensolver runs on ``device``.
     """
     pos = np.asarray(pos, np.float32)
     n = len(pos)
-    n_pad = max(-(-n // pad_multiple) * pad_multiple, pad_multiple)
-    pos_p = np.full((n_pad, 3), 1e6, np.float32)
-    pos_p[:n] = pos
-    valid = np.zeros(n_pad, bool)
-    valid[:n] = True
-    pos_t = torch.as_tensor(pos_p, device=device)
-    d2, idx = _knn.knn(pos_t, pos_t, k=k,
-                       valid=torch.as_tensor(valid, device=device), block=block)
-    pos_t, d2, idx = pos_t[:n], d2[:n], idx[:n]
+    if n > HOST_KNN_POINTS:
+        # the brute force is O(N^2): past this size the host's exact grid
+        # kNN takes over, as in the JAX package
+        d2, idx = _knn.knn_grid(pos, pos, k=k)
+        pos_t = torch.as_tensor(pos, device=device)
+        d2 = torch.as_tensor(d2, device=device)
+        idx = torch.as_tensor(idx, device=device).to(torch.int64)
+    else:
+        n_pad = max(-(-n // pad_multiple) * pad_multiple, pad_multiple)
+        pos_p = np.full((n_pad, 3), 1e6, np.float32)
+        pos_p[:n] = pos
+        valid = np.zeros(n_pad, bool)
+        valid[:n] = True
+        pos_t = torch.as_tensor(pos_p, device=device)
+        d2, idx = _knn.knn(pos_t, pos_t, k=k,
+                           valid=torch.as_tensor(valid, device=device),
+                           block=block)
+        pos_t, d2, idx = pos_t[:n], d2[:n], idx[:n]
     if r_search is not None:
         own = torch.arange(n, device=idx.device)[:, None]
         idx = torch.where(d2 <= r_search * r_search, idx, own)

@@ -4,14 +4,32 @@ The port of ``deepviewagg_tpu/metrics/confusion.py`` (the reference's
 ``ConfusionMatrix``, metrics/confusion_matrix.py:6-99): bincount
 accumulation in numpy on the host, overall / mean accuracy, per-class IoU
 with a missing-class mask.  It is fed by one device-to-host copy of the
-predictions per tracked step.
+predictions per tracked step; :func:`confusion_update` counts one batch on
+its device instead.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["ConfusionMatrix"]
+__all__ = ["ConfusionMatrix", "confusion_update"]
+
+
+def confusion_update(num_classes: int, preds, labels,
+                     valid=None) -> torch.Tensor:
+    """The ``int32 [C, C]`` count matrix (rows: labels, columns: predictions)
+    of one batch, on the inputs' device: a bincount that leaves out negative
+    labels and, if given, rows where ``valid`` is False."""
+    preds, labels = torch.as_tensor(preds), torch.as_tensor(labels)
+    mask = labels >= 0
+    if valid is not None:
+        mask = mask & torch.as_tensor(valid, device=labels.device)
+    drop = num_classes * num_classes
+    idx = torch.where(mask, labels.to(torch.int64) * num_classes + preds,
+                      drop)
+    counts = torch.bincount(idx.reshape(-1), minlength=drop + 1)
+    return counts[:drop].to(torch.int32).reshape(num_classes, num_classes)
 
 
 class ConfusionMatrix:

@@ -12,8 +12,11 @@ and the convolution is K gathers + one batched matmul — an im2col that needs
 **no scatter**, unlike pair-list formulations.  On TPU this turns the conv
 into a single MXU-shaped ``[n_out, K*Cin] @ [K*Cin, Cout]`` product.
 
-Built on host (numpy) at collate time, padded to static shapes, shipped to
-device once per batch.
+Built on the host at collate time by the native builder
+(``deepviewagg_tpu_torch/native``, as the JAX package does where its
+extension is built; the numpy version stays as ``build_kernel_map_plain``
+for the tests), padded to static shapes, shipped to the device once per
+batch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import itertools
 
 import numpy as np
 
+from .. import native as _native
 from . import voxel as _voxel
 
 __all__ = ["KernelMap", "build_kernel_map", "kernel_offsets", "round_up"]
@@ -91,13 +95,26 @@ def build_kernel_map(
     level-0 units; ``stride`` is the *input* tensor stride (offsets are
     scaled by it).  For a submanifold conv, pass the same array twice.
     """
+    nbr = _native.build_kernel_map(in_coords, out_coords,
+                                   kernel_offsets(kernel_size), int(stride))
+    return KernelMap(nbr=nbr, n_in=len(in_coords), n_out=len(out_coords),
+                     kernel_size=kernel_size, stride=stride)
+
+
+def build_kernel_map_plain(
+    in_coords: np.ndarray,
+    out_coords: np.ndarray,
+    kernel_size: int = 3,
+    stride: int = 1,
+) -> KernelMap:
+    """:func:`build_kernel_map` in numpy: one sorted-key query per offset."""
     offsets = kernel_offsets(kernel_size)
     n_in, n_out = len(in_coords), len(out_coords)
     nbr = np.full((len(offsets), n_out), n_in, np.int32)
     for k, off in enumerate(offsets):
         query = out_coords.copy()
         query[:, 1:] = query[:, 1:] + off * stride
-        hit = _voxel.query_coords(in_coords, query)  # [n_out] -> idx | -1
+        hit = _voxel.query_coords_plain(in_coords, query)  # idx | -1
         nbr[k] = np.where(hit >= 0, hit, n_in)
     return KernelMap(
         nbr=nbr, n_in=n_in, n_out=n_out, kernel_size=kernel_size, stride=stride

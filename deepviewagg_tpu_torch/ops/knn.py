@@ -8,8 +8,8 @@ preprocessing; :func:`radius_count`, the ball-query census; and
 reference's DilatedKNNNeighbourFinder), drawn from a numpy ``Generator`` as
 the JAX package draws it.  Exact (no ANN); neighbors at exactly equal
 distance may come out in another order than the JAX package's
-``lax.top_k``.  (The JAX package's ``knn_grid`` stands on its native grid
-builder, which the port does not have yet: ROADMAP A.5.)
+``lax.top_k``.  :func:`knn_grid` is the host's exact grid kNN for
+preprocessing at scale (the native builder, ``deepviewagg_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["knn", "radius_count", "dilated_knn"]
+from .. import native as _native
+
+__all__ = ["knn", "knn_grid", "radius_count", "dilated_knn"]
 
 
 def knn(query: torch.Tensor, points: torch.Tensor, k: int, valid=None,
@@ -43,6 +45,33 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, valid=None,
         dists.append(dv)
         idx.append(di)
     return torch.cat(dists), torch.cat(idx)
+
+
+def knn_grid(query, points, k: int, cell: float = None):
+    """Exact kNN on the host over native grid-cell lists: ``(d2 float32
+    [Nq, k] ascending, idx int32 [Nq, k])`` as numpy, O(N * candidates)
+    instead of the brute force's O(N^2) (the role of the reference's KDTree /
+    FAISS in preprocessing, features.py:360).  Distances are direct
+    differences, so they round otherwise than :func:`knn`'s expanded form.
+    The search stops 16 rings of cells out (``native/kernelmap.cpp``): a
+    neighbour beyond is missed, a short neighbourhood repeats its nearest,
+    and a query with none raises.
+
+    ``cell``: cube edge in position units; by default sized so that the
+    query's first ring holds a few ``k`` candidates.  Empty ``points`` go to
+    :func:`knn` on the CPU, as the JAX package's fallback does."""
+    points = np.ascontiguousarray(points, np.float32)
+    query = np.ascontiguousarray(query, np.float32)
+    if len(points) == 0:
+        d2, idx = knn(torch.from_numpy(query), torch.from_numpy(points), k)
+        return d2.numpy(), idx.to(torch.int32).numpy()
+    if cell is None:
+        lo, hi = points.min(0), points.max(0)
+        vol = float(np.prod(np.maximum(hi - lo, 1e-3)))
+        # ~k/4 points per cell -> the 27-cell first ring holds ~7k candidates
+        cell = max((vol * max(k, 4) / (4.0 * len(points))) ** (1.0 / 3.0),
+                   1e-4)
+    return _native.knn_grid(points, query, int(k), float(cell))
 
 
 def radius_count(query: torch.Tensor, points: torch.Tensor, radius: float,

@@ -37,12 +37,25 @@ import torch
 from . import segment as _seg
 
 __all__ = ["sparse_conv", "sparse_conv_submanifold", "sparse_conv_pair",
-           "add_dump_row", "sparse_global_pool"]
+           "add_dump_row", "sparse_gather", "sparse_global_pool"]
 
 
 def add_dump_row(feats: torch.Tensor) -> torch.Tensor:
     """Append the zero dump row (index = capacity)."""
     return torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+
+
+def sparse_gather(feats: torch.Tensor, idx: torch.Tensor,
+                  fill: float = 0.0) -> torch.Tensor:
+    """Rows ``feats[idx]`` (any index shape), an index at or past the end
+    reading a row of ``fill``; a negative index counts from the end of
+    ``feats`` plus that fill row, as a JAX gather wraps it."""
+    n = feats.shape[0]
+    fp = torch.cat([feats, feats.new_full((1, feats.shape[1]), fill)])
+    i = torch.clamp(torch.as_tensor(idx, device=feats.device).to(torch.int64),
+                    max=n)
+    i = torch.clamp(torch.where(i < 0, i + n + 1, i), min=0)
+    return fp.index_select(0, i.reshape(-1)).reshape(*i.shape, feats.shape[1])
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:

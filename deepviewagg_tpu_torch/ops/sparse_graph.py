@@ -17,6 +17,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import native as _native
 from . import kernel_map as _km
 from . import voxel as _voxel
 
@@ -170,8 +171,18 @@ def graph_to_device(graph: SparseGraphArrays) -> dict:
 
 
 def _build_padded_map(in_c, out_c, ks, stride, cap_in, cap_out):
-    """Kernel map padded to capacities: nbr int32 [K, cap_out], pad = cap_in."""
-    m = _km.build_kernel_map(in_c, out_c, kernel_size=ks, stride=stride)
+    """Kernel map padded to capacities: nbr int32 [K, cap_out], pad = cap_in,
+    written by the native builder straight into the capacity."""
+    nbr = _native.build_kernel_map(in_c, out_c, _km.kernel_offsets(ks),
+                                   int(stride), int(cap_in), int(cap_out))
+    return _km.KernelMap(
+        nbr=nbr, n_in=cap_in, n_out=cap_out, kernel_size=ks, stride=stride
+    )
+
+
+def _build_padded_map_plain(in_c, out_c, ks, stride, cap_in, cap_out):
+    """:func:`_build_padded_map` in numpy: the unpadded map, re-padded."""
+    m = _km.build_kernel_map_plain(in_c, out_c, kernel_size=ks, stride=stride)
     k = m.num_offsets
     nbr = np.full((k, cap_out), cap_in, np.int32)
     nbr[:, : m.n_out] = np.where(m.nbr == m.n_in, cap_in, m.nbr)

@@ -8,15 +8,19 @@ collate time: the TPU training step only ever sees the resulting static-shape
 index arrays, never does coordinate arithmetic.
 
 Coordinates are ``int32[N, 4]`` rows ``(batch, x, y, z)``; a composite
-``int64`` key (host numpy only — no x64 on device) gives O(N log N) sorted
-hashing with deterministic results, unlike the reference's GPU
+``int64`` key gives deterministic hashing, unlike the reference's GPU
 ``sphashquery`` which intermittently returns -1 and falls back to CPU
-(modules.py:200-211, SURVEY.md §A.10.2).
+(modules.py:200-211, SURVEY.md §A.10.2).  ``unique_coords`` and
+``query_coords`` run the native builder (``deepviewagg_tpu_torch/native``),
+as the JAX package does where its extension is built; their numpy versions
+stay as ``*_plain`` for the tests.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native as _native
 
 __all__ = [
     "ravel_coords",
@@ -48,12 +52,19 @@ def ravel_coords(coords: np.ndarray) -> np.ndarray:
 
 
 def unique_coords(coords: np.ndarray):
-    """Deduplicate coordinate rows.
+    """Deduplicate coordinate rows (the native hash builder).
 
-    Returns ``(unique_coords [M,4], inverse [N])`` with ``coords[i] ==
-    unique_coords[inverse[i]]``.  Unique rows come out in sorted key order —
-    deterministic across runs.
+    Returns ``(unique_coords int32 [M,4], inverse int32 [N])`` with
+    ``coords[i] == unique_coords[inverse[i]]``.  Unique rows come out in
+    sorted key order, each the first occurrence of its key — deterministic
+    across runs, and the same as :func:`unique_coords_plain`'s.  A row out of
+    the 19-bit key range raises ``ValueError``.
     """
+    return _native.unique_inverse(coords)
+
+
+def unique_coords_plain(coords: np.ndarray):
+    """:func:`unique_coords` in numpy (a stable sort of the packed keys)."""
     key = ravel_coords(coords)
     uniq_key, inverse = np.unique(key, return_inverse=True)
     # Recover a representative row per unique key.
@@ -66,7 +77,13 @@ def unique_coords(coords: np.ndarray):
 
 def query_coords(table_coords: np.ndarray, query: np.ndarray) -> np.ndarray:
     """For each query row, the index of the matching row in ``table_coords``
-    (or -1).  Table rows must be unique."""
+    (or -1), by the native hash table.  Table rows must be unique."""
+    return _native.query_coords(table_coords, query)
+
+
+def query_coords_plain(table_coords: np.ndarray,
+                       query: np.ndarray) -> np.ndarray:
+    """:func:`query_coords` in numpy (``searchsorted`` over sorted keys)."""
     table_key = ravel_coords(table_coords)
     order = np.argsort(table_key)
     sorted_key = table_key[order]

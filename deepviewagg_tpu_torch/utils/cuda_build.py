@@ -1,11 +1,14 @@
-"""Build the package's hand-written CUDA kernels at first use and load them.
+"""Build the package's native libraries at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it for
-Hopper (``sm_90a``) into ``_build/lib<name>-<source hash>.so``, which is
-loaded with ``ctypes``.  Sources come from the package alone, so a fresh
-checkout builds everything it needs; a build failure raises (there is no
-fallback on a machine with a card).  ``build`` starts one ``nvcc`` per source,
-all at once.
+Each library has one source with a plain C interface: the hand-written CUDA
+kernels (``csrc/<name>.cu``, compiled by ``nvcc`` for Hopper, ``sm_90a``) and
+the host C++ builders (``native/<name>.cpp``, compiled by ``g++``).  The
+library goes to ``_build/lib<name>-<source hash>.so`` (written to a
+per-process temporary file, then renamed, so that processes building at once
+leave one whole library) and is loaded with ``ctypes``.  Sources come from
+the package alone, so a fresh checkout builds everything it needs; a build
+failure raises with the compiler's log (there is no fallback).  ``build``
+starts one compiler per source, all at once.
 """
 
 from __future__ import annotations
@@ -18,14 +21,13 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["KERNELS", "build", "load"]
+__all__ = ["KERNELS", "HOST", "build", "load"]
 
 _PKG = Path(__file__).resolve().parents[1]
-_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-# kernel name -> C signature (argtypes, restype) of its entry point
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> C signature (argtypes, restype) of each entry point
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "segment_csr": {
         "segment_csr_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -34,6 +36,16 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     "segment_csr_bwd": {
         "segment_csr_bwd_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                                 _I),
+    },
+}
+HOST: Dict[str, Dict[str, tuple]] = {
+    "kernelmap": {
+        "dva_build_kernel_map": ((_P, _L, _P, _L, _P, _L, ctypes.c_int32, _L,
+                                  _L, _P, _I, _P), _I),
+        "dva_unique_inverse": ((_P, _L, _P, _P, _P, _P), _I),
+        "dva_query_coords": ((_P, _L, _P, _L, _P, _P), _I),
+        "dva_knn_grid": ((_P, _L, _P, _L, _L, ctypes.c_double, _P, _P, _I),
+                         _I),
     },
 }
 
@@ -52,14 +64,40 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _gxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("g++ not found: the host builders (native/) need a "
+                       "C++17 compiler on PATH")
+
+
+def _source(name: str) -> Path:
+    if name in KERNELS:
+        return _PKG / "csrc" / f"{name}.cu"
+    if name in HOST:
+        return _PKG / "native" / f"{name}.cpp"
+    raise KeyError(f"no native library {name!r}")
+
+
+def _command(name: str, out: Path) -> list:
+    src = str(_source(name))
+    if name in KERNELS:
+        return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-o", str(out), src]
+    return [_gxx(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+            "-o", str(out), src]
+
+
 def _target(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(_source(name).read_bytes()).hexdigest()[:16]
     return _BUILD / f"lib{name}-{digest}.so"
 
 
-def build(names: Sequence[str] = tuple(KERNELS)) -> None:
-    """Compile every named kernel whose library is missing, in parallel."""
+def build(names: Sequence[str] = tuple(KERNELS) + tuple(HOST)) -> None:
+    """Compile every named library that is missing, in parallel."""
     _BUILD.mkdir(exist_ok=True)
     procs = []
     for name in names:
@@ -67,16 +105,15 @@ def build(names: Sequence[str] = tuple(KERNELS)) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     errors = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"{_source(name).name} failed to build:\n{log}")
+            tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
     if errors:
@@ -84,12 +121,12 @@ def build(names: Sequence[str] = tuple(KERNELS)) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_target(name)))
-        for fn, (argtypes, restype) in KERNELS[name].items():
+        for fn, (argtypes, restype) in {**KERNELS, **HOST}[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         _LOADED[name] = lib

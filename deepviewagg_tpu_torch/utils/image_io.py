@@ -25,7 +25,8 @@ walk is sequential Python too, table-driven (a 16-bit peek gives a code's
 length and symbol); the IDCT, upsampling and colour conversion are
 vectorised over all blocks.  Native decoders are ROADMAP A.5.
 :func:`write_jpeg` and :func:`write_png` write the layouts that the tests
-and ``chip_smoke.py`` build.
+and ``chip_smoke.py`` build; :func:`encode_png` gives the PNG's bytes (the
+HTML viewer's panels).
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
-__all__ = ["read_png", "write_png", "read_jpeg", "write_jpeg", "jpeg_size",
-           "to_rgb", "resize_bilinear", "load_image"]
+__all__ = ["read_png", "write_png", "encode_png", "read_jpeg", "write_jpeg",
+           "jpeg_size", "to_rgb", "resize_bilinear", "load_image"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels as stored (palette: one index)
@@ -177,7 +178,17 @@ def _paeth_predict(a, b, c):
 def write_png(path: str, img: np.ndarray,
               filters: Union[None, int, Sequence[int]] = None,
               level: int = 6) -> None:
-    """Write ``uint8 [H, W, C]`` (C = 1, 3 or 4) as an 8-bit PNG.
+    """Write ``uint8 [H, W, C]`` (C = 1, 3 or 4) as an 8-bit PNG: the bytes
+    of :func:`encode_png`."""
+    data = encode_png(img, filters, level)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray,
+               filters: Union[None, int, Sequence[int]] = None,
+               level: int = 6) -> bytes:
+    """``uint8 [H, W, C]`` (C = 1, 3 or 4) as the bytes of an 8-bit PNG.
 
     ``filters``: the row filter type (0 None, 1 Sub, 2 Up, 3 Avg, 4 Paeth)
     of every row, or one per row; ``None`` chooses per row the type with the
@@ -212,12 +223,12 @@ def write_png(path: str, img: np.ndarray,
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                           _COLOR_TYPE[c], 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(scan.tobytes(), level)))
-        f.write(chunk(b"IEND", b""))
+    return b"".join([
+        _SIGNATURE,
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0,
+                                   0)),
+        chunk(b"IDAT", zlib.compress(scan.tobytes(), level)),
+        chunk(b"IEND", b"")])
 
 
 def _coefficients(in_size: int, out_size: int):

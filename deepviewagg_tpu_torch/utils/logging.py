@@ -15,7 +15,24 @@ import subprocess
 import time
 from typing import Dict, Optional
 
-__all__ = ["MetricLogger", "save_git_diff"]
+__all__ = ["MetricLogger", "git_info", "save_git_diff"]
+
+
+def git_info(repo_dir: Optional[str] = None) -> Dict[str, str]:
+    """Commit sha + dirty flag, the reference's wandb provenance capture
+    (utils/wandb_utils.py:52-70); ``{}`` where git fails."""
+    try:
+        sha = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            cwd=repo_dir, timeout=5,
+        ).stdout.strip()
+        dirty = bool(subprocess.run(
+            ["git", "status", "--porcelain"], capture_output=True, text=True,
+            cwd=repo_dir, timeout=5,
+        ).stdout.strip())
+        return {"sha": sha, "dirty": str(dirty)}
+    except Exception:
+        return {}
 
 
 def save_git_diff(run_dir: str, repo_dir: Optional[str] = None) -> None:

@@ -1,3 +1,3 @@
-"""Visualization: per-epoch PLY sample dumps."""
+"""Visualization: per-epoch PLY dumps + standalone HTML multimodal viewer."""
 
-from .viewer import save_ply_snapshot  # noqa: F401
+from .viewer import export_html, save_ply_snapshot  # noqa: F401

@@ -274,7 +274,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["train", "eval", "predict", "preprocess",
-                                   "scale_rehearsal", "train_task"])
+                                   "scale_rehearsal", "train_task",
+                                   "demo_synthetic"])
 def test_cli_device_flags_default_to_the_card(entry):
     """Each CLI's ``--device`` defaults to ``cuda``."""
     import importlib
@@ -406,11 +407,10 @@ def test_task_models_default_to_the_card():
 
 
 # the point backbones and the kNN helpers (ROADMAP A.9): each with the JAX
-# module's public names, but the native grid kNN (``knn_grid``, A.5)
+# module's public names
 BACKBONE_MODULES = ["nn/pointnet.py", "nn/pvcnn.py", "nn/kpconv.py",
                     "nn/rsconv.py", "nn/pointcnn.py", "nn/ppnet.py",
                     "nn/randlanet.py", "ops/knn.py"]
-NOT_YET_PORTED = {"ops/knn.py": {"knn_grid"}}
 
 
 def _public_names(path: Path) -> set:
@@ -437,7 +437,6 @@ def test_point_backbone_modules_are_covered(rel):
     assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
     assert "NotImplementedError" not in path.read_text()
     want = _public_names(ROOT / "deepviewagg_tpu" / rel)
-    want -= NOT_YET_PORTED.get(rel, set())
     got = _public_names(path)
     assert want and want <= got, sorted(want - got)
     mod = importlib.import_module(
@@ -470,3 +469,143 @@ def test_point_backbones_default_to_the_card(name):
                     cls)
     assert inspect.signature(model.__init__).parameters[
         "device"].default == "cuda"
+
+
+# --- the last slice: native builders, the viewer and demo, the helpers and
+# transforms (ROADMAP A.5, A.9.1-A.9.3) ---------------------------------------
+
+# JAX public names the port has no counterpart for, each with its reason
+NOT_TO_PORT = {
+    ("modules/image_encoders.py", "view_shard_axis"):
+        "a shard_map axis name; the port shards views over a process group "
+        "(run_tower's view_shard_group, parallel/mesh.py)",
+    ("nn/norm.py", "bn_axis_name"):
+        "a shard_map axis name; sync batch norm takes a process group "
+        "(bn_process_group)",
+    ("parallel/mesh.py", "stack_batches"):
+        "stacks per-device batches for shard_map; each rank holds its own",
+    ("train/step.py", "optax_global_norm"):
+        "optax's tree norm; the port's optimizer is its own "
+        "(train/optimizers.py::global_norm)",
+    ("utils/pretrained.py", "iter_branches"):
+        "a flax parameter-path walk; the port loads each branch by its "
+        "module name (apply_tower_weights)",
+    ("modules/scratch2d.py", "TowerCfg"):
+        "a typing alias",
+    ("ops/pallas_segment.py", "pallas_available"):
+        "Pallas's switch; a wrapper launches the CUDA kernel on a card "
+        "tensor and its plain version on a CPU tensor",
+    ("ops/pallas_segment.py", "INTERPRET"):
+        "Pallas's interpret-mode flag",
+    ("ops/pallas_segment.py", "R"):
+        "the Pallas kernel's row tile; the CUDA kernel has its own",
+    ("native/__init__.py", "lib"):
+        "the CPython extension object; the port's native module exposes "
+        "its functions",
+}
+# a JAX module whose counterpart in the port has another path, and names
+# that the counterpart offers under another name
+COUNTERPART = {"ops/pallas_segment.py": "ops/segment.py"}
+RENAMED = {("ops/pallas_segment.py", "segment_sum_pallas"): "segment_csr",
+           ("ops/pallas_segment.py", "segment_max_pallas"): "segment_csr"}
+
+
+def _top_level_names(path: Path, imports: bool) -> set:
+    """Module-level names without a leading underscore: functions, classes
+    and assignments (and, with ``imports``, imported names)."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+JAX_MODULES = sorted(str(p.relative_to(ROOT / "deepviewagg_tpu"))
+                     for p in (ROOT / "deepviewagg_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_public_jax_name_has_its_counterpart(rel):
+    """Every module-level public name of every JAX module (functions,
+    classes, constants) is defined or imported by the port's module at the
+    same path, but the listed exceptions, each with its reason."""
+    port = PKG / COUNTERPART.get(rel, rel)
+    assert port.exists(), f"no counterpart of {rel}"
+    have = _top_level_names(port, imports=True)
+    missing = set()
+    for name in _top_level_names(ROOT / "deepviewagg_tpu" / rel, False):
+        if (rel, name) in NOT_TO_PORT:
+            continue
+        if RENAMED.get((rel, name), name) not in have:
+            missing.add(name)
+    assert not missing, sorted(missing)
+
+
+def test_each_exception_is_still_a_jax_name_the_port_lacks():
+    for (rel, name), reason in NOT_TO_PORT.items():
+        assert reason
+        assert name in _top_level_names(ROOT / "deepviewagg_tpu" / rel,
+                                        False), (rel, name)
+        port = PKG / COUNTERPART.get(rel, rel)
+        assert not port.exists() or name not in _top_level_names(
+            port, imports=True), (rel, name)
+
+
+@pytest.mark.parametrize("rel", [
+    "native/__init__.py", "ops/voxel.py", "ops/kernel_map.py",
+    "ops/sparse_graph.py", "ops/knn.py", "data/geometric.py",
+    "visualization/viewer.py", "cli/demo_synthetic.py", "core/csr.py",
+    "ops/sparse_conv.py", "metrics/confusion.py", "utils/logging.py",
+    "data/transforms3d.py", "utils/cuda_build.py"])
+def test_last_slice_modules_are_covered(rel):
+    """The native builders' files, the viewer and demo, the helpers' and
+    the transforms' modules are among the files the import checks walk,
+    import neither JAX nor the JAX package nor PIL, and refuse nothing; the
+    native module reaches its library through the shared build helper, and
+    the viewer encodes its PNGs with the port's own writer."""
+    path = PKG / rel
+    assert path in PORT_FILES
+    roots = {name for name, _ in _imported_roots(path)}
+    assert roots and not roots & (set(FORBIDDEN) | set(NOT_ON_THE_CARD))
+    assert "NotImplementedError" not in path.read_text()
+    if rel == "native/__init__.py":
+        assert 'cuda_build.load("kernelmap")' in path.read_text()
+        assert roots <= {"__future__", "ctypes", "numpy"}
+    if rel == "visualization/viewer.py":
+        assert "from ..utils.image_io import encode_png" in path.read_text()
+
+
+def test_host_builders_need_no_numpy_fallback():
+    """The port's voxel hash, kernel maps and PCA reach the native library;
+    the numpy versions are reached from nowhere in the package but their
+    own plain chain."""
+    plain = ("unique_coords_plain", "query_coords_plain",
+             "build_kernel_map_plain", "_build_padded_map_plain")
+    callers = {}
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        for name in plain:
+            if f"{name}(" in text.replace(f"def {name}(", ""):
+                callers.setdefault(name, set()).add(
+                    str(path.relative_to(PKG)))
+    # build_kernel_map_plain calls query_coords_plain, and the padded map's
+    # plain version calls build_kernel_map_plain
+    assert callers == {"query_coords_plain": {"ops/kernel_map.py"},
+                       "build_kernel_map_plain": {"ops/sparse_graph.py"}}
+    assert "DVA_NO_NATIVE" not in (PKG / "native" / "__init__.py").read_text()
+
+
+def test_the_slice_defaults_to_the_card():
+    from deepviewagg_tpu_torch.data import transforms3d
+
+    for cls in (transforms3d.RandomWalkDropout, transforms3d.DensityFilter):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"

@@ -307,3 +307,125 @@ def test_seeded_init_under_the_flax_names(head):
     # the T-Nets start at the identity, as flax's zeros initializers put them
     for t in (a.encoder.stn3, a.encoder.stnf):
         assert not t.Dense_5.weight.any() and not t.Dense_5.bias.any()
+
+
+# --- six Adam steps (ROADMAP C: PointNetCls's loss rises on the card) -------
+
+STEPS, BLOCKS, BLOCK_POINTS, CLS_CLASSES = 6, 8, 128, 40
+STEP_RTOL = 1e-4
+
+
+def _blocks():
+    """Eight blocks of 128 voxels of synthetic rooms at 5 cm, one class per
+    block, collated by the JAX package: the shape of ``chip_smoke.py``'s
+    phase 12 batch (8 blocks of 4096), cut in rows."""
+    from deepviewagg_tpu.data.synthetic import make_scene
+
+    rng = np.random.default_rng(0)
+    samples = []
+    for s in range(BLOCKS):
+        scene = make_scene(seed=s, n_cameras=1, image_size=(32, 16))
+        g = jvoxel.grid_sample(scene.pos, 0.05, feats=scene.rgb,
+                               labels=scene.labels)
+        take = np.sort(rng.choice(len(g["pos"]), BLOCK_POINTS, replace=False))
+        samples.append(Sample(
+            coords=g["coords"][take, 1:], labels=g["labels"][take],
+            pos=g["pos"][take], feats=np.concatenate(
+                [g["feats"][take], np.ones((BLOCK_POINTS, 1), np.float32)],
+                1)))
+    batch = device_view(collate(samples, Bucket(
+        level_caps=[BLOCKS * BLOCK_POINTS] * 5, num_batches=BLOCKS),
+        conv0_kernel=3))
+    batch = jax.tree_util.tree_map(np.asarray, batch)
+    batch["cls_label"] = (np.arange(BLOCKS) % CLS_CLASSES).astype(np.int32)
+    return batch
+
+
+def _adam_state_to_port(tmodel, variables, adam):
+    """optax's Adam moments (flax layout) as the port optimizer's state:
+    each moment tree loaded into a copy of the model, read back in the
+    model's parameter order."""
+    import copy
+
+    groups = {}
+    for name in ("mu", "nu"):
+        holder = copy.deepcopy(tmodel)
+        load_flax_variables(holder, dict(variables, params=getattr(adam,
+                                                                   name)))
+        groups[name] = [p.detach().clone() for p in holder.parameters()]
+    return {"count": int(adam.count), "mini_step": 0, "groups": [groups]}
+
+
+def test_pointnet_cls_six_steps_match_jax():
+    """Six Adam steps (LR 3e-3, clip 10, no weight decay, no dropout:
+    ``chip_smoke.py::task_adam``) of the classifier: the JAX package's
+    step runs free from the port's seeded start; before each of its steps
+    the port is given JAX's state (parameters, running statistics, Adam
+    moments and count) and takes the same step: loss and gradient norm
+    within 1e-4 at every step.
+
+    Free-running, the two trajectories part after the first update, and so
+    does JAX from itself: Adam's first update is ``lr * sign(g)`` for every
+    element, and a fifth of the gradient elements lie below 1e-6 of their
+    leaf's largest, where the sign is rounding noise.  At phase 12's size
+    (8 x 4096 rows) on the CPU, the port's losses 5.1348, 5.7186, 7.9774,
+    11.8403, 10.6987, 11.1847 (the card's, to 1e-2), JAX's 5.1348, 5.7211,
+    8.0739, 11.1429, 11.0772, 11.6184, and JAX from parameters moved by
+    1e-7 relative 5.1348, 5.7187, 7.9779, 11.7641, 10.7713, 11.1083: the
+    rise is the model's at these settings, not a fault of the port."""
+    from deepviewagg_tpu.train import step as jstep
+    from deepviewagg_tpu.train import task_steps as jts
+    from deepviewagg_tpu.train.optimizers import make_optimizer as jopt
+    from deepviewagg_tpu.train.optimizers import make_schedule as jsched
+    from deepviewagg_tpu_torch.train import task_steps as tts
+    from deepviewagg_tpu_torch.train.optimizers import (make_optimizer,
+                                                        make_schedule)
+    from deepviewagg_tpu_torch.train.step import TrainState
+
+    batch = _blocks()
+    labels = batch["cls_label"]
+    jbatch = {k: v for k, v in batch.items() if k != "cls_label"}
+    tmodel = tpt.PointNetCls(CLS_CLASSES, 4, BLOCKS, device="cpu", seed=0)
+    copy_tree = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: np.array(a, copy=True), t)
+    variables = {"params": copy_tree(to_flax_tree(tmodel, "params")),
+                 "batch_stats": copy_tree(to_flax_tree(tmodel,
+                                                       "batch_stats"))}
+    jmodel = jpt.PointNetCls(CLS_CLASSES, num_batches=BLOCKS)
+    jstate = jstep.TrainState.create(variables, jopt(
+        jsched("constant", 3e-3), optimizer="adam", weight_decay=0.0,
+        grad_clip=10.0))
+
+    @jax.jit
+    def jax_step(state):
+        def loss_fn(params):
+            out, upd = jmodel.apply(
+                {"params": params, "batch_stats": state.batch_stats}, jbatch,
+                train=True, mutable=["batch_stats"])
+            ll = jnp.take_along_axis(jax.nn.log_softmax(out["logits"]),
+                                     labels[:, None], axis=1)[:, 0]
+            return -jnp.mean(ll), upd["batch_stats"]
+
+        (loss, stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            state.params)
+        return jts._update(state, grads, loss, {"batch_stats": stats})
+
+    tstate = TrainState.create(tmodel, make_optimizer(
+        make_schedule("constant", 3e-3), optimizer="adam", weight_decay=0.0,
+        grad_clip=10.0))
+    tstep = tts.make_classification_step(tmodel)
+    tbatch = batch_to_torch(batch, "cpu")
+    losses = []
+    for i in range(STEPS):
+        start = {"params": jstate.params, "batch_stats": jstate.batch_stats}
+        load_flax_variables(tmodel, start)
+        adam = jstate.opt_state[1][0]
+        assert int(adam.count) == i
+        tstate.tx.load_state_dict(_adam_state_to_port(tmodel, start, adam))
+        tstate, got = tstep(tstate, tbatch, None)
+        jstate, want = jax_step(jstate)
+        for key in ("loss", "grad_norm"):
+            w = float(want[key])
+            assert abs(float(got[key]) - w) <= STEP_RTOL * abs(w), (i, key)
+        losses.append(float(want["loss"]))
+    assert np.isfinite(losses).all()
