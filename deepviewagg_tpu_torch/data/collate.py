@@ -30,6 +30,7 @@ import torch
 
 from ..core.csr import pad_to
 from ..ops import sparse_graph as sg
+from ..utils import trace
 from .mapping import MultiViewMapping, concatenate_mappings
 
 __all__ = ["Sample", "Bucket", "collate", "device_view", "batch_to_torch"]
@@ -76,6 +77,106 @@ class Bucket:
     ladder_pix_caps: Optional[Sequence[int]] = None
 
 
+def _mappings(samples: List[Sample], bucket: Bucket,
+              branch_levels: Sequence[int], graph, n_total: int,
+              imgs: np.ndarray):
+    """Each branch level's view and pixel tables: the samples' mappings
+    concatenated, merged through the graph's parent chain and padded to the
+    bucket; on a crop-ladder bucket split per crop size, with the images of
+    each crop size, not yet padded (``None`` on a flat bucket)."""
+    merged0 = concatenate_mappings(
+        [s.mapping for s in samples],
+        np.cumsum([0] + [len(s.coords) for s in samples])[:-1], n_total
+    ).with_num_points(bucket.level_caps[0])
+    if bucket.image_ladder is not None:
+        from .crop_groups import assign_crop_groups, split_mapping_by_bucket
+
+        ladder = [tuple(s_) for s_ in bucket.image_ladder]
+        # bucket assignment + image crops are level-invariant (pixel
+        # coords never change across stride merges) — build them ONCE;
+        # per level only the view/pixel tables are recomputed
+        padded0 = merged0.pad(bucket.view_cap, bucket.pix_cap)
+        if all(s.image_family is not None for s in samples):
+            # camera families: each image's bucket is its camera family
+            # at the family's native size (origin 0 on the storage
+            # canvas), NOT a bbox-fitted crop
+            fams = np.concatenate(
+                [np.asarray(s.image_family, np.int64) for s in samples]
+            ) if samples else np.zeros(0, np.int64)
+            cloud0 = {
+                "image_bucket": fams,
+                "crop_origin": np.zeros((len(fams), 2), np.int64),
+            }
+        else:
+            cloud0 = assign_crop_groups(
+                {"mapping": padded0, "images": imgs}, ladder
+            )
+        mappings = {}
+        raw_images = None
+        m = merged0
+        level = 0
+        for lvl in sorted(branch_levels):
+            while level < lvl:
+                parent = graph.levels[level].parent
+                m = m.merge_points(parent, bucket.level_caps[level + 1])
+                level += 1
+            padded = m.pad(bucket.view_cap, bucket.pix_cap)
+            mm = split_mapping_by_bucket(
+                {"mapping": padded, "images": imgs,
+                 "image_bucket": cloud0["image_bucket"],
+                 "crop_origin": cloud0["crop_origin"]},
+                ladder, include_images=raw_images is None,
+            )
+            if raw_images is None:
+                raw_images = []
+                for bi, bk in enumerate(mm["buckets"]):
+                    raw = bk.pop("images")
+                    icap = bucket.ladder_image_caps[bi]
+                    # check BEFORE pad_to — it silently truncates, and a
+                    # truncated tensor would make pix_image rows >= icap
+                    # silently gather the wrong image downstream
+                    if len(raw) > icap:
+                        raise ValueError(
+                            f"crop bucket {bi} overflows image cap "
+                            f"({len(raw)}/{icap} imgs)"
+                        )
+                    raw_images.append(raw)
+            # pad per-bucket pixel tables to static caps
+            for bi, bk in enumerate(mm["buckets"]):
+                icap = bucket.ladder_image_caps[bi]
+                qcap = bucket.ladder_pix_caps[bi]
+                n_img = int(bk["pix_image"].max(initial=-1)) + 1
+                if n_img > icap or len(bk["pix_view"]) > qcap:
+                    raise ValueError(
+                        f"crop bucket {bi} overflows caps "
+                        f"({n_img}/{icap} imgs, "
+                        f"{len(bk['pix_view'])}/{qcap} pix)"
+                    )
+                vc = padded.view_capacity
+                bk["pix_view"] = pad_to(bk["pix_view"], qcap, fill=vc)
+                bk["pix_ptr"] = np.searchsorted(
+                    bk["pix_view"], np.arange(vc + 2)
+                ).astype(np.int32)
+                bk["pix_x"] = pad_to(bk["pix_x"], qcap)
+                bk["pix_y"] = pad_to(bk["pix_y"], qcap)
+                bk["pix_valid"] = pad_to(bk["pix_valid"], qcap, fill=False)
+                bk["pix_image"] = pad_to(bk["pix_image"], qcap)
+                bk.pop("size", None)
+            mm.pop("num_points")
+            mappings[lvl] = mm
+        return mappings, raw_images
+    mappings = {}
+    m = merged0
+    level = 0
+    for lvl in sorted(branch_levels):
+        while level < lvl:
+            parent = graph.levels[level].parent
+            m = m.merge_points(parent, bucket.level_caps[level + 1])
+            level += 1
+        mappings[lvl] = m.pad(bucket.view_cap, bucket.pix_cap).to_device()
+    return mappings, None
+
+
 def collate(
     samples: List[Sample],
     bucket: Bucket,
@@ -102,14 +203,15 @@ def collate(
     if n_total > cap0:
         raise ValueError(f"{n_total} voxels exceed bucket cap {cap0}")
 
-    graph = sg.build_unet_graph(
-        coords,
-        num_levels=len(bucket.level_caps),
-        num_batches=bucket.num_batches,
-        conv0_kernel=conv0_kernel,
-        capacities=list(bucket.level_caps),
-    )
-    dev_graph = sg.graph_to_device(graph)
+    with trace.span("collate.graph"):
+        graph = sg.build_unet_graph(
+            coords,
+            num_levels=len(bucket.level_caps),
+            num_batches=bucket.num_batches,
+            conv0_kernel=conv0_kernel,
+            capacities=list(bucket.level_caps),
+        )
+        dev_graph = sg.graph_to_device(graph)
 
     batch = {
         "feats": pad_to(feats, cap0),
@@ -121,108 +223,24 @@ def collate(
         batch["pos"] = pad_to(pos, cap0, fill=1e6)  # pads far away
 
     if branch_levels:
-        offsets = np.cumsum([0] + [len(s.coords) for s in samples])[:-1]
-        merged0 = concatenate_mappings(
-            [s.mapping for s in samples], offsets, n_total
-        ).with_num_points(cap0)
-        imgs = np.concatenate([s.images for s in samples]).astype(np.float32)
-
-        if bucket.image_ladder is not None:
-            from .crop_groups import assign_crop_groups, split_mapping_by_bucket
-
-            ladder = [tuple(s_) for s_ in bucket.image_ladder]
-            # bucket assignment + image crops are level-invariant (pixel
-            # coords never change across stride merges) — build them ONCE;
-            # per level only the view/pixel tables are recomputed
-            padded0 = merged0.pad(bucket.view_cap, bucket.pix_cap)
-            if all(s.image_family is not None for s in samples):
-                # camera families: each image's bucket is its camera family
-                # at the family's native size (origin 0 on the storage
-                # canvas), NOT a bbox-fitted crop
-                fams = np.concatenate(
-                    [np.asarray(s.image_family, np.int64) for s in samples]
-                ) if samples else np.zeros(0, np.int64)
-                cloud0 = {
-                    "image_bucket": fams,
-                    "crop_origin": np.zeros((len(fams), 2), np.int64),
-                }
+        with trace.span("collate.images"):
+            imgs = np.concatenate([s.images for s in samples]).astype(
+                np.float32)
+        with trace.span("collate.mappings"):
+            batch["mappings"], raw_images = _mappings(
+                samples, bucket, branch_levels, graph, n_total, imgs)
+        with trace.span("collate.images"):
+            if raw_images is not None:
+                # one tensor a crop size, shared across levels
+                batch["bucket_images"] = [
+                    pad_to(raw, icap)
+                    for raw, icap in zip(raw_images, bucket.ladder_image_caps)]
             else:
-                cloud0 = assign_crop_groups(
-                    {"mapping": padded0, "images": imgs}, ladder
-                )
-            mappings = {}
-            bucket_images = None
-            m = merged0
-            level = 0
-            for lvl in sorted(branch_levels):
-                while level < lvl:
-                    parent = graph.levels[level].parent
-                    m = m.merge_points(parent, bucket.level_caps[level + 1])
-                    level += 1
-                padded = m.pad(bucket.view_cap, bucket.pix_cap)
-                mm = split_mapping_by_bucket(
-                    {"mapping": padded, "images": imgs,
-                     "image_bucket": cloud0["image_bucket"],
-                     "crop_origin": cloud0["crop_origin"]},
-                    ladder, include_images=bucket_images is None,
-                )
-                if bucket_images is None:
-                    bucket_images = []
-                    for bi, bk in enumerate(mm["buckets"]):
-                        raw = bk.pop("images")
-                        icap = bucket.ladder_image_caps[bi]
-                        # check BEFORE pad_to — it silently truncates, and a
-                        # truncated tensor would make pix_image rows >= icap
-                        # silently gather the wrong image downstream
-                        if len(raw) > icap:
-                            raise ValueError(
-                                f"crop bucket {bi} overflows image cap "
-                                f"({len(raw)}/{icap} imgs)"
-                            )
-                        bucket_images.append(pad_to(raw, icap))
-                # pad per-bucket pixel tables to static caps
-                for bi, bk in enumerate(mm["buckets"]):
-                    icap = bucket.ladder_image_caps[bi]
-                    qcap = bucket.ladder_pix_caps[bi]
-                    n_img = int(bk["pix_image"].max(initial=-1)) + 1
-                    if n_img > icap or len(bk["pix_view"]) > qcap:
-                        raise ValueError(
-                            f"crop bucket {bi} overflows caps "
-                            f"({n_img}/{icap} imgs, "
-                            f"{len(bk['pix_view'])}/{qcap} pix)"
-                        )
-                    vc = padded.view_capacity
-                    bk["pix_view"] = pad_to(bk["pix_view"], qcap, fill=vc)
-                    bk["pix_ptr"] = np.searchsorted(
-                        bk["pix_view"], np.arange(vc + 2)
-                    ).astype(np.int32)
-                    bk["pix_x"] = pad_to(bk["pix_x"], qcap)
-                    bk["pix_y"] = pad_to(bk["pix_y"], qcap)
-                    bk["pix_valid"] = pad_to(bk["pix_valid"], qcap, fill=False)
-                    bk["pix_image"] = pad_to(bk["pix_image"], qcap)
-                    bk.pop("size", None)
-                mm.pop("num_points")
-                mappings[lvl] = mm
-            batch["mappings"] = mappings
-            batch["bucket_images"] = bucket_images  # shared across levels
-        else:
-            mappings = {}
-            m = merged0
-            level = 0
-            for lvl in sorted(branch_levels):
-                while level < lvl:
-                    parent = graph.levels[level].parent
-                    m = m.merge_points(parent, bucket.level_caps[level + 1])
-                    level += 1
-                mappings[lvl] = m.pad(bucket.view_cap,
-                                      bucket.pix_cap).to_device()
-            batch["mappings"] = mappings
-
-            if len(imgs) > bucket.image_cap:
-                raise ValueError(
-                    f"{len(imgs)} images exceed cap {bucket.image_cap}"
-                )
-            batch["images"] = pad_to(imgs, bucket.image_cap)
+                if len(imgs) > bucket.image_cap:
+                    raise ValueError(
+                        f"{len(imgs)} images exceed cap {bucket.image_cap}"
+                    )
+                batch["images"] = pad_to(imgs, bucket.image_cap)
 
     # host-side metadata (never moved to the device)
     batch["meta"] = {
@@ -241,7 +259,10 @@ def batch_to_torch(batch: Dict, device="cuda") -> Dict:
     (dtypes kept: int32 ids and CSR pointers, bool masks, float32 values, as
     the segment kernels' wrapper takes them); the nesting of a crop-ladder
     batch (``mappings[level]["buckets"][b]``, the ``bucket_images`` list) is
-    kept; ``meta`` and other non-array leaves stay as they are."""
+    kept; ``meta`` and other non-array leaves stay as they are.  Traced:
+    the ``to_device`` span, and the bytes a card receives in the
+    ``h2d_bytes`` counter."""
+    h2d = torch.device(device).type != "cpu" and trace.enabled()
 
     def move(node):
         if isinstance(node, dict):
@@ -249,7 +270,10 @@ def batch_to_torch(batch: Dict, device="cuda") -> Dict:
         if isinstance(node, (list, tuple)):
             return type(node)(move(v) for v in node)
         if isinstance(node, np.ndarray):
+            if h2d:
+                trace.count("h2d_bytes", node.nbytes)
             return torch.from_numpy(np.ascontiguousarray(node)).to(device)
         return node
 
-    return move(batch)
+    with trace.span("to_device"):
+        return move(batch)

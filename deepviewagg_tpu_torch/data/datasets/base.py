@@ -23,6 +23,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ...utils import trace
 from ..collate import Bucket, Sample, collate
 from ..mapping import MultiViewMapping
 from .. import transforms2d, transforms3d
@@ -288,15 +289,38 @@ class SphereDataset:
             if self._centers is None:
                 self._build_eval_centers()
             ai, center = self._centers[idx]
-        cloud = self.areas.get(ai)
-        select = (transforms3d.cylinder_select if self.select_shape == "cylinder"
-                  else transforms3d.sphere_select)
-        sub = select(cloud, center, self.radius)
-        if len(sub["pos"]) < 16:
-            return None
-        if self.train and self.augment is not None:
-            sub = self.augment(sub, self._rng)
-        sub = transforms3d.quantize_cloud(sub, self.voxel_size)
+        with trace.span("sample.select3d"):
+            cloud = self.areas.get(ai)
+            select = (transforms3d.cylinder_select
+                      if self.select_shape == "cylinder"
+                      else transforms3d.sphere_select)
+            sub = select(cloud, center, self.radius)
+            if len(sub["pos"]) < 16:
+                return None
+            if self.train and self.augment is not None:
+                sub = self.augment(sub, self._rng)
+            sub = transforms3d.quantize_cloud(sub, self.voxel_size)
+        with trace.span("sample.images"):
+            sub, needs_normalize = self._images(sub)
+        if needs_normalize and sub.get("images") is not None:
+            with trace.span("sample.normalize"):
+                # materialize only the selected slots as normalized float32
+                sub["images"] = transforms2d.normalize_images(sub["images"])
+        feats = np.concatenate(
+            [sub.get("rgb", np.zeros((len(sub["pos"]), 3), np.float32)),
+             np.ones((len(sub["pos"]), 1), np.float32)], axis=1
+        )
+        return Sample(
+            coords=sub["coords"], feats=feats, labels=sub.get("labels"),
+            images=sub.get("images"), mapping=sub.get("mapping"),
+            image_family=sub.get("image_family"),
+            pos=sub["pos"], origin_id=sub.get("origin_id"),
+            cloud=self.areas.paths[ai],
+        )
+
+    def _images(self, sub: Dict):
+        """Image picks, centre roll and the 2D augmentations of a sample;
+        returns the sample and whether its images still need normalizing."""
         # Cache taxonomy (ref chain order: ColorJitter -> flip ->
         # ToFloatImage -> Normalize): uint8 and non-negative float caches
         # are RAW — radiometric augments apply and ImageNet normalization
@@ -378,20 +402,7 @@ class SphereDataset:
                         sub["mapping"], budget, image_px
                     )
                     sub = transforms2d._select_cloud_images(sub, keep)
-        if needs_normalize and sub.get("images") is not None:
-            # materialize only the selected slots as normalized float32
-            sub["images"] = transforms2d.normalize_images(sub["images"])
-        feats = np.concatenate(
-            [sub.get("rgb", np.zeros((len(sub["pos"]), 3), np.float32)),
-             np.ones((len(sub["pos"]), 1), np.float32)], axis=1
-        )
-        return Sample(
-            coords=sub["coords"], feats=feats, labels=sub.get("labels"),
-            images=sub.get("images"), mapping=sub.get("mapping"),
-            image_family=sub.get("image_family"),
-            pos=sub["pos"], origin_id=sub.get("origin_id"),
-            cloud=self.areas.paths[ai],
-        )
+        return sub, needs_normalize
 
 
 class BatchLoader:
@@ -439,11 +450,18 @@ class BatchLoader:
         would bias mIoU, so splitting — with mapping/image subsets carried
         through ``select_points``/``select_images`` — is the static-shape
         equivalent."""
+        if self._fits([], s):
+            return [s]
+        if depth == 0:
+            with trace.span("loader.split"):
+                return self._split_parts(s, depth)
+        return self._split_parts(s, depth)
+
+    def _split_parts(self, s: Sample, depth: int) -> List[Sample]:
+        """The parts of an over-cap sample (:meth:`_split_sample`)."""
         import dataclasses as _dc
         import warnings
 
-        if self._fits([], s):
-            return [s]
         if depth >= 8 or len(s.coords) < 32:
             warnings.warn(
                 f"sample with {len(s.coords)} voxels cannot fit bucket caps "
@@ -488,33 +506,64 @@ class BatchLoader:
             ), depth + 1))
         return parts
 
+    def _collate(self, group: List[Sample]) -> Dict:
+        with trace.span("loader.collate"):
+            return collate(group, self.bucket, self.branch_levels,
+                           conv0_kernel=self.conv0_kernel)
+
     def _iter_sync(self) -> Iterator[Dict]:
+        """The pass's batches in order.  The work of the k-th, from the
+        hand-over of the one before to this one being ready, is its
+        ``loader.produce`` span: its samples, splits and collate, the spans
+        of this thread carrying batch index ``k`` (``utils/trace.py``)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
         group: List[Sample] = []
-        for i in order:
-            s0 = self.dataset[int(i)]
-            if s0 is None:
-                continue
-            for s in self._split_sample(s0):
-                if len(group) == self.batch_size or (
-                    group and not self._fits(group, s)
-                ):
-                    yield collate(group, self.bucket, self.branch_levels,
-                                  conv0_kernel=self.conv0_kernel)
-                    group = []
-                group.append(s)
-        if group and not self.drop_last:
-            yield collate(group, self.bucket, self.branch_levels,
-                              conv0_kernel=self.conv0_kernel)
+        k = 0
+        trace.set_batch(k)
+        produce = trace.span("loader.produce").__enter__()
+
+        def ready():
+            nonlocal produce
+            done, produce = produce, None
+            done.__exit__(None, None, None)
+
+        try:
+            for i in order:
+                with trace.span("loader.sample"):
+                    s0 = self.dataset[int(i)]
+                if s0 is None:
+                    continue
+                for s in self._split_sample(s0):
+                    if len(group) == self.batch_size or (
+                        group and not self._fits(group, s)
+                    ):
+                        batch = self._collate(group)
+                        ready()
+                        yield batch
+                        k += 1
+                        trace.set_batch(k)
+                        produce = trace.span("loader.produce").__enter__()
+                        group = []
+                    group.append(s)
+            if group and not self.drop_last:
+                batch = self._collate(group)
+                ready()
+                yield batch
+        finally:
+            if produce is not None:
+                ready()
 
     def __iter__(self) -> Iterator[Dict]:
         """Prefetch one batch ahead on a worker thread so host collate
         (voxel hashing, mapping reindex) overlaps device compute — the role
         of the reference's DataLoader workers (base_dataset.py:211-288).  An
         error of the worker is raised in the consumer; a consumer that stops
-        early stops the worker."""
+        early stops the worker.  The worker's time blocked on a full queue
+        is its ``loader.put_wait`` span, the consumer's wait for the k-th
+        batch its ``loader.get`` span (batch index ``k``: the queue is
+        first in, first out)."""
         import queue
         import threading
 
@@ -534,22 +583,32 @@ class BatchLoader:
         def worker():
             try:
                 for b in self._iter_sync():
-                    if not put(b):
+                    trace.count("loader.batches")
+                    with trace.span("loader.put_wait"):
+                        handed = put(b)
+                    if not handed:
                         return
                 put(stop)
             except BaseException as e:  # surface errors in the consumer
                 put(e)
 
-        t = threading.Thread(target=worker, daemon=True)
+        t = threading.Thread(target=worker, daemon=True, name="BatchLoader")
         t.start()
         try:
+            k = 0
             while True:
-                b = q.get()
+                trace.set_batch(k)
+                with trace.span("loader.get"):
+                    starved = trace.enabled() and q.empty()
+                    b = q.get()
                 if b is stop:
                     break
                 if isinstance(b, BaseException):
                     raise b
+                if starved:
+                    trace.count("loader.starved")
                 yield b
+                k += 1
         finally:
             closed.set()
             t.join()

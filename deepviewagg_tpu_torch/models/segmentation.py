@@ -34,6 +34,7 @@ from ..modules import image_encoders as towers
 from ..modules.branch import UnimodalBranch, soft_dropout
 from ..modules.multibucket import MultiBucketBranch
 from ..nn.res16unet import RES16_PRESETS, DownStage, Res16UNet, Stem, UpStage
+from ..utils import trace
 
 __all__ = ["BranchSpec", "ModelSpec", "MultimodalSeg", "SparseConv3dSeg",
            "No3DSeg", "LateFusionSeg", "build_model", "make_tower",
@@ -219,7 +220,11 @@ class MultimodalSeg(nn.Module):
     ``i`` feeding the branch that says ``"shared:<i>"``) and tower reuse
     (``reuse_tower``, built from the first branch with a real tower and run
     once a forward, feeding that branch and every ``"reuse"`` one).  These
-    branches own no ``tower``; shared and reuse take flat batches only."""
+    branches own no ``tower``; shared and reuse take flat batches only.
+
+    Traced (``utils/trace.py``): each branch a ``model.branch`` span, the
+    stem through the last decoder stage ``model.unet``, both timed on the
+    device too; a shared trunk or reused tower a ``branch.tower``."""
 
     def __init__(self, spec: ModelSpec, device="cuda", seed: Optional[int] = 0):
         super().__init__()
@@ -311,20 +316,22 @@ class MultimodalSeg(nn.Module):
                     "shared_tower needs a flat image batch; crop-ladder "
                     "(bucketed) collate is not supported with shared trunks")
             sb = self._shared_by
-            out["shared"] = towers.run_tower(
-                self.shared_tower, images, self.training,
-                remat=sb.remat_tower, frozen=sb.frozen, bf16=sb.tower_bf16,
-                generator=generator)
+            with trace.span("branch.tower", device=images):
+                out["shared"] = towers.run_tower(
+                    self.shared_tower, images, self.training,
+                    remat=sb.remat_tower, frozen=sb.frozen,
+                    bf16=sb.tower_bf16, generator=generator)
         if self._reuse_by is not None:
             if images is None:
                 raise ValueError(
                     "tower-reuse branches need a flat image batch; "
                     "crop-ladder (bucketed) collate is not supported")
             ob = self._reuse_by
-            out["reuse"] = towers.run_tower(
-                self.reuse_tower, images, self.training,
-                remat=ob.remat_tower, frozen=ob.frozen, bf16=ob.tower_bf16,
-                generator=generator)
+            with trace.span("branch.tower", device=images):
+                out["reuse"] = towers.run_tower(
+                    self.reuse_tower, images, self.training,
+                    remat=ob.remat_tower, frozen=ob.frozen,
+                    bf16=ob.tower_bf16, generator=generator)
         return out
 
     def _run_branches(self, level, x, batch, seen_all, feeds, generator):
@@ -335,21 +342,22 @@ class MultimodalSeg(nn.Module):
             if branch is None:
                 return x, seen_all
             mm = batch["mappings"][level]
-            if "buckets" in mm:
-                # crop-group families (Bucket.image_ladder collate path)
-                x, seen = self._ladder_branch(name, branch)(
-                    x, mm, bucket_images=batch.get("bucket_images"),
-                    generator=generator)
-            else:
-                images = batch["images"]
-                fed = self._fed.get(name)
-                maps = (images if fed is None else feeds["reuse"]
-                        if fed[0] == "reuse" else feeds["shared"][fed[1]])
-                # pixel coords live at the images' size; the gather
-                # rescales them to a tap's
-                x, seen = branch(x, maps, mm,
-                                 (images.shape[1], images.shape[2]),
-                                 generator=generator)
+            with trace.span("model.branch", device=batch["feats"]):
+                if "buckets" in mm:
+                    # crop-group families (Bucket.image_ladder collate path)
+                    x, seen = self._ladder_branch(name, branch)(
+                        x, mm, bucket_images=batch.get("bucket_images"),
+                        generator=generator)
+                else:
+                    images = batch["images"]
+                    fed = self._fed.get(name)
+                    maps = (images if fed is None else feeds["reuse"]
+                            if fed[0] == "reuse" else feeds["shared"][fed[1]])
+                    # pixel coords live at the images' size; the gather
+                    # rescales them to a tap's
+                    x, seen = branch(x, maps, mm,
+                                     (images.shape[1], images.shape[2]),
+                                     generator=generator)
             seen_all = seen if seen_all is None else (seen_all | seen)
             k += 1
 
@@ -360,17 +368,18 @@ class MultimodalSeg(nn.Module):
         feeds = self._feeds(batch, generator)
         x, x_seen = self._run_branches(0, batch["feats"], batch, None, feeds,
                                        generator)
-        x = self.stem(x, graph)
-        skips = [x]
-        for i in range(self.n_down):
-            x = getattr(self, f"down{i}")(x, graph, i)
-            x, _ = self._run_branches(i + 1, x, batch, None, feeds,
-                                      generator)
-            if i < self.n_down - 1:
-                skips.append(x)
-        for j in range(self.n_down):
-            lvl_out = self.n_down - 1 - j
-            x = getattr(self, f"up{j}")(x, skips[lvl_out], graph, lvl_out)
+        with trace.span("model.unet", device=batch["feats"]):
+            x = self.stem(x, graph)
+            skips = [x]
+            for i in range(self.n_down):
+                x = getattr(self, f"down{i}")(x, graph, i)
+                x, _ = self._run_branches(i + 1, x, batch, None, feeds,
+                                          generator)
+                if i < self.n_down - 1:
+                    skips.append(x)
+            for j in range(self.n_down):
+                lvl_out = self.n_down - 1 - j
+                x = getattr(self, f"up{j}")(x, skips[lvl_out], graph, lvl_out)
         # the generator's presence (not the training flag) gates the head
         # dropout, so MC-dropout voting works at eval
         x = soft_dropout(x, self.spec.head_dropout, generator)

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops import segment as seg
+from ..utils import trace
 from .fusion import BimodalFusion
 from .gather import gather_pixel_features
 from .image_encoders import run_tower
@@ -155,68 +156,75 @@ class UnimodalBranch(nn.Module):
         if x_3d is not None:
             num_points = x_3d.shape[0]
 
+        on = mapping["pix_view"]   # the tensor whose stream times spans
         if self.tower is None:
             # the images themselves, or maps made outside the branch (a
             # shared trunk's tap), as they come: no bf16 policy
             feats_2d = images
         else:
-            feats_2d = run_tower(
-                self.tower, images, self.training, remat=self.remat_tower,
-                frozen=self.frozen, bf16=self.tower_bf16,
-                out_f32=not (self.pool_bf16 and self.tower_bf16),
-                generator=generator)
+            with trace.span("branch.tower", device=on):
+                feats_2d = run_tower(
+                    self.tower, images, self.training,
+                    remat=self.remat_tower, frozen=self.frozen,
+                    bf16=self.tower_bf16,
+                    out_f32=not (self.pool_bf16 and self.tower_bf16),
+                    generator=generator)
 
         # --- pixels -> views (atomic pool) -------------------------------
-        pix_feats = gather_pixel_features(feats_2d, mapping, ref_size,
-                                          interpolate=self.interpolate)
-        x_view = seg.segment_reduce(
-            pix_feats.to(torch.float32), mapping["pix_view"], vc + 1,
-            self.atomic_reduce, valid=mapping["pix_valid"],
-            ptr=mapping.get("pix_ptr"),
-        )[:vc]
+        with trace.span("branch.gather", device=on):
+            pix_feats = gather_pixel_features(feats_2d, mapping, ref_size,
+                                              interpolate=self.interpolate)
+        with trace.span("branch.atomic_pool", device=on):
+            x_view = seg.segment_reduce(
+                pix_feats.to(torch.float32), mapping["pix_view"], vc + 1,
+                self.atomic_reduce, valid=mapping["pix_valid"],
+                ptr=mapping.get("pix_ptr"),
+            )[:vc]
 
         # --- views -> points (view pool) ---------------------------------
-        pid = mapping["point_id"]
-        p_ptr = mapping.get("point_ptr")
-        v_valid = mapping["view_valid"]
-        s = num_points + 1
-        # segment-level BN statistics exclude the padding drop row
-        seg_ok = torch.arange(s, device=pid.device) < num_points
-        # valid views per point, counted once: the pool's size feature,
-        # softmax scaling or mean, and x_seen below
-        n_views = seg.segment_count(pid, s, v_valid, p_ptr)
-        attn = None
-        pool = self.view_pool
-        if isinstance(pool, GroupViewPool):
-            pooled, attn = pool(x_view, mapping["view_feats"], pid, v_valid,
-                                s, ptr=p_ptr, seg_valid=seg_ok,
-                                count=n_views)
-        elif isinstance(pool, QKVViewPool):
-            pooled, attn = pool(x_3d, x_view, mapping["view_feats"], pid,
-                                v_valid, s, ptr=p_ptr, seg_valid=seg_ok,
-                                count=n_views)
-        elif isinstance(pool, HeuristicPool):
-            pooled = pool(x_view, mapping["view_feats"], pid, v_valid, s,
-                          ptr=p_ptr)
-        else:
-            pooled = pool(x_view, pid, v_valid, s, ptr=p_ptr, count=n_views)
-        pooled = pooled[:num_points]
+        with trace.span("branch.view_pool", device=on):
+            pid = mapping["point_id"]
+            p_ptr = mapping.get("point_ptr")
+            v_valid = mapping["view_valid"]
+            s = num_points + 1
+            # segment-level BN statistics exclude the padding drop row
+            seg_ok = torch.arange(s, device=pid.device) < num_points
+            # valid views per point, counted once: the pool's size feature,
+            # softmax scaling or mean, and x_seen below
+            n_views = seg.segment_count(pid, s, v_valid, p_ptr)
+            attn = None
+            pool = self.view_pool
+            if isinstance(pool, GroupViewPool):
+                pooled, attn = pool(x_view, mapping["view_feats"], pid,
+                                    v_valid, s, ptr=p_ptr, seg_valid=seg_ok,
+                                    count=n_views)
+            elif isinstance(pool, QKVViewPool):
+                pooled, attn = pool(x_3d, x_view, mapping["view_feats"], pid,
+                                    v_valid, s, ptr=p_ptr, seg_valid=seg_ok,
+                                    count=n_views)
+            elif isinstance(pool, HeuristicPool):
+                pooled = pool(x_view, mapping["view_feats"], pid, v_valid, s,
+                              ptr=p_ptr)
+            else:
+                pooled = pool(x_view, pid, v_valid, s, ptr=p_ptr,
+                              count=n_views)
+            pooled = pooled[:num_points]
 
-        # --- x_seen (modules.py:410) -------------------------------------
-        x_seen = n_views[:num_points] > 0
+            # --- x_seen (modules.py:410) ---------------------------------
+            x_seen = n_views[:num_points] > 0
 
-        # --- modality dropout + fusion -----------------------------------
-        if self.drop_hard:
-            pooled = self.mod_drop(pooled, generator)
-            if x_3d is not None:
-                x_3d = self.drop_3d_mod(x_3d, generator)
-        else:
-            # the soft dropouts are active in training mode only
-            soft = generator if self.training else None
-            pooled = soft_dropout(pooled, self.drop_modality, soft)
-            if x_3d is not None:
-                x_3d = soft_dropout(x_3d, self.drop_3d, soft)
-        out = pooled if x_3d is None else self.fusion(x_3d, pooled)
+            # --- modality dropout + fusion -------------------------------
+            if self.drop_hard:
+                pooled = self.mod_drop(pooled, generator)
+                if x_3d is not None:
+                    x_3d = self.drop_3d_mod(x_3d, generator)
+            else:
+                # the soft dropouts are active in training mode only
+                soft = generator if self.training else None
+                pooled = soft_dropout(pooled, self.drop_modality, soft)
+                if x_3d is not None:
+                    x_3d = soft_dropout(x_3d, self.drop_3d, soft)
+            out = pooled if x_3d is None else self.fusion(x_3d, pooled)
         if self.keep_last_view:
             return out, x_seen, {"x_view": x_view, "attention": attn,
                                  "view_point_id": pid, "view_valid": v_valid}

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops import segment as seg
+from ..utils import trace
 from .fusion import BimodalFusion
 from .gather import _bilinear, _bilinear_upsampled, _rows, _use_upsample
 from .image_encoders import run_tower
@@ -139,6 +140,7 @@ class MultiBucketBranch(nn.Module):
         if x_3d is not None:
             num_points = x_3d.shape[0]
 
+        on = view["view_valid"]   # the tensor whose stream times spans
         x_view = None
         for b, bucket in enumerate(mm["buckets"]):
             images = (bucket["images"] if "images" in bucket
@@ -146,43 +148,47 @@ class MultiBucketBranch(nn.Module):
             if images.shape[0] == 0:
                 continue
             if self.tower is not None:
-                feats_2d = run_tower(
-                    self.tower, images, self.training,
-                    remat=self.remat_tower, frozen=self.frozen,
-                    bf16=self.tower_bf16,
-                    out_f32=not (self.pool_bf16 and self.tower_bf16),
-                    generator=generator)
+                with trace.span("branch.tower", device=on):
+                    feats_2d = run_tower(
+                        self.tower, images, self.training,
+                        remat=self.remat_tower, frozen=self.frozen,
+                        bf16=self.tower_bf16,
+                        out_f32=not (self.pool_bf16 and self.tower_bf16),
+                        generator=generator)
             else:
                 feats_2d = images
             ref_size = (images.shape[1], images.shape[2])
-            pix_feats = self._gather(feats_2d, bucket, ref_size)
-            partial = seg.segment_reduce(
-                pix_feats.to(torch.float32), bucket["pix_view"], vc + 1,
-                self.atomic_reduce, valid=bucket["pix_valid"],
-                ptr=bucket.get("pix_ptr"),
-            )[:vc]
-            x_view = partial if x_view is None else x_view + partial
+            with trace.span("branch.gather", device=on):
+                pix_feats = self._gather(feats_2d, bucket, ref_size)
+            with trace.span("branch.atomic_pool", device=on):
+                partial = seg.segment_reduce(
+                    pix_feats.to(torch.float32), bucket["pix_view"], vc + 1,
+                    self.atomic_reduce, valid=bucket["pix_valid"],
+                    ptr=bucket.get("pix_ptr"),
+                )[:vc]
+                x_view = partial if x_view is None else x_view + partial
         if x_view is None:
             raise ValueError("no bucket carries images")
 
-        pid = view["point_id"]
-        p_ptr = view.get("point_ptr")
-        v_valid = view["view_valid"]
-        # valid views per point, counted once: the pool's size feature and
-        # softmax scaling, and x_seen below
-        n_views = seg.segment_count(pid, num_points + 1, v_valid, p_ptr)
-        if isinstance(self.view_pool, GroupViewPool):
-            pooled, _ = self.view_pool(
-                x_view, view["view_feats"], pid, v_valid, num_points + 1,
-                ptr=p_ptr, count=n_views)
-        else:
-            pooled = self.view_pool(x_view, pid, v_valid, num_points + 1,
-                                    ptr=p_ptr, count=n_views)
-        pooled = pooled[:num_points]
-        x_seen = n_views[:num_points] > 0
-        if x_3d is None:
-            return pooled, x_seen
-        return self.fusion(x_3d, pooled), x_seen
+        with trace.span("branch.view_pool", device=on):
+            pid = view["point_id"]
+            p_ptr = view.get("point_ptr")
+            v_valid = view["view_valid"]
+            # valid views per point, counted once: the pool's size feature
+            # and softmax scaling, and x_seen below
+            n_views = seg.segment_count(pid, num_points + 1, v_valid, p_ptr)
+            if isinstance(self.view_pool, GroupViewPool):
+                pooled, _ = self.view_pool(
+                    x_view, view["view_feats"], pid, v_valid, num_points + 1,
+                    ptr=p_ptr, count=n_views)
+            else:
+                pooled = self.view_pool(x_view, pid, v_valid, num_points + 1,
+                                        ptr=p_ptr, count=n_views)
+            pooled = pooled[:num_points]
+            x_seen = n_views[:num_points] > 0
+            if x_3d is not None:
+                pooled = self.fusion(x_3d, pooled)
+        return pooled, x_seen
 
     @staticmethod
     def _gather(feature_maps: torch.Tensor, bucket: Dict, ref_size):

@@ -25,6 +25,7 @@ from torch import nn
 from ..models.losses import segmentation_loss, view_level_loss
 from ..models.segmentation import No3DSeg
 from ..parallel.collectives import all_reduce_mean_
+from ..utils import trace
 from .optimizers import Optimizer, global_norm
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step"]
@@ -72,6 +73,11 @@ def make_train_step(
     are replaced by theirs too: the masked batch norms' are equal across
     the group already, a tower BatchNorm's were taken from its own rank's
     images.
+
+    Traced (``utils/trace.py``), a step is the spans ``step.forward`` (the
+    model and the loss), ``step.backward`` (``zero_grad`` and the backward
+    pass), ``step.grad_mean`` (with a group) and ``step.optimizer`` (the
+    gradient norm and the update).
     """
     if ignore_unseen is None:
         ignore_unseen = isinstance(model, No3DSeg)
@@ -79,35 +85,40 @@ def make_train_step(
     def step(state: TrainState, batch: Dict,
              generator: Optional[torch.Generator] = None) -> tuple:
         valid = batch["graph"]["levels"][0]["valid"]
-        model.train()
-        out = model(batch, generator=generator)
-        loss_valid = valid
-        if ignore_unseen and "x_seen" in out:
-            loss_valid = loss_valid & out["x_seen"]
-        loss = segmentation_loss(out["logits"], batch["labels"], loss_valid,
-                                 lovasz_weight, class_weights)
-        if view_loss_weight > 0 and "view_logits" in out:
-            ex = out["view_extras"]
-            loss = loss + view_loss_weight * view_level_loss(
-                out["view_logits"], batch["labels"], ex["view_point_id"],
-                ex["view_valid"])
-        model.zero_grad(set_to_none=True)
-        loss.backward()
+        with trace.span("step.forward"):
+            model.train()
+            out = model(batch, generator=generator)
+            loss_valid = valid
+            if ignore_unseen and "x_seen" in out:
+                loss_valid = loss_valid & out["x_seen"]
+            loss = segmentation_loss(out["logits"], batch["labels"],
+                                     loss_valid, lovasz_weight, class_weights)
+            if view_loss_weight > 0 and "view_logits" in out:
+                ex = out["view_extras"]
+                loss = loss + view_loss_weight * view_level_loss(
+                    out["view_logits"], batch["labels"], ex["view_point_id"],
+                    ex["view_valid"])
+        with trace.span("step.backward"):
+            model.zero_grad(set_to_none=True)
+            loss.backward()
         loss = loss.detach()
         if group is not None:
-            params = [p for g in state.tx.groups for p in g.params]
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            loss = loss.reshape(1)
-            all_reduce_mean_([p.grad for p in params] + [loss]
-                             + list(model.buffers()), group)
-            loss = loss[0]
-        grad_norm = global_norm([p.grad for p in model.parameters()
-                                 if p.grad is not None])
-        # the schedule counts the optimizer's real updates (with gradient
-        # accumulation, fewer than the mini-steps counted by state.step)
-        state.tx.update()
+            with trace.span("step.grad_mean"):
+                params = [p for g in state.tx.groups for p in g.params]
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                loss = loss.reshape(1)
+                all_reduce_mean_([p.grad for p in params] + [loss]
+                                 + list(model.buffers()), group)
+                loss = loss[0]
+        with trace.span("step.optimizer"):
+            grad_norm = global_norm([p.grad for p in model.parameters()
+                                     if p.grad is not None])
+            # the schedule counts the optimizer's real updates (with
+            # gradient accumulation, fewer than the mini-steps counted by
+            # state.step)
+            state.tx.update()
         state.step += 1
         metrics = {
             "loss": loss,
@@ -127,7 +138,7 @@ def make_eval_step(model: nn.Module, mc_dropout: bool = False) -> Callable:
     def step(state: TrainState, batch: Dict,
              generator: Optional[torch.Generator] = None) -> Dict:
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("eval.forward"):
             out = model(batch, generator=generator if mc_dropout else None)
         res = {"logits": out["logits"],
                "preds": out["logits"].argmax(dim=-1)}

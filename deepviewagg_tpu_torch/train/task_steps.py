@@ -165,7 +165,7 @@ class TaskTrainer:
     def train_epoch(self, batches: Iterable) -> Dict[str, float]:
         sums: Dict[str, float] = {}
         n = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
         for batch in batches:
             moved = batch_to_torch(self._strip_meta(batch), self.device)
             self.state, metrics = self.step_fn(self.state, moved,
@@ -176,7 +176,7 @@ class TaskTrainer:
                     sums[k] = sums.get(k, 0.0) + float(v)
         out = {k: v / max(n, 1) for k, v in sums.items()}
         out["batches"] = n
-        out["time_s"] = time.time() - t0
+        out["time_s"] = time.perf_counter() - t0
         return out
 
     def fit(self, make_batches: Callable, epochs: int = 1) -> Dict[str, float]:

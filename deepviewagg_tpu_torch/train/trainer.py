@@ -77,6 +77,18 @@ class TrainerConfig:
     log_fn: Callable[[str], None] = print
 
 
+def _all_threads() -> Dict:
+    """``profile``'s keyword that profiles every thread, where this torch
+    has it."""
+    try:
+        from torch.profiler import _ExperimentalConfig
+
+        return {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 class Trainer:
     """``Trainer(model, num_classes, cfg).fit(train_data, val_data)``.
 
@@ -171,7 +183,7 @@ class Trainer:
 
     def train_epoch(self, batches: Iterable) -> Dict[str, float]:
         tracker = SegmentationTracker(self.num_classes, "train")
-        t0 = time.time()
+        t0 = time.perf_counter()
         n = 0
         prev_loss = None
         for i, batch in enumerate(batches):
@@ -198,7 +210,7 @@ class Trainer:
             tracker.cm.m[:] = cm.cpu().numpy()
         out = tracker.get_metrics()
         out["train_batches"] = n
-        out["train_time_s"] = time.time() - t0
+        out["train_time_s"] = time.perf_counter() - t0
         return out
 
     def _check_finite(self, loss, step: int):
@@ -258,13 +270,16 @@ class Trainer:
     # ------------------------------------------------------------------
     def _profiled_train_epoch(self, batches: Iterable) -> Dict[str, float]:
         """``train_epoch`` under ``torch.profiler``; the trace goes to
-        ``<run_dir>/profile_ep<epoch>.json`` (Chrome trace format)."""
+        ``<run_dir>/profile_ep<epoch>.json`` (Chrome trace format).  It
+        profiles every thread where this torch can, so the loader thread's
+        ``dva::loader.*`` ranges land beside the step's ``dva::step.*`` and
+        the device's events (``utils/trace.py``)."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        with profile(activities=acts, **_all_threads()) as prof:
             m = self.train_epoch(batches)
         if self.primary:
             prof.export_chrome_trace(
