@@ -23,6 +23,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ...native import images as native_images
 from ...utils import trace
 from ..collate import Bucket, Sample, collate
 from ..mapping import MultiViewMapping
@@ -301,11 +302,18 @@ class SphereDataset:
                 sub = self.augment(sub, self._rng)
             sub = transforms3d.quantize_cloud(sub, self.voxel_size)
         with trace.span("sample.images"):
-            sub, needs_normalize = self._images(sub)
-        if needs_normalize and sub.get("images") is not None:
+            sub, normalize, jitter = self._images(sub)
+        if normalize is not None:
+            imgs = sub["images"]
             with trace.span("sample.normalize"):
-                # materialize only the selected slots as normalized float32
-                sub["images"] = transforms2d.normalize_images(sub["images"])
+                # materialize only the selected slots as normalized float32;
+                # the native pass gives the numpy chain's bytes
+                if normalize == "fused":
+                    sub["images"] = native_images.jitter_normalize(
+                        imgs, jitter)
+                else:
+                    sub["images"] = transforms2d.normalize_images(imgs)
+                trace.count("images." + normalize, len(imgs))
         feats = np.concatenate(
             [sub.get("rgb", np.zeros((len(sub["pos"]), 3), np.float32)),
              np.ones((len(sub["pos"]), 1), np.float32)], axis=1
@@ -320,7 +328,10 @@ class SphereDataset:
 
     def _images(self, sub: Dict):
         """Image picks, centre roll and the 2D augmentations of a sample;
-        returns the sample and whether its images still need normalizing."""
+        returns the sample, how its images are to be normalized (None: they
+        are not; ``"fused"``: a raw stack that the native pass takes and no
+        blur was drawn for; ``"plain"``: the numpy chain) and, when fused,
+        the colour jitter drawn but not applied yet (or None)."""
         # Cache taxonomy (ref chain order: ColorJitter -> flip ->
         # ToFloatImage -> Normalize): uint8 and non-negative float caches
         # are RAW — radiometric augments apply and ImageNet normalization
@@ -335,6 +346,7 @@ class SphereDataset:
         )
         needs_normalize = imgs0 is not None and not already_normalized
         radiometric_ok = needs_normalize
+        jitter, blur = None, False
         if (already_normalized and self.train
                 and (self.color_jitter is not None or self.blur_p > 0)
                 and not self._warned_normalized_cache):
@@ -368,12 +380,20 @@ class SphereDataset:
                     )
                 if (self.color_jitter is not None and radiometric_ok
                         and sub.get("images") is not None):
-                    sub["images"] = transforms2d.color_jitter(
-                        sub["images"], self._rng, *self.color_jitter
+                    jitter = transforms2d.draw_color_jitter(
+                        self._rng, len(sub["images"]), *self.color_jitter
                     )
-                if self.blur_p > 0 and radiometric_ok \
-                        and sub.get("images") is not None \
-                        and self._rng.uniform() < self.blur_p:
+                blur = (self.blur_p > 0 and radiometric_ok
+                        and sub.get("images") is not None
+                        and self._rng.uniform() < self.blur_p)
+                if jitter is not None and (
+                        blur or not native_images.takes(sub["images"])):
+                    # the numpy chain: before a blur, or for a stack the
+                    # native pass does not take
+                    sub["images"] = transforms2d.apply_color_jitter(
+                        sub["images"], jitter)
+                    jitter = None
+                if blur:
                     sub["images"] = transforms2d.gaussian_blur(
                         sub["images"], self._rng
                     )
@@ -402,7 +422,12 @@ class SphereDataset:
                         sub["mapping"], budget, image_px
                     )
                     sub = transforms2d._select_cloud_images(sub, keep)
-        return sub, needs_normalize
+        imgs = sub.get("images")
+        if not needs_normalize or imgs is None:
+            return sub, None, None
+        if blur or not native_images.takes(imgs):
+            return sub, "plain", None
+        return sub, "fused", jitter
 
 
 class BatchLoader:

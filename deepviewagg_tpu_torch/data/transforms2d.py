@@ -31,7 +31,7 @@ Copied so that the same ``np.random.Generator`` draws give the same arrays
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +47,8 @@ __all__ = [
     "center_roll",
     "random_horizontal_flip",
     "color_jitter",
+    "draw_color_jitter",
+    "apply_color_jitter",
     "gaussian_blur",
     "crop_images",
     "non_static_mask",
@@ -429,29 +431,45 @@ def color_jitter(
     (ref image.py:1249: per call one factor per property, uniform in
     [max(0, 1-s), 1+s], applied in random order).  Factors are drawn PER
     IMAGE here — strictly more augmentation diversity at equal cost."""
+    return apply_color_jitter(images, draw_color_jitter(
+        rng, len(images), brightness, contrast, saturation))
+
+
+def draw_color_jitter(
+    rng: np.random.Generator,
+    n: int,
+    brightness: float = 0.6,
+    contrast: float = 0.6,
+    saturation: float = 0.7,
+) -> List[Tuple[str, np.ndarray]]:
+    """:func:`color_jitter`'s draws for ``n`` images, in its order: the
+    order of the ops of non-zero strength, then one float32 ``[n, 1, 1, 1]``
+    factor per op as applied.  Returns ``[(op, factor), ...]`` in that
+    order, ``op`` one of ``'brightness'``, ``'contrast'``,
+    ``'saturation'``."""
+    ops = [(op, s) for op, s in (("brightness", brightness),
+                                 ("contrast", contrast),
+                                 ("saturation", saturation)) if s > 0]
+    return [(ops[i][0], rng.uniform(max(0.0, 1.0 - ops[i][1]),
+                                    1.0 + ops[i][1], size=(n, 1, 1, 1)
+                                    ).astype(np.float32))
+            for i in rng.permutation(len(ops))]
+
+
+def apply_color_jitter(images: np.ndarray,
+                       draws: Sequence[Tuple[str, np.ndarray]]) -> np.ndarray:
+    """:func:`color_jitter` with its draws made beforehand
+    (:func:`draw_color_jitter`)."""
     img = _to_unit_float(images)
-    n = img.shape[0]
-
-    def f(strength):
-        return rng.uniform(max(0.0, 1.0 - strength), 1.0 + strength,
-                           size=(n, 1, 1, 1)).astype(np.float32)
-
-    ops = []
-    if brightness > 0:
-        ops.append(lambda x: x * f(brightness))
-    if contrast > 0:
-        def _contrast(x):
-            mean = _grayscale(x).mean(axis=(1, 2, 3), keepdims=True)
-            return (x - mean) * f(contrast) + mean
-        ops.append(_contrast)
-    if saturation > 0:
-        def _saturate(x):
-            g = _grayscale(x)
-            fac = f(saturation)
-            return x * fac + g * (1.0 - fac)
-        ops.append(_saturate)
-    for i in rng.permutation(len(ops)):
-        img = ops[i](img)
+    for op, fac in draws:
+        if op == "brightness":
+            img = img * fac
+        elif op == "contrast":
+            mean = _grayscale(img).mean(axis=(1, 2, 3), keepdims=True)
+            img = (img - mean) * fac + mean
+        else:
+            g = _grayscale(img)
+            img = img * fac + g * (1.0 - fac)
     return np.clip(img, 0.0, 1.0)
 
 

@@ -47,7 +47,14 @@ HOST: Dict[str, Dict[str, tuple]] = {
         "dva_knn_grid": ((_P, _L, _P, _L, _L, ctypes.c_double, _P, _P, _I),
                          _I),
     },
+    "images": {
+        "dva_jitter_gray": ((_P, _I, _L, _L, _P, _I, _P, _P, _I), _I),
+        "dva_jitter_normalize": ((_P, _I, _L, _L, _P, _I, _P, _P, _I, _P, _P,
+                                  _P, _I), _I),
+    },
 }
+# extra g++ flags of a host library: the image pass must round as numpy does
+_HOST_FLAGS: Dict[str, list] = {"images": ["-ffp-contract=off"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -88,7 +95,7 @@ def _command(name: str, out: Path) -> list:
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-o", str(out), src]
     return [_gxx(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-            "-o", str(out), src]
+            *_HOST_FLAGS.get(name, ()), "-o", str(out), src]
 
 
 def _target(name: str) -> Path:

@@ -16,7 +16,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deepviewagg_tpu_torch.data.collate import Bucket, batch_to_torch
-from deepviewagg_tpu_torch.data.datasets.base import BatchLoader
+from deepviewagg_tpu_torch.data.datasets.base import (AreaCache, BatchLoader,
+                                                      load_area)
 from deepviewagg_tpu_torch.data.datasets.synthetic_ds import (
     make_synthetic_dataset)
 from deepviewagg_tpu_torch.data.toy import (flagship_spec, recipe_batch,
@@ -387,3 +388,41 @@ def test_reader_of_the_tracer(name, monkeypatch):
     monkeypatch.setitem(sys.modules, "deepviewagg_tpu_torch.utils.trace",
                         None)
     assert read(None) is None
+
+
+# --- the fused image pass's counters -----------------------------------------
+
+def _as_uint8(load):
+    def loader(path):
+        cloud = load(path)
+        cloud["images"] = np.round(
+            np.asarray(cloud["images"]) * 255.0).astype(np.uint8)
+        return cloud
+    return loader
+
+
+def _samples(ds, seed=7):
+    ds._rng = np.random.default_rng(seed)
+    return [s for s in (ds[i] for i in range(len(ds))) if s is not None]
+
+
+@pytest.mark.parametrize("cache, blur_p, path", [
+    ("uint8", 0.0, "images.fused"), ("float", 0.0, "images.fused"),
+    ("uint8", 1.0, "images.plain"), ("float", 1.0, "images.plain")])
+def test_sample_images_count_under_the_path_they_took(dataset, cache, blur_p,
+                                                      path):
+    ds = dataclasses.replace(dataset, blur_p=blur_p)
+    if cache == "uint8":
+        ds.areas = AreaCache(ds.areas.paths, loader=_as_uint8(load_area))
+    off = _samples(ds)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _samples(ds)
+    counters = trace.snapshot()["counters"]
+    n_images = sum(len(s.images) for s in on)
+    assert n_images > 0
+    assert {k: v for k, v in counters.items()
+            if k.startswith("images.")} == {path: n_images}
+    # the samples do not depend on the tracer
+    assert len(on) == len(off)
+    for a, b in zip(off, on):
+        assert_identical(a, b)
