@@ -54,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..config.run import load_run_config
-from ..config.zoo import resolve_spec_from_cfg
+from ..config.zoo import recipe_lr_keywords, resolve_spec_from_cfg
 from ..data.collate import Bucket
 from ..data.datasets.base import BatchLoader
 from ..models.segmentation import build_model
@@ -358,6 +358,10 @@ def _train(cfg, device):
             "tower_deep_stem", spec.branches[0][1].tower_deep_stem)
     branch_levels = sorted(dict(spec.branches))
     bucket = auto_bucket(cfg, train_ds, branch_levels)
+    graph = "ptv3" if spec.family == "ptv3" else "unet"
+    if graph == "ptv3":
+        bucket = dataclasses.replace(bucket, view_cap=0, pix_cap=0,
+                                     image_cap=0)
     print(f"bucket: levels={list(bucket.level_caps)} views={bucket.view_cap} "
           f"pix={bucket.pix_cap} imgs={bucket.image_cap}")
 
@@ -371,11 +375,11 @@ def _train(cfg, device):
                              f"loaded into a tower ({loaded})")
     train_loader = BatchLoader(
         train_ds, bucket, cfg.data.batch_size, branch_levels, shuffle=True,
-        seed=cfg.training.seed, conv0_kernel=spec.stem_kernel,
+        seed=cfg.training.seed, conv0_kernel=spec.stem_kernel, graph=graph,
     )
     val_loader = BatchLoader(
         val_ds, bucket, cfg.data.batch_size, branch_levels, shuffle=False,
-        conv0_kernel=spec.stem_kernel,
+        conv0_kernel=spec.stem_kernel, graph=graph,
     )
     tcfg = TrainerConfig(
         epochs=cfg.training.epochs,
@@ -391,6 +395,7 @@ def _train(cfg, device):
         weight_decay=cfg.training.weight_decay,
         grad_clip=cfg.training.grad_clip,
         grad_accumulate=cfg.training.grad_accumulate,
+        lr_keywords=recipe_lr_keywords(cfg.model.name, cfg.model.overrides),
         freeze_paths=freeze_paths,
         run_dir=cfg.training.run_dir,
         num_batches_cap=cfg.training.num_batches_cap
@@ -401,6 +406,10 @@ def _train(cfg, device):
         wandb=cfg.training.wandb,
         wandb_project=cfg.training.wandb_project,
     )
+    if cfg.training.lr_schedule == "one_cycle":
+        # the cycle spans the run: epochs x the batches of an epoch
+        tcfg.total_steps = cfg.training.epochs * -(
+            -len(train_ds) // cfg.data.batch_size)
     # pin the resolved stem kernel into the stored run config so restoring
     # this checkpoint can never rebuild a different stem shape
     cfg.model.overrides.setdefault("stem_kernel", spec.stem_kernel)

@@ -115,6 +115,14 @@ _NAMED = {
     ),
 }
 
+# Point Transformer V3 (Wu et al., CVPR 2024): Pointcept's S3DIS
+# semseg-pt-v3m1-0-base, 3D-only over the "ptv3" collate route; the
+# backbone names a preset of nn/ptv3.py (PTv3Test: the narrow test net)
+# the recipe's parameter groups ride with the entry: the parameters whose
+# names hold "block" train at a tenth of the learning rate
+_NAMED["PTv3-m1-base"] = dict(family="ptv3", backbone="PTv3-m1-base",
+                              stem_kernel=5, lr_keywords={"block": 0.1})
+
 _POOLS = {"max": ("max", 1), "mean": ("mean", 1), "heuristic": ("heuristic", 1),
           "qkv": ("qkv", 1)}
 
@@ -309,6 +317,15 @@ def _ref_spec(name: str, num_classes: int, in_channels: int,
         spec = _dc.replace(
             spec, **{k: v for k, v in overrides.items() if k in known})
     return spec
+
+
+def recipe_lr_keywords(name: str, overrides: Optional[dict] = None):
+    """The LR multipliers by parameter-name keyword that a zoo entry's
+    recipe sets (``lr_keywords``; an override of that key wins), or
+    None."""
+    entry = dict(MODEL_ZOO.get(name) or {})
+    entry.update(overrides or {})
+    return entry.get("lr_keywords")
 
 
 def resolve_spec_from_cfg(model_cfg, num_classes: int) -> ModelSpec:

@@ -182,9 +182,13 @@ def collate(
     bucket: Bucket,
     branch_levels: Sequence[int] = (),
     conv0_kernel: int = 3,
+    graph: str = "unet",
 ) -> Dict:
     """Build the batch dict (everything numpy; :func:`batch_to_torch`
-    moves it to the device)."""
+    moves it to the device).  ``graph``: the batch's point structure, the
+    UNet's voxel levels and strided convolution maps (``"unet"``) or Point
+    Transformer V3's pyramid of serialized pooling clusters (``"ptv3"``,
+    3D-only)."""
     assert len(samples) <= bucket.num_batches
     coords, feats, labels, batch_idx = [], [], [], []
     for b, s in enumerate(samples):
@@ -203,6 +207,9 @@ def collate(
     if n_total > cap0:
         raise ValueError(f"{n_total} voxels exceed bucket cap {cap0}")
 
+    if graph == "ptv3":
+        return _collate_ptv3(samples, bucket, coords, feats, labels,
+                             conv0_kernel)
     with trace.span("collate.graph"):
         graph = sg.build_unet_graph(
             coords,
@@ -248,6 +255,42 @@ def collate(
         "num_samples": len(samples),
         "sizes": [len(s.coords) for s in samples],
         # voting support (SaveOriginalPosId semantics, SURVEY.md §A.9)
+        "clouds": [s.cloud for s in samples],
+        "origin_ids": [s.origin_id for s in samples],
+    }
+    return batch
+
+
+def _collate_ptv3(samples, bucket, coords, feats, labels,
+                  stem_kernel: int) -> Dict:
+    """A Point Transformer V3 batch: no images; each sample's cells
+    shifted to non-negative grid coordinates (its own minimum at 0), the
+    point pyramid of :func:`..ops.sparse_graph.build_ptv3_graph` with a
+    ``stem_kernel``-wide stem map."""
+    if bucket.image_cap or any(s.images is not None for s in samples):
+        raise ValueError("the PTv3 route takes 3D-only samples")
+    start = np.cumsum([0] + [len(s.coords) for s in samples])
+    grid = coords.copy()
+    for b in range(len(samples)):
+        part = grid[start[b]:start[b + 1], 1:]
+        part -= part.min(axis=0)
+    cap0 = bucket.level_caps[0]
+    with trace.span("collate.graph"):
+        graph = sg.build_ptv3_graph(grid, len(bucket.level_caps),
+                                    bucket.num_batches,
+                                    list(bucket.level_caps), stem_kernel)
+    batch = {
+        "feats": pad_to(feats, cap0),
+        "labels": pad_to(labels, cap0, fill=-1),
+        "graph": graph,
+    }
+    if all(s.pos is not None for s in samples):
+        pos = np.concatenate([np.asarray(s.pos, np.float32) for s in samples])
+        batch["pos"] = pad_to(pos, cap0, fill=1e6)
+    batch["meta"] = {
+        "num_valid": len(coords),
+        "num_samples": len(samples),
+        "sizes": [len(s.coords) for s in samples],
         "clouds": [s.cloud for s in samples],
         "origin_ids": [s.origin_id for s in samples],
     }

@@ -38,7 +38,8 @@ def build_synthetic_cache(
     device="cuda",
 ) -> list:
     """Preprocess + cache synthetic areas (on ``device``); returns the .npz
-    paths.  An area whose file exists is not rebuilt."""
+    paths.  An area whose file exists is not rebuilt.  With no cameras
+    the cache holds the 3D cloud alone (no mapping, no images)."""
     os.makedirs(root, exist_ok=True)
     paths = []
     for a in range(n_areas):
@@ -55,18 +56,19 @@ def build_synthetic_cache(
         )
         geo = pca_features(g["pos"], k=min(30, len(g["pos"]) - 1),
                            device=device)
-        mapping = build_mappings(
-            g["pos"], scene.cameras,
-            VisibilityParams(voxel=voxel_size, max_splat=5),
-            geometric=geo, nn_idx=geo["nn_idx"], device=device,
-        )
-        imgs = synthetic.render_views(scene, mapping)
         payload = {
             "pos": g["pos"], "rgb": g["feats"], "labels": g["labels"],
             "normal": geo["normal"].cpu().numpy(),
             "origin_id": np.arange(len(g["pos"]), dtype=np.int64),
-            "mapping": mapping, "images": imgs,
         }
+        if n_cameras:
+            mapping = build_mappings(
+                g["pos"], scene.cameras,
+                VisibilityParams(voxel=voxel_size, max_splat=5),
+                geometric=geo, nn_idx=geo["nn_idx"], device=device,
+            )
+            payload["mapping"] = mapping
+            payload["images"] = synthetic.render_views(scene, mapping)
         if keep_raw:
             payload["raw_pos"] = scene.pos
             payload["raw_labels"] = scene.labels
@@ -79,11 +81,15 @@ def make_synthetic_dataset(
     voxel_size: float = 0.08, image_slots: int = 2,
     samples_per_epoch: int = 16, augment=None,
     mapping_params: Optional[dict] = None, aug_params: Optional[dict] = None,
-    device="cuda", **cache_kw,
+    device="cuda", point_max: int = 0, point_feats: str = "rgb1",
+    cache_voxel_size: Optional[float] = None, **cache_kw,
 ) -> SphereDataset:
     """``mapping_params`` / ``aug_params``: reference data-YAML
     transform-chain parameters, as in the JAX package (``data.ref`` ingest
-    itself is not ported).  The cache is built on ``device``."""
+    itself is not ported).  ``point_max`` / ``point_feats``: the
+    :class:`SphereDataset` crop by count and feature set (Point
+    Transformer V3's); ``cache_voxel_size``: the cache's grid (default
+    the cache's own).  The cache is built on ``device``."""
     from .base import build_augment, dataset_aug_kwargs
 
     mp = dict(mapping_params or {})
@@ -93,6 +99,8 @@ def make_synthetic_dataset(
     cache_kw.update(mp)
     cache_kw.pop("fold", None)
     cache_kw.pop("frame_step", None)
+    if cache_voxel_size is not None:
+        cache_kw["voxel_size"] = cache_voxel_size
     paths = build_synthetic_cache(root, n_areas=n_areas, device=device,
                                   **cache_kw)
     return SphereDataset(
@@ -103,5 +111,6 @@ def make_synthetic_dataset(
             build_augment(aug_params, None) if train else None),
         image_slots=image_slots,
         samples_per_epoch=samples_per_epoch,
+        point_max=int(point_max), point_feats=point_feats,
         **dataset_aug_kwargs(aug_params, train),
     )

@@ -198,6 +198,21 @@ def sphere_select(cloud: dict, center, radius: float) -> dict:
     return select_rows(cloud, np.nonzero(d < radius)[0])
 
 
+def sphere_crop_count(cloud: dict, point_max: int, rng, center=None) -> dict:
+    """The ``point_max`` points nearest ``center`` (by default a point
+    drawn uniformly from the cloud), nearest first; a cloud of at most
+    ``point_max`` points is returned whole (Pointcept's ``SphereCrop(
+    point_max, mode="random")``).  The port's own name, not in the JAX
+    module's list."""
+    pos = cloud["pos"]
+    if len(pos) <= point_max:
+        return cloud
+    if center is None:
+        center = pos[int(rng.integers(len(pos)))]
+    d = np.sum(np.square(pos - np.asarray(center, pos.dtype)[None]), axis=1)
+    return select_rows(cloud, np.argsort(d, kind="stable")[:point_max])
+
+
 def cylinder_select(cloud: dict, center, radius: float) -> dict:
     d = np.linalg.norm(
         cloud["pos"][:, :2] - np.asarray(center)[None, :2], axis=1

@@ -541,10 +541,17 @@ def _family_branch_name(k: int) -> str:
 
 def build_model(spec: ModelSpec, device="cuda",
                 seed: Optional[int] = 0) -> nn.Module:
-    """The model of a spec (JAX ``build_model``): ``SparseConv3dSeg``
+    """The model of a spec (JAX ``build_model``): a PTv3 for the family
+    ``ptv3`` (the port's own, :mod:`..nn.ptv3`), ``SparseConv3dSeg``
     without branches, else by family ``No3DSeg`` (``no3d``),
     ``LateFusionSeg`` (``late_feature`` / ``late_logit``) or
     ``MultimodalSeg``."""
+    if spec.family == "ptv3":
+        from ..nn.ptv3 import PTV3_PRESETS, PointTransformerV3Seg
+
+        return PointTransformerV3Seg(PTV3_PRESETS[spec.backbone],
+                                     spec.in_channels, spec.num_classes,
+                                     device=device, seed=seed)
     if not spec.branches:
         return SparseConv3dSeg(spec, device=device, seed=seed)
     if spec.family == "no3d":

@@ -26,6 +26,7 @@ __all__ = [
     "SparseGraphArrays",
     "build_unet_graph",
     "graph_to_device",
+    "build_ptv3_graph",
 ]
 
 
@@ -168,6 +169,84 @@ def graph_to_device(graph: SparseGraphArrays) -> dict:
             d["parent"] = lvl.parent
         levels.append(d)
     return {"levels": levels, "conv0_nbr": graph.conv0_map.nbr}
+
+
+def build_ptv3_graph(
+    coords: np.ndarray,
+    num_levels: int,
+    num_batches: int,
+    capacities: Sequence[int],
+    stem_kernel: int = 5,
+    sub_kernel: int = 3,
+) -> dict:
+    """The point pyramid of a Point Transformer V3 batch, from level-0 grid
+    cells ``int32 [N, 4]`` (sample, x, y, z; non-negative, rows sorted by
+    sample): the plain-array pytree its model consumes.
+
+    Level ``l + 1`` holds the distinct parent cells ``g >> 1`` of level
+    ``l`` (the serialized pooling's clusters, coordinates kept in level-0
+    units), from the native voxel hash.  Per level: ``valid``,
+    ``batch_idx`` (padding rows: ``num_batches``) and the submanifold map
+    ``sub_nbr [sub_kernel^3, cap]`` (the xCPE's, shared by every block of
+    the level); below the last level the clusters: ``pool_perm [cap]`` (the
+    level's rows sorted by cluster, stable, padding rows last),
+    ``pool_ptr int32 [cap_next + 2]`` (their CSR; the last segment holds
+    the padding rows and is dropped), ``pool_head [cap_next]`` (each
+    cluster's first row, 0 for padding clusters) and ``parent [cap]`` (each
+    row's cluster, 0 for padding rows).  Besides: ``conv0_nbr`` (the stem's
+    ``stem_kernel^3`` map at level 0), ``grid int32 [cap0, 3]`` (the level-0
+    cells, 0 on padding rows), ``depth`` (the bit length of the largest
+    coordinate) and ``counts`` (per level, the points of each sample),
+    host integers.
+    """
+    cur = np.asarray(coords, np.int32)
+    if len(cur) and cur[:, 1:].min() < 0:
+        raise ValueError("PTv3 grid coordinates must be non-negative")
+    levels, counts = [], []
+    stride = 1
+    conv0 = None
+    for lvl in range(num_levels):
+        n, cap = len(cur), int(capacities[lvl])
+        if n > cap:
+            raise ValueError(f"level {lvl}: {n} points exceed capacity "
+                             f"{cap}; increase bucket or subsample")
+        padded, valid = _pad_coords(cur, cap, num_batches)
+        if lvl == 0:
+            conv0 = _build_padded_map(cur, cur, stem_kernel, 1, cap, cap)
+            grid = np.zeros((cap, 3), np.int32)
+            grid[:n] = cur[:, 1:]
+        d = {
+            "valid": valid,
+            "batch_idx": np.where(valid, padded[:, 0],
+                                  num_batches).astype(np.int32),
+            "sub_nbr": _build_padded_map(cur, cur, sub_kernel, stride, cap,
+                                         cap).nbr,
+        }
+        counts.append(np.bincount(cur[:, 0], minlength=num_batches)
+                      .astype(int).tolist())
+        if lvl < num_levels - 1:
+            nxt, parent = _voxel.downsample_coords(cur, stride * 2)
+            cap_next = int(capacities[lvl + 1])
+            if len(nxt) > cap_next:
+                raise ValueError(
+                    f"level {lvl + 1}: {len(nxt)} points exceed capacity "
+                    f"{cap_next}; increase bucket or subsample")
+            perm = np.argsort(parent, kind="stable").astype(np.int32)
+            d["pool_perm"] = np.concatenate(
+                [perm, np.arange(n, cap, dtype=np.int32)])
+            ptr = np.searchsorted(parent[perm], np.arange(cap_next + 1))
+            d["pool_ptr"] = np.concatenate([ptr, [cap]]).astype(np.int32)
+            head = np.zeros(cap_next, np.int32)
+            head[:len(nxt)] = perm[ptr[:len(nxt)]]
+            d["pool_head"] = head
+            d["parent"] = pad_parent = np.zeros(cap, np.int32)
+            pad_parent[:n] = parent
+            cur = nxt
+            stride *= 2
+        levels.append(d)
+    depth = int(grid[:len(coords)].max(initial=0)).bit_length() or 1
+    return {"levels": levels, "conv0_nbr": conv0.nbr, "grid": grid,
+            "depth": depth, "counts": counts}
 
 
 def _build_padded_map(in_c, out_c, ks, stride, cap_in, cap_out):

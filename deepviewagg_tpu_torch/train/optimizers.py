@@ -16,7 +16,15 @@ optax chains of the JAX package, not ``torch.optim``'s habits:
     adamw's decay is decoupled and scaled by the learning rate;
   * with ``lr_scales`` / ``freeze_paths`` each label group runs its own
     chain, so the clip norm is taken per group, and frozen subtrees get no
-    update at all, not even weight decay;
+    update at all, not even weight decay; ``lr_keywords`` labels a
+    parameter by the first keyword its name contains (Pointcept's
+    ``param_dicts``), before ``lr_scales``;
+  * ``one_cycle``: ``torch.optim.lr_scheduler.OneCycleLR`` (cosine, two
+    phases) as Pointcept sets it: from ``base_lr / 10`` up to ``base_lr``
+    over the first 5% of ``total_steps``, then down to ``base_lr / 1e4``;
+    with :func:`one_cycle_beta1` as ``beta1_schedule``
+    Adam's ``b1`` cycles the other way, 0.95 -> 0.85 -> 0.95, and its bias
+    correction takes the step's ``b1``, as ``torch.optim.Adam`` does;
   * ``grad_accumulate=k`` is ``optax.MultiSteps(chain, k)``: the gradients
     are a running mean ``acc + (g - acc) / (n + 1)`` over ``k`` mini-steps,
     parameters and optimizer state do not move on the first ``k - 1``, and
@@ -32,7 +40,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["make_schedule", "make_optimizer", "Optimizer", "global_norm"]
+__all__ = ["make_schedule", "make_optimizer", "Optimizer", "global_norm",
+           "one_cycle_beta1"]
 
 
 def make_schedule(
@@ -45,8 +54,12 @@ def make_schedule(
     warmup_steps: int = 0,
 ) -> Callable[[int], float]:
     """The reference's scheduler family (lr_schedulers.py): multi_step /
-    poly / cosine / exponential / constant, with optional linear warmup.
-    Returns ``step -> lr``."""
+    poly / cosine / exponential / constant, with optional linear warmup,
+    and Pointcept's ``one_cycle`` (module docstring).  Returns ``step ->
+    lr``."""
+    if kind == "one_cycle":
+        lo = base_lr / _DIV
+        return _one_cycle(total_steps, (lo, base_lr, lo / _FINAL_DIV))
     if kind == "multi_step":
         marks = sorted(int(m) for m in milestones)
 
@@ -89,6 +102,42 @@ def make_schedule(
     return warmed
 
 
+# Pointcept's OneCycleLR settings: the first phase's share of the steps,
+# the start's and the end's divisors of the peak, and beta1's range
+_PCT_START, _DIV, _FINAL_DIV = 0.05, 10.0, 1000.0
+_BETA1 = (0.85, 0.95)
+
+
+def _one_cycle(total_steps: int, values):
+    """``OneCycleLR``'s two cosine phases through ``(start, peak, end)``:
+    the first ends at step ``_PCT_START * total_steps - 1``, the second at
+    ``total_steps - 1`` (later steps stay at ``end``)."""
+    if not total_steps > 0:
+        raise ValueError(f"one_cycle needs total_steps > 0, got "
+                         f"{total_steps}")
+    start, peak, end = values
+    mid = float(_PCT_START * total_steps) - 1
+    last = total_steps - 1
+
+    def anneal(a, b, pct):
+        return b + (a - b) / 2.0 * (math.cos(math.pi * pct) + 1)
+
+    def sched(step):
+        step = min(step, last)
+        if step <= mid:
+            return anneal(start, peak, step / mid if mid > 0 else 1.0)
+        return anneal(peak, end, (step - mid) / (last - mid))
+
+    return sched
+
+
+def one_cycle_beta1(total_steps: int):
+    """``OneCycleLR``'s cycling of Adam's ``b1``: 0.95 -> 0.85 over the
+    first phase, back to 0.95 over the second."""
+    base, top = _BETA1
+    return _one_cycle(total_steps, (top, base, top))
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum of squares)`` over all tensors, a 0-d float32 tensor."""
     if not tensors:
@@ -120,7 +169,8 @@ class Optimizer:
     momentum or Adam moments per group, the counts and the accumulator."""
 
     def __init__(self, schedule, optimizer, momentum, weight_decay, grad_clip,
-                 lr_scales, freeze_paths, grad_accumulate: int = 1):
+                 lr_scales, freeze_paths, grad_accumulate: int = 1,
+                 lr_keywords=None, beta1_schedule=None):
         if optimizer not in ("sgd", "adam", "adamw"):
             raise ValueError(optimizer)
         if int(grad_accumulate) < 1:
@@ -135,20 +185,30 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.lr_scales = dict(lr_scales or {})
+        self.lr_keywords = dict(lr_keywords or {})
+        self.beta1_schedule = beta1_schedule
         self.freeze_paths = [tuple(p) for p in (freeze_paths or [])]
         self.groups: List[_Group] = []
 
     def init(self, named_params) -> "Optimizer":
         """Group ``(name, parameter)`` pairs by label: frozen prefixes get no
-        group, ``lr_scales`` keys match the first name component."""
+        group, a name containing an ``lr_keywords`` key takes its scale,
+        else ``lr_scales`` keys match the first name component."""
         by_label: Dict[str, List[nn.Parameter]] = {}
+        scales = dict(self.lr_scales)
         for name, p in named_params:
             path = tuple(name.split("."))
             if any(path[:len(fp)] == fp for fp in self.freeze_paths):
                 continue
-            label = path[0] if path[0] in self.lr_scales else "__default__"
+            word = next((w for w in self.lr_keywords if w in name), None)
+            if word is not None:
+                label = "keyword:" + word
+                scales[label] = self.lr_keywords[word]
+            else:
+                label = path[0] if path[0] in self.lr_scales \
+                    else "__default__"
             by_label.setdefault(label, []).append(p)
-        self.groups = [_Group(ps, self.lr_scales.get(label, 1.0))
+        self.groups = [_Group(ps, scales.get(label, 1.0))
                        for label, ps in by_label.items()]
         return self
 
@@ -229,6 +289,8 @@ class Optimizer:
             torch._foreach_add_(params, grads, alpha=-lr)
             return
         b1, b2, eps = 0.9, 0.999, 1e-8
+        if self.beta1_schedule is not None:
+            b1 = self.beta1_schedule(step)
         mu, nu = group.zeros("mu"), group.zeros("nu")
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1 - b1)
@@ -260,6 +322,8 @@ def make_optimizer(
     lr_scales: Optional[Dict[str, float]] = None,
     freeze_paths: Optional[Sequence[Sequence[str]]] = None,
     grad_accumulate: int = 1,
+    lr_keywords: Optional[Dict[str, float]] = None,
+    beta1_schedule: Optional[Callable[[int], float]] = None,
 ) -> Optimizer:
     """An unbound :class:`Optimizer`; ``TrainState.create`` binds it to the
     model's parameters, keyed by their names (the flax paths the modules
@@ -275,6 +339,11 @@ def make_optimizer(
     gradients (ref 'frozen' tower option, modalities/image.py:737).
 
     ``grad_accumulate``: mini-steps per real update (``optax.MultiSteps``).
+
+    ``lr_keywords``: LR multipliers for the parameters whose names contain
+    a keyword (Pointcept's ``param_dicts``, e.g. ``{"block": 0.1}``);
+    ``beta1_schedule``: ``step -> b1`` for Adam (:func:`one_cycle_beta1`).
     """
     return Optimizer(schedule, optimizer, momentum, weight_decay, grad_clip,
-                     lr_scales, freeze_paths, grad_accumulate)
+                     lr_scales, freeze_paths, grad_accumulate, lr_keywords,
+                     beta1_schedule)

@@ -31,7 +31,7 @@ from ..parallel import mesh as pmesh
 from ..parallel.multihost import is_primary
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager
-from .optimizers import make_optimizer, make_schedule
+from .optimizers import make_optimizer, make_schedule, one_cycle_beta1
 from .step import TrainState, make_eval_step, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer"]
@@ -54,6 +54,9 @@ class TrainerConfig:
     grad_clip: Optional[float] = 10.0
     grad_accumulate: int = 1
     lr_scales: Optional[Dict[str, float]] = None
+    # LR multipliers by keyword in the parameter's name (Pointcept's
+    # param_dicts, e.g. {"block": 0.1})
+    lr_keywords: Optional[Dict[str, float]] = None
     # parameter-name prefixes left out of the optimizer (frozen towers)
     freeze_paths: Optional[tuple] = None
     run_dir: Optional[str] = None
@@ -130,10 +133,14 @@ class Trainer:
             cfg.lr_schedule, cfg.base_lr, cfg.total_steps,
             cfg.lr_milestones, cfg.lr_gamma,
         )
+        # the one-cycle schedule cycles Adam's b1 too (OneCycleLR)
+        beta1 = (one_cycle_beta1(cfg.total_steps)
+                 if cfg.lr_schedule == "one_cycle" else None)
         tx = make_optimizer(
             schedule, cfg.optimizer, cfg.momentum, cfg.weight_decay,
             cfg.grad_clip, cfg.lr_scales, freeze_paths=cfg.freeze_paths,
             grad_accumulate=cfg.grad_accumulate,
+            lr_keywords=cfg.lr_keywords, beta1_schedule=beta1,
         )
         self.state = TrainState.create(model, tx)
         group = (None if self.mesh is None else
