@@ -323,6 +323,12 @@ exit) on any fault:
                   against plain and timed
               13d ``RandomWalkDropout`` then ``DensityFilter`` on a sphere of
                   9e's voxels, card against CPU: equal clouds
+  14. lovasz   the Lovász-softmax at the PTv3 cell's level 0 (1,228,800
+              rows, 13 classes): the scan kernel alone from a replayed CUDA
+              graph against its byte bound, the plain formula's scan and
+              ``torch.cumsum`` over the flattened foreground; its weights
+              bit for bit; the loss's forward and forward + backward and
+              their peak memory, kernel against plain formula
   5. trace    only with ``--trace``: device time by kernel family and the
               device's idle share over three forwards and three train steps
               of the benchmark request and of the recipe request
@@ -6548,6 +6554,91 @@ def phase_native(loop: dict, tmp: Path) -> dict:
     return out["13c"]
 
 
+# phase 14: the Lovász loss at the PTv3 cell's level 0 (12 crops of 102,400
+# points, 13 classes); bound: the scan kernel's bytes (err and fg read once,
+# w written once: 9 bytes a class and row) at 3.35 TB/s
+LOVASZ_ROWS, LOVASZ_CLASSES = 1_228_800, 13
+
+
+def phase_lovasz() -> dict:
+    """14: the Lovász-softmax at the PTv3 cell's shape.  The scan kernel
+    alone (``lovasz_scan_into``, from a replayed CUDA graph) against its
+    byte bound, the plain formula's scan and products (``_lovasz_grad`` over
+    ``[N, C]`` on dim 0, the path the card took before the kernel) and
+    ``torch.cumsum`` over the flattened ``[C N]`` foreground (a library
+    yardstick that the port never calls); the kernel's weights bit for bit
+    against the plain formula's; then the whole loss, forward and forward +
+    backward, through ``lovasz_softmax`` (class-major, the kernel) and
+    through the plain formula on the card, with the peak memory of each."""
+    from deepviewagg_tpu_torch.models import losses
+    from deepviewagg_tpu_torch.ops import lovasz as lv
+
+    n, c = LOVASZ_ROWS, LOVASZ_CLASSES
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((n, c), generator=gen, device="cuda") * 2.0
+    labels = torch.randint(-1, c, (n,), generator=gen, device="cuda")
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.05
+    # the class-major inputs as lovasz_softmax_class_major builds them
+    mask = (labels != -1) & valid
+    fg_t = ((labels[None, :] == torch.arange(c, device="cuda")[:, None])
+            & mask[None, :]).to(torch.uint8)
+    err_t = torch.where(mask[None, :],
+                        torch.abs(fg_t - torch.softmax(logits, -1).t()),
+                        0.0).contiguous()
+    err_s, order = torch.sort(err_t, dim=1, descending=True, stable=True)
+    fg_s = torch.gather(fg_t, 1, order)
+    w = torch.empty_like(err_s)
+    loss = torch.empty(c, dtype=torch.float32, device="cuda")
+    counts, partial = lv.lovasz_scratch(c, n, "cuda")
+    launches = lv.LAUNCHES["lovasz"]
+    ms, ms_twice = kernel_ms(lambda: lv.lovasz_scan_into(
+        err_s, fg_s, w, loss, counts, partial))
+    graphed = lv.LAUNCHES["lovasz"] - launches
+    err_nc, fg_nc = err_s.t().contiguous(), fg_s.t().contiguous().float()
+    ref_w = losses._lovasz_grad(fg_nc)
+    ref_loss = torch.sum(err_nc * ref_w, dim=0)
+    torch.cuda.synchronize()
+    assert torch.equal(w, ref_w.t().contiguous()), "lovasz weights differ"
+    loss_err = rel_err(loss, ref_loss)
+    assert loss_err <= 1e-6, loss_err
+    plain_ms = time_ms(lambda: torch.sum(
+        err_nc * losses._lovasz_grad(fg_nc), dim=0), iters=5)
+    flat = fg_s.reshape(-1).float()
+    scanned = torch.empty_like(flat)
+    library_ms = graph_ms(lambda: torch.cumsum(flat, 0, out=scanned))
+    bound_ms = 9.0 * c * n / 3.35e12 * 1e3
+    del err_nc, fg_nc, ref_w, flat, scanned, err_t, fg_t, order
+
+    def forward(fn):
+        with torch.no_grad():
+            fn(logits, labels, valid)
+
+    def both(fn):
+        x = logits.detach().requires_grad_()
+        fn(x, labels, valid).backward()
+
+    out = {"ms": ms, "ms_twice_launches": ms_twice, "bound_ms": bound_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "loss_rel_err": loss_err, "graphed_launches": graphed}
+    for label, fn in (("kernel", losses.lovasz_softmax),
+                      ("plain", losses._lovasz_softmax_plain)):
+        forward(fn)
+        both(fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        both(fn)
+        torch.cuda.synchronize()
+        out[f"{label}_peak_mib"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2**20
+        out[f"{label}_fwd_ms"] = time_ms(lambda: forward(fn), iters=5)
+        out[f"{label}_fwd_bwd_ms"] = time_ms(lambda: both(fn), iters=5)
+    log("14 lovasz", rows=n, classes=c, **{
+        k: (f"{v:.4f}" if isinstance(v, float) else v)
+        for k, v in out.items()})
+    return out
+
+
 def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the trace summary."""
     low = name.lower()
@@ -6687,6 +6778,7 @@ def main() -> None:
     t0 = time.perf_counter()
     backbones = phase_backbones()
     log("12 backbones", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
+    lovasz = phase_lovasz()
 
     def entry(name, source, replaces, totals, paths, **counts):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
@@ -6862,6 +6954,11 @@ def main() -> None:
               **{k: v["segment_csr_bwd"] for k, v in task_launches.items()},
               **{k: v["segment_csr_bwd"] for k, v in bb_launches.items()},
               launches_loop_demo=demo["launches"]["segment_csr_bwd"]),
+        {"name": "lovasz", "route": "cuda",
+         "source": "deepviewagg_tpu_torch/csrc/lovasz.cu",
+         "replaces": None, "bound_by": "bytes", "checked": True,
+         **{k: lovasz[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "loss_rel_err")}},
     ]
     log("done", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

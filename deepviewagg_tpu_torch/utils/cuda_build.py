@@ -37,6 +37,10 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         "segment_csr_bwd_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                                 _I),
     },
+    "lovasz": {
+        "lovasz_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _P), _I),
+        "lovasz_tile_rows": ((), _I),
+    },
 }
 HOST: Dict[str, Dict[str, tuple]] = {
     "kernelmap": {

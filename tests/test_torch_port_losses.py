@@ -83,6 +83,21 @@ def test_lovasz_softmax_matches_jax_with_an_absent_class(with_valid):
         logits)
 
 
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_lovasz_softmax_class_major_matches_jax(with_valid):
+    """The card's class-major layout (sorted ``[C, N]`` rows, the scan's
+    plain version on the CPU) against the JAX package on the same case."""
+    logits, labels, valid, _ = _case(seed=1)
+    v = valid if with_valid else None
+    _check(
+        lambda a: jl.lovasz_softmax(a, jnp.asarray(labels),
+                                    None if v is None else jnp.asarray(v)),
+        lambda a: tl.lovasz_softmax_class_major(
+            a, torch.from_numpy(labels),
+            None if v is None else torch.from_numpy(v)),
+        logits)
+
+
 def test_lovasz_grad_matches_jax():
     fg = (np.random.default_rng(2).random(50) > 0.6).astype(np.float32)
     ref = np.asarray(jl._lovasz_grad(jnp.asarray(fg)))
