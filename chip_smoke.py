@@ -1,30 +1,30 @@
-"""Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
+"""End-to-end checks of the PyTorch port on one CUDA card:
+``python3 chip_smoke.py``.
 
 Drives ``deepviewagg_tpu_torch`` end to end on the card and fails (non-zero
-exit) on any fault:
+exit) on any fault.  It checks; it does not time: the port's speed is
+measured by ``benchmark/`` (``python3 -m benchmark.run``) in the cells of
+``BENCHMARK.json``.  The hand-written kernels' own checks on the card are
+pytest tests with the marker ``card`` (``CARD_TESTS``), which phase 2 runs
+and which also run alone (``pytest --noconftest -m card <files>``).  Phases:
 
   0. card     name and power limit; TF32 off for matmuls and convolutions
   1. build    compile every hand-written kernel (one nvcc per source, in
               parallel) from the checkout's ``csrc/``, and the native host
-              builders (``native/kernelmap.cpp``, g++) beside them
-  2. kernels  replay every sorted-segment call of one flagship forward
-              (six, no two of them the same reduction) through the CUDA
-              kernel and through its plain PyTorch version on the same inputs
-              (max exact, sum within 1e-5 relative, the same bits on two
-              runs), plus empty, masked and all-masked segments and the
-              tile-edge cases of ``segment_edge_cases``; time the kernel
-              alone on the device (``kernel_ms``: launches into preallocated
-              tensors, captured in a CUDA graph of N and of 2N launches, so
-              the host is not the limit), the call through the wrapper
-              (``call_ms``), the plain version, ``torch.segment_reduce`` and
-              the byte bound (``x`` counted at its live rows only: a masked
-              row need not be read); ``--tune`` also sweeps the kernel's
-              tile size
+              builders (``native/*.cpp``, g++) beside them
+  2. kernels  the ``card`` tests of ``CARD_TESTS``, by pytest in this
+              process: each hand-written kernel against its plain version
+              (the segment kernels on the flagship's 6 + 5 calls, empty,
+              masked and all-masked segments, forced ties and the tile
+              edges; the Lovasz scan's weights bit for bit and its
+              products within 1e-6 at the PTv3 cell's [13, 1,228,800],
+              the loss's gradient against the row-major formula); every
+              selected test passes and none skips
   3. serving  the flagship model (Res16UNet34 + ResNet18-PPM branch, random
               weights from a seed) answers three requests of the benchmark's
               shape (4 samples, density 260, 12 images of 256 x 128), each
-              preprocessed on the card; the kernel launch counts are zeroed
-              just before and read just after
+              preprocessed on the card: logits finite, 6 forward launches of
+              the segment kernel each and no backward launch
   4. card vs CPU  one smaller request through the same weights on the card
               and on the CPU (plain versions): logits within 3e-2 relative,
               argmax agreement >= 99%
@@ -36,27 +36,15 @@ exit) on any fault:
               winner map agreeing on >= 99.9% of the points / seen pixels;
               one Biasutti mask (the panorama, X-wrapped, every 50th point)
               and one depth-map mask (the pinhole against the card's
-              z-buffer depths) to the same share; ms on both
-  2b. backward kernels  replay every sorted-segment backward of one
-              flagship train step (cotangents, inputs and saved results
-              recorded from a real backward pass) through the CUDA backward
-              kernel and its plain version: bit-equal for sum and max; plus
-              empty, masked and all-masked segments with forced ties (every
-              max-attaining row gets the full cotangent); time the kernel
-              alone (``kernel_ms``, as in phase 2), the call through the
-              wrapper (``call_ms``), the plain version, the library form
-              (``index_select`` + ``where`` on precomputed ids) and the byte
-              bound (``x`` at its live rows, ``g`` and the result at the
-              segments that hold one)
+              z-buffer depths) to the same share
   6. training the flagship model in training mode takes ten optimizer steps
               (SGD + momentum 0.9, LR 0.1, weight decay 1e-4, clip 10) on
-              the benchmark request, two of them warm-up; the launch counts
-              are zeroed just before and read just after; loss and gradient
-              norm stay finite, the loss falls, every parameter and every
-              running mean moves; then the trained model serves one request
-              in eval mode, and a model with ``remat_tower=False`` takes six
-              steps from the same weights (step ms and peak memory without
-              the default ``'convs'`` remat, same first loss)
+              the benchmark request, each through 6 + 5 launches; loss and
+              gradient norm stay finite, the loss falls, every parameter and
+              every running mean moves; then the trained model serves one
+              request in eval mode, and a model with ``remat_tower=False``
+              takes six steps from the same weights (the same first loss
+              within 2e-3)
   7. card vs CPU, one train step  from identical weights on the smaller
               request: loss within 1e-2 relative, gradient norm within 3e-2;
               then the same check on the step's other paths: 7a head
@@ -74,7 +62,8 @@ exit) on any fault:
               7g (float32 everywhere) holds the loss within 1e-4, the
               gradient norm within 2e-3 and the whole update within 5e-2,
               and runs the CPU once more on half its threads (the same
-              step's spread on one device)
+              step's spread on one device); 7h logs the tower alone, card
+              against CPU, by layout and remat mode
   8. recipe request  the crop-ladder batch at the S3DIS recipe's 2D size
               (``recipe_batch()``: 2 samples, 4 panoramas of 1024 x 512 in
               the ladder's largest bucket, about 934k pixel rows; three
@@ -84,30 +73,23 @@ exit) on any fault:
                   recipe forward / train step (one atomic pool per bucket,
                   three of them with every row masked and every segment
                   empty, then the view pool's) held against its plain
-                  version and timed as in phases 2 / 2b
-              8b  the pixel gather at the largest bucket's shape, timed in
-                  its parts: the upsample einsums, the row gather and its
-                  backward as ``index_select`` (atomics, what the port uses)
-                  and as ``flat[idx]`` (``index_put_`` with accumulate, a
-                  sort), and the four-tap form
-              8c  serving: four forwards in eval mode (one warm-up);
-                  preprocess ms, forward ms, voxels/s, peak memory; launch
-                  counts zeroed before and read after
-              8d  training: eight optimizer steps with ``remat_tower='convs'``
-                  (two warm-up), the loss must fall and every parameter and
-                  running mean move; then five steps each with ``False`` and
-                  ``True`` from the same weights: step ms, peak memory, and
-                  the loss of the second step equal across the three modes
-                  within 2e-3
+                  version (max exact, sum within 1e-5, backward bit-equal)
+              8b  the largest bucket's shape takes the pixel gather's
+                  upsample route
+              8c  serving: four forwards in eval mode, the launch counts
+                  zeroed before and read after
+              8d  training: eight optimizer steps with ``remat_tower='convs'``,
+                  the loss must fall and every parameter and running mean
+                  move; then five steps each with ``False`` and ``True``
+                  from the same weights: the first two losses equal across
+                  the three modes within 2e-3
               8e  card vs CPU on the check request as a ladder batch (ladder
                   (64, 32), (128, 64)): logits and one train step to the
                   bounds of phases 4 and 7
   9. loop     the experiment loop, through ``deepviewagg_tpu_torch.cli.
               train.main`` in this process (data and run dirs under a
               temporary directory, deleted afterwards); every train step
-              closed by a synchronisation and checked (finite loss, 6 + 5
-              segment launches), the consumer's wait on the train loader
-              timed:
+              checked (finite loss, 6 + 5 segment launches):
               9a  ``conf/synthetic.yaml`` (the Quick start: Res16UNet14-L1
                   group-4 branch, 128 x 64 images, batch 2) for two epochs
                   with an eval each: ``metrics.jsonl`` holds two records
@@ -126,24 +108,18 @@ exit) on any fault:
                   augmentations (centre roll, flip 0.5, mapping jitter 0.02,
                   colour jitter (0.6, 0.6, 0.7): each must be called, on
                   raw cached images) and the raw clouds kept in the cache;
-                  prints cache build ms, bucket probe ms and capacities,
-                  step ms, loader wait ms and valid voxels per batch,
-                  eval-epoch ms, peak memory and launches per step; then
-                  every sorted-segment forward and backward call of the
+                  then every sorted-segment forward and backward call of the
                   first train batch (the atomic pool and the view pool at
-                  512 channels) held against its plain version and timed as
-                  in phases 2 / 2b
+                  512 channels) held against its plain version
               9c  ``cli.eval.main`` on 9b's run (``--weight best_val_miou
                   --voting_runs 2 --full_res``): 6 forward and no backward
                   launches per eval batch; finite votes; test, vote and
                   full-resolution mIoU; one prediction per raw point; the
                   model has no dropout, so the second voting run's logits
-                  equal the first's bit for bit and the votes double; eval
-                  ms per batch and per voting run, remap ms and sizes, peak
-                  memory, the eval bucket's capacities; then every
-                  sorted-segment call of one forward of the first eval batch
-                  (eval buckets, images by coverage, centre roll) held
-                  against its plain version and timed as in phase 2
+                  equal the first's bit for bit and the votes double; then
+                  every sorted-segment call of one forward of the first eval
+                  batch (eval buckets, images by coverage, centre roll) held
+                  against its plain version
               9c' MC dropout at the library level: 9a's run, its model
                   built from ``dataclasses.replace(spec, head_dropout=0.5)``
                   (the zoo drops that override, as the JAX package's does)
@@ -156,22 +132,20 @@ exit) on any fault:
               9d  ``cli.predict.main`` with a 3D-only Res16UNet34 trained by
                   ``cli.train`` on 9b's rooms at 5 cm (one epoch of 8
                   spheres), on one of those rooms' raw cloud (about 66k
-                  points) as ``.npz`` and as ``.ply``: equal
-                  labels, one per voxel; forward ms, voxels/s, peak memory,
-                  segment launches (none: no image branch)
+                  points) as ``.npz`` and as ``.ply``: equal labels, one per
+                  voxel
               9e  the S3DIS loader from a 2D-3D-S raw layout written here
                   (Area_1 with two rooms, Area_5 with one, three panoramas
                   of 2048 x 1024 a room): ``cli.train`` with
                   ``conf/s3dis_benchmark.yaml`` for one epoch and an eval
-                  (the preprocess timed in its parts; exact mappings, no
-                  pixel on the static band; the four augmentations called;
-                  the first train batch's segment calls held against their
-                  plain versions and timed), one exact z-buffer card vs CPU
-                  (>= 99.9% of the seen pixels), then ``cli.eval
-                  --voting_runs 2 --full_res``: 6 + 0 launches a batch,
-                  votes doubled, one prediction per raw point of Area_5,
-                  the eval bucket's caps, and the first eval batch's
-                  segment calls held against their plain versions and timed
+                  (exact mappings, no pixel on the static band; the four
+                  augmentations called; the first train batch's segment
+                  calls held against their plain versions), one exact
+                  z-buffer card vs CPU (>= 99.9% of the seen pixels), then
+                  ``cli.eval --voting_runs 2 --full_res``: 6 + 0 launches a
+                  batch, votes doubled, one prediction per raw point of
+                  Area_5, and the first eval batch's segment calls held
+                  against their plain versions
               9f  the ScanNet loader from a ScanNet v2 layout written here
                   (``SCANNET_SCANS``: three train scans and one val scan,
                   rooms of 5 x 4 x 2.6 m with about 10^5 vertices and NYU40
@@ -179,16 +153,12 @@ exit) on any fault:
                   written by the port's ``write_jpeg``): ``cli.train`` with
                   ``conf/scannet_benchmark.yaml`` (the recipe's model at its
                   published widths, batch 4, 6 slots of 320 x 240) for one
-                  epoch of 24 spheres, the preprocess timed in its parts
-                  (PLY, voxel grid, PCA/kNN, mapping with its z-buffers,
-                  JPEG decode + resize, non-static mask, cache write), 6 + 5
-                  launches a step, the first train batch's segment calls
-                  held against their plain versions and timed (with the
-                  widest call's padding-row share); then ``cli.eval
-                  --voting_runs 2 --submission``: 6 + 0 launches a batch,
-                  votes doubled, one ``<scan>.txt`` for the val scan with
-                  one benchmark NYU40 id per cached voxel, and the first
-                  eval batch's segment calls held and timed
+                  epoch of 24 spheres, 6 + 5 launches a step, the first
+                  train batch's segment calls held against their plain
+                  versions; then ``cli.eval --voting_runs 2 --submission``:
+                  6 + 0 launches a batch, votes doubled, one ``<scan>.txt``
+                  for the val scan with one benchmark NYU40 id per cached
+                  voxel, and the first eval batch's segment calls held
               9g  the KITTI-360 loader (``loop_kitti360``, see
                   ``KITTI360_LOOP``)
               9h  the paper's other model families on 9e's layout
@@ -203,41 +173,38 @@ exit) on any fault:
                   and two train steps of the late logit, two no3d, qkv,
                   heuristic, mean and min-max-diff models with their launch
                   counts asserted; every segment call of each model's first
-                  forward and backward held against its plain version and
-                  timed; per model: parameters, forward ms, step ms, peak
-                  memory, the kernels' device time, share of the byte bound
-                  and padding-row share, the unseen share of the batch
+                  forward and backward held against its plain version
               9i  pretrained BatchNorm towers and the bottleneck / SE nets
                   on 9e's layout (``loop_pretrained``, ``PRETRAINED_LOOP``,
                   ``SE_MODELS``): (a) ``cli.train`` of the S3DIS recipe with
                   ``model.tower_weights`` a random-weight MIT-semseg
                   deep-stem checkpoint written here (its loaded parameters
-                  printed and positive, 6 + 5 launches a step), the
-                  checkpoint's tower card vs CPU on the first batch's images
-                  (float32 within 1e-4, bf16 within 3e-2), every segment
-                  call of the first train batch against plain, the running
-                  statistics after one step equal across the three remat
-                  modes, ``cli.eval --voting_runs 2`` (6 + 0 a batch, votes
-                  doubled, the first eval batch's calls against plain), then
-                  the run with ``model.tower_frozen=true`` (6 + 4 a step,
-                  the tower bit-equal to the checkpoint after it); (b) the
-                  Cityscapes PointPyramid with a Cityscapes-layout
-                  checkpoint: five truncations loaded, a forward and a step
-                  on (a)'s first batch (30 + 25); (c) ``cli.train`` of
-                  ``SERes16UNet34`` (46 + 23 a step: 2 + 1 per
-                  squeeze-excitation block) and ``cli.predict`` on Area_5's
-                  room (one label per voxel), then a forward and two steps of
-                  ``Res16UNet50``, ``Res16UNet101``, ``SERes16UNet50`` and
+                  positive, 6 + 5 launches a step), the checkpoint's tower
+                  card vs CPU on the first batch's images (float32 within
+                  1e-4, bf16 within 3e-2), every segment call of the first
+                  train batch against plain, the running statistics after
+                  one step equal across the three remat modes, ``cli.eval
+                  --voting_runs 2`` (6 + 0 a batch, votes doubled, the first
+                  eval batch's calls against plain), then the run with
+                  ``model.tower_frozen=true`` (6 + 4 a step, the tower
+                  bit-equal to the checkpoint after it); (b) the Cityscapes
+                  PointPyramid with a Cityscapes-layout checkpoint: five
+                  truncations loaded, a forward and a step on (a)'s first
+                  batch (30 + 25); (c) ``cli.train`` of ``SERes16UNet34``
+                  (46 + 23 a step: 2 + 1 per squeeze-excitation block) and
+                  ``cli.predict`` on Area_5's room (one label per voxel),
+                  then a forward and two steps of ``Res16UNet50``,
+                  ``Res16UNet101``, ``SERes16UNet50`` and
                   ``Res16UNet50-L4-early`` at the presets' widths, every
                   segment call of each first forward and backward against
-                  plain and timed against ``torch.segment_reduce``
+                  plain
               9j  the reference-config path on 9e's layout
                   (``loop_reference``, ``REF_ENTRIES``): ``cli.preprocess``
                   in two shards, each cache byte-equal (else array-equal) to
-                  9e's in-line one, ms per area; a conf tree in the
-                  upstream's YAML DSL written here, the flagship entry equal
-                  to its zoo spec but ``drop_hard``; ``cli.train`` (4 steps,
-                  an eval) and ``cli.eval --voting_runs 2`` through
+                  9e's in-line one; a conf tree in the upstream's YAML DSL
+                  written here, the flagship entry equal to its zoo spec but
+                  ``drop_hard``; ``cli.train`` (4 steps, an eval) and
+                  ``cli.eval --voting_runs 2`` through
                   ``model.name=ref:sparseconv3d/<entry>`` and
                   ``data.ref=s3disfused-sparse`` of (a) a shared trunk (15 +
                   10 launches a step), (b) tower reuse (18 + 15) and (c) the
@@ -245,7 +212,7 @@ exit) on any fault:
                   per bucket + 2, no backward), every segment call of each
                   first forward and backward against plain; (a) card vs CPU
                   at phases 4 / 7's bounds and in float32 at 7g's; then
-                  ``cli.scale_rehearsal`` at its defaults
+                  ``cli.scale_rehearsal`` at its defaults (one grid kNN)
   10. parallel  data and view parallelism (``deepviewagg_tpu_torch/
               parallel/``), the flagship at full width:
               10a NCCL in this process at world 1 (``torch.cuda.
@@ -254,10 +221,8 @@ exit) on any fault:
                   on the bench request against the plain step from the
                   same weights (the loss equal, the update within the
                   plain step's own run-to-run gap), 6 + 5 launches, every
-                  segment call of that step held against its plain version
-                  and timed; step ms of both; one all-reduce of the 202 MB
-                  of gradients and the step's bucketed mean; the
-                  collectives' NCCL paths; then ``cli.train`` with
+                  segment call of that step held against its plain version;
+                  the collectives' NCCL paths; then ``cli.train`` with
                   ``training.data_parallel=true`` on 9e's layout (4 steps
                   and an eval), resumed for one step, the restore bit-equal
               10b two gloo ranks in spawned processes, the model on the
@@ -278,10 +243,9 @@ exit) on any fault:
                   ``Res16UNetTest``): every step finite and through its
                   launches (classification 3 + 2: the global mean pool's
                   sum and count and the max pool forward, the sum and the
-                  max backward; the others none), the losses, step ms
-                  (median of the steps after the first) and peak memory
+                  max backward; the others none)
               11b every segment call of one classification step held
-                  against its plain version and timed as in phases 2 / 2b
+                  against its plain version
               11c the first step of each task on the card and on the CPU
                   from the same weights and batch: with bf16 conv operands
                   the loss within 1e-2 and the gradient norm within 3e-2
@@ -295,71 +259,32 @@ exit) on any fault:
               12a each model (PointNet segmentation and classification and
                   PVCNN on 8 collated samples of 4096 points, the others on
                   one-sample graphs of 16,384 points) takes one eval-mode
-                  forward and 2 + 4 Adam steps; losses finite, the segment
+                  forward and six Adam steps; losses finite, the segment
                   launches of the forward and of every step asserted
-                  (PointNet 3 + 3 a step, PVCNN 6 + 2, the others none),
-                  step ms (median after the first), peak memory
+                  (PointNet 3 + 3 a step, PVCNN 6 + 2, the others none)
               12b every segment call of one train step of PointNet (both
-                  heads) and PVCNN held against its plain version and
-                  timed as in phases 2 / 2b
+                  heads) and PVCNN held against its plain version
               12c the first step of each model on the card and on the CPU
                   from the same weights and batch: models with bf16
                   operands (KPConv, PointCNN, PVCNN) within phase 7's
                   bounds, the float32 ones within 7g's
   13. native  the native host builders, the viewer's demo and the kNN
-              transforms (see NATIVE_TIMED):
+              transforms:
               13a the UNet graph of 9b's first train batch (every level and
                   kernel map) by the native builders and by their numpy
-                  versions, byte-equal, host ms of each (median of 5); the
-                  same for ``unique_coords`` / ``query_coords`` on 9e's
-                  Area_1 raw cloud
+                  versions, byte-equal; the same for ``unique_coords`` /
+                  ``query_coords`` on 9e's Area_1 raw cloud
               13b the scale rehearsal's cloud: the host's grid kNN against
-                  the card's brute force at the JAX package's bounds, ms of
-                  both, then ``pca_features`` through the host path (9j's
-                  rehearsal takes it too and logs its grid kNN ms)
+                  the card's brute force at the JAX package's bounds, then
+                  ``pca_features`` through the host path (one grid kNN)
               13c ``cli.demo_synthetic`` on the card: the PLY and the HTML,
                   the viewer's data and panels, 6 + 5 launches a step and 6
                   an eval forward, every segment call of its first batch
-                  against plain and timed
+                  against plain
               13d ``RandomWalkDropout`` then ``DensityFilter`` on a sphere of
                   9e's voxels, card against CPU: equal clouds
-  14. lovasz   the Lovász-softmax at the PTv3 cell's level 0 (1,228,800
-              rows, 13 classes): the scan kernel alone from a replayed CUDA
-              graph against its byte bound, the plain formula's scan and
-              ``torch.cumsum`` over the flattened foreground; its weights
-              bit for bit; the loss's forward and forward + backward and
-              their peak memory, kernel against plain formula
-  5. trace    only with ``--trace``: device time by kernel family and the
-              device's idle share over three forwards and three train steps
-              of the benchmark request and of the recipe request
-              (``torch.profiler``)
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line ``{"kernels": [...]}`` before it holds each kernel's launches, error
-and times (``ms``: device time of the kernel alone, summed over the calls of
-one forward or one train step; ``call_ms``: the same calls through the
-wrapper; ``recipe``: the same for the recipe request; ``loop_recipe``: the
-same for phase 9b's first train batch; ``loop_eval`` (forward only): the
-same for phase 9c's first eval batch; ``loop_s3dis`` and
-``loop_s3dis_eval``: for 9e's first train and eval batches;
-``loop_scannet`` and ``loop_scannet_eval``: for 9f's, and the same for
-9g's and, as ``loop_families_<model>``, for 9h's first batch through each
-model (each path with ``pad_share``, the padding-row share of its widest
-call), ``loop_pretrained`` / ``loop_pretrained_eval`` for 9i's first train
-and eval batches and ``families_se_<model>`` for each 9i model that launches
-a kernel, ``loop_reference_<model>`` for 9j's first train batch through each
-``ref:`` model;
-``launches_loop_*``: the counts over phase 9's runs, 9c's eval and 9d's
-predictions; ``parallel_dp``: the sums over the calls of 10a's
-data-parallel step, ``launches_parallel_dp`` its counts,
-``launches_loop_parallel`` the counts over 10a's ``cli.train`` run;
-``loop_tasks``: the sums over the calls of 11b's classification step,
-``launches_loop_tasks_<task>`` the counts over each 11a run;
-``loop_backbones_<model>``: the sums over the calls of 12b's step of each
-model that launches a kernel, ``launches_loop_backbones_<model>`` the
-counts over each 12a run; ``loop_demo``: the sums over the calls of one
-forward / train step of 13c's batch, ``launches_loop_demo`` the counts over
-the demo's run).
+The last line of standard output is ``{"ok": true, "device": {...}}``.
 Needs a CUDA card, ``nvcc``, ``g++`` and the repository checkout.
 """
 
@@ -380,7 +305,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+REPO = Path(__file__).resolve().parent
+sys.path[:0] = [str(REPO), str(REPO / "tests")]
 
 from deepviewagg_tpu_torch.data.collate import batch_to_torch  # noqa: E402
 from deepviewagg_tpu_torch.data.toy import (  # noqa: E402
@@ -397,25 +323,20 @@ from deepviewagg_tpu_torch.train.optimizers import (  # noqa: E402
 from deepviewagg_tpu_torch.train.step import (  # noqa: E402
     TrainState, make_train_step)
 from deepviewagg_tpu_torch.utils import cuda_build  # noqa: E402
+from torch_port_util import (  # noqa: E402
+    BACKWARD_LAUNCHES, FORWARD_LAUNCHES, SERVE_REQUEST, check_bwd_call,
+    check_call, record_backward_calls, record_segment_calls, rel_err)
 
-# the benchmark request (bench.py's forward batch) and the graft-entry one
-SERVE_REQUEST = dict(n_samples=4, density=260.0, image_size=(256, 128),
-                     n_cameras=3)
+# the hand-written kernels' card tests (phase 2)
+CARD_TESTS = ("tests/test_torch_port_segment_card.py",
+              "tests/test_torch_port_lovasz.py")
+# the graft-entry request (the benchmark one is SERVE_REQUEST)
 CHECK_REQUEST = dict(n_samples=2, density=120.0, image_size=(128, 64),
                      n_cameras=2)
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-SUM_RTOL = 1e-5                    # kernel vs plain: only summation order
 LOGITS_RTOL = 3e-2                 # card vs CPU: bf16 tower convs differ
 ARGMAX_AGREE = 0.99
-TRAIN_STEPS, TRAIN_WARMUP = 10, 2
-NO_REMAT_STEPS = 4                 # timed steps with remat_tower=False
-# sorted-segment launches of the flagship: atomic max, set-encoder max, one
-# count, one compatibility max, softmax sum, weighted sum; the count has no
-# gradient
-FORWARD_LAUNCHES, BACKWARD_LAUNCHES = 6, 5
-GRAPH_LAUNCHES = 20                # launches per captured graph (and twice)
-EDGE_WIDTHS = (1, 3, 4, 5, 32, 64, 128, 130)
-TUNE_TILES = (32, 64, 128, 256, 512, 1024, 2048)
+TRAIN_STEPS = 10
+NO_REMAT_STEPS = 6                 # steps with remat_tower=False
 # card vs CPU train step: bf16 tower convs and the order of the pixel
 # gather's scatter-add differ
 TRAIN_LOSS_RTOL = 1e-2
@@ -448,9 +369,9 @@ MOVED_SHARE = 0.99
 # CPU (loss 7.5e-4, logits 2.3e-3)
 RECIPE_IMAGE_SIZE = (1024, 512)
 LADDER_CHECK_REQUEST = dict(min_size=32, **CHECK_REQUEST)
-RECIPE_FORWARDS = 4                # one of them warm-up
-RECIPE_STEPS, RECIPE_WARMUP = 8, 2
-RECIPE_SHORT_STEPS = 5             # remat False and True, two of them warm-up
+RECIPE_FORWARDS = 4
+RECIPE_STEPS = 8
+RECIPE_SHORT_STEPS = 5             # remat False and True
 # per ladder batch: one atomic pool per bucket that holds an image, then the
 # view pool's five reductions (four of them differentiated)
 VIEW_POOL_FORWARD, VIEW_POOL_BACKWARD = 5, 4
@@ -462,11 +383,8 @@ REMAT_LOSS_RTOL = 2e-3             # second step's loss, across remat modes
 # of 6 x 4 x 2.6 m at 600 points
 # per m^2, six 1024 x 512 panoramas each, so that a 2 m sphere at 5 cm holds
 # about as many voxels as the cache's 6 cm grid gives
-CONF = Path(__file__).resolve().parent / "conf"
+CONF = REPO / "conf"
 QUICK_EPOCHS = 2
-# timed calls per segment call in 9b-9f (20 until phase 12 needed the time;
-# 9g-9j take 5 as well)
-LOOP_TIME_ITERS = 5
 # 9b takes the recipe's published augmentations (s3dis.py:272-275: centre
 # roll at train and eval, flip, mapping jitter, colour jitter at train) and
 # keeps the raw clouds for 9c's full-resolution remap
@@ -475,8 +393,12 @@ RECIPE_LOOP = ("data.dataset=synthetic", "data.samples_per_epoch=48",
                "data.kwargs={n_areas: 2, density: 600.0, n_cameras: 6, "
                "keep_raw: true, aug_params: {center_roll: true, flip_p: 0.5, "
                "jitter_mapping: 0.02, color_jitter: [0.6, 0.6, 0.7]}}")
+# (the colour jitter's seams are its draw and its application: the dataset
+# applies the draws in the native pass or in the numpy chain, and
+# ``JITTER_APPLIED`` counts both)
 AUGMENTS = ("center_roll", "random_horizontal_flip", "jitter_mapping_features",
-            "color_jitter")
+            "draw_color_jitter")
+JITTER_APPLIED = "color_jitter_applied"
 # phase 9c-9d: eval with two voting runs and the full-resolution remap on
 # 9b's run; MC dropout with three voting runs on 9a's, one room of it; the
 # card vs CPU eval on 9a's run, one room; predict with a 3D-only
@@ -506,8 +428,6 @@ S3DIS_CLASS_NAMES = ("floor", "ceiling", "wall", "table")  # synthetic labels
 S3DIS_LOOP = ("data.samples_per_epoch=24", "training.epochs=1",
               "training.eval_frequency=1",
               "data.kwargs={fold: 5, keep_raw: true}")
-S3DIS_PARTS = ("txt", "voxel", "pca_knn", "mapping", "zbuffer", "png",
-               "mask", "cache_write")
 ZBUFFER_AGREE = 0.999                  # card vs CPU, of the seen pixels
 # phase 4c: the four camera models over one synthetic room of about 10^6
 # points (9,000 points per m^2); pixel coordinates card vs CPU within 1e-2
@@ -540,8 +460,6 @@ SCANNET_FRAMES, SCANNET_FRAME_STEP = 12, 20
 SCANNET_NYU40 = (2, 22, 1, 5)          # synthetic labels -> NYU40 ids
 SCANNET_LOOP = ("training.epochs=1",
                 "data.kwargs={samples_per_epoch: 24, max_images: 8}")
-SCANNET_PARTS = ("ply", "voxel", "pca_knn", "mapping", "zbuffer", "jpeg",
-                 "mask", "cache_write")
 SCANNET_IMAGE_SIZE = (320, 240)        # the preprocess's default
 # phase 9g: the KITTI-360 loader end to end, from a release layout written
 # here with the port's write_ply and write_png (the card's machine has
@@ -577,15 +495,12 @@ KITTI360_BODY_ROWS = 120               # the fisheyes' static band
 KITTI360_IDS = {"road": 7, "sidewalk": 8, "building": 11, "pole": 17,
                 "vegetation": 21, "car": 26, "unlabelled": 0}
 KITTI360_LOOP = ("training.epochs=1", "data.samples_per_epoch=24")
-KITTI360_PARTS = ("ply", "voxel", "pca_knn", "mapping", "zbuffer", "png",
-                  "mask", "cache_write")
 # five branches (the PointPyramid's towers), each with one atomic pool per
 # camera-family bucket and the view pool's reductions
 KITTI360_BRANCHES, KITTI360_BUCKETS = 5, 2
 KITTI360_FORWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS + VIEW_POOL_FORWARD)
 KITTI360_BACKWARD = KITTI360_BRANCHES * (KITTI360_BUCKETS
                                          + VIEW_POOL_BACKWARD)
-KITTI360_TIME_ITERS = 5                # timed calls per segment call
 # phase 9h: the paper's other model families on 9e's S3DIS layout (written
 # anew when 9h runs alone), conf/s3dis_benchmark.yaml as written but for
 # data.root, the model and one epoch of FAMILY_SPHERES spheres: (a) the light
@@ -613,7 +528,6 @@ FAMILY_MODELS = (  # (label, zoo name, set encoder, forward, backward)
     ("group4_minmaxdiff", "Res16UNet34-L4-early-group4-interpolate",
      "minmaxdiff", 7, 4),
 )
-FAMILY_TIME_ITERS = 5                  # timed calls per segment call
 # phase 9i: pretrained BatchNorm towers and the bottleneck / SE Res16UNets on
 # 9e's S3DIS layout (written anew when 9i runs alone): (a) the recipe
 # (conf/s3dis_benchmark.yaml: the deep-stem 512-d L4 tower) with
@@ -655,61 +569,6 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(launch, n: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
-    """Device time of one ``launch()`` in ms: ``n`` launches captured in a
-    CUDA graph, the graph replayed between two CUDA events, so that no host
-    work lies between the kernels.  ``launch`` must not allocate."""
-    launch()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            launch()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * n)
-
-
-def kernel_ms(launch, tries: int = 3) -> tuple:
-    """``(ms, ms at twice the launches)`` of one kernel launch on the device;
-    raises when the two differ by more than half and 2 us (the host, not the
-    device, would then be what is timed) in each of ``tries`` measurements:
-    a single one can be off by a clock change on the card."""
-    for _ in range(tries):
-        once, twice = graph_ms(launch), graph_ms(launch, 2 * GRAPH_LAUNCHES)
-        if abs(once - twice) <= max(0.5 * min(once, twice), 2e-3):
-            return once, twice
-    raise AssertionError(f"kernel time depends on the number of launches: "
-                         f"{once} vs {twice} ms")
-
-
-def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-
-
 def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """``|a - b| / |b|`` in the 2-norm."""
     a, b = a.double(), b.double()
@@ -721,12 +580,9 @@ def valid_voxels(batch) -> int:
 
 
 def make_request(seed: int, device: str, **shape):
-    """A collated numpy request (preprocessed on ``device``) and its ms."""
-    t0 = time.perf_counter()
+    """A collated numpy request, preprocessed on ``device``."""
     batch, _, _ = toy_batch(seed=seed, device=device, **shape)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    return batch, (time.perf_counter() - t0) * 1e3
+    return batch
 
 
 def phase_card() -> dict:
@@ -749,236 +605,51 @@ def phase_card() -> dict:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
     cuda_build.build()
     for name in (*cuda_build.KERNELS, *cuda_build.HOST):
         cuda_build.load(name)
     log("1 build", kernels=",".join(cuda_build.KERNELS),
-        host=",".join(cuda_build.HOST),
-        seconds=f"{time.perf_counter() - t0:.2f}")
+        host=",".join(cuda_build.HOST))
 
 
-def record_segment_calls(model, batch) -> list:
-    """Every ``segment_csr`` call (cloned inputs) of one forward."""
-    calls, inner = [], seg.segment_csr
+class _Outcomes:
+    """A pytest plugin that counts the tests' outcomes."""
 
-    def recorder(x, ptr, valid, reduce):
-        calls.append((x.clone(), ptr.clone(),
-                      None if valid is None else valid.clone(), reduce))
-        return inner(x, ptr, valid, reduce)
+    def __init__(self):
+        self.passed, self.skipped, self.failed = [], [], []
 
-    seg.segment_csr = recorder
-    try:
-        with torch.no_grad():
-            model(batch)
-    finally:
-        seg.segment_csr = inner
-    torch.cuda.synchronize()
-    return calls
+    def pytest_runtest_logreport(self, report):
+        if report.outcome != "passed":
+            getattr(self, report.outcome).append(report.nodeid)
+        elif report.when == "call":
+            self.passed.append(report.nodeid)
 
 
-def check_call(x, ptr, valid, reduce) -> dict:
-    """Kernel vs plain on one input; raises when they disagree."""
-    got = seg.segment_csr(x, ptr, valid, reduce)
-    torch.cuda.synchronize()
-    if not torch.equal(got, seg.segment_csr(x, ptr, valid, reduce)):
-        raise AssertionError("segment_csr: two runs gave different bits")
-    ref = seg.segment_csr_plain(x, ptr, valid, reduce)
-    if got.shape != ref.shape:
-        raise AssertionError(f"segment_csr shape {tuple(got.shape)}")
-    err = float((got - ref).abs().max()) if got.numel() else 0.0
-    if reduce == "max":
-        if not torch.equal(got, ref):
-            raise AssertionError(f"segment_csr max differs: {err}")
-    elif got.numel() and rel_err(got, ref) > SUM_RTOL:
-        raise AssertionError(f"segment_csr sum differs: {rel_err(got, ref)}")
-    return {"max_abs_err": err}
+def phase_kernels() -> None:
+    """The ``card`` tests of ``CARD_TESTS`` in this process: pytest's exit
+    code 0, at least one test run, none skipped."""
+    import pytest
+
+    outcomes = _Outcomes()
+    rc = pytest.main(["-q", "--noconftest", "-p", "no:cacheprovider",
+                      "-c", str(REPO / "pytest.ini"), "--rootdir", str(REPO),
+                      "-m", "card", *(str(REPO / f) for f in CARD_TESTS)],
+                     plugins=[outcomes])
+    if rc != 0 or outcomes.failed or outcomes.skipped or not outcomes.passed:
+        raise AssertionError(f"card tests: exit code {rc}, failed "
+                             f"{outcomes.failed}, skipped {outcomes.skipped}")
+    log("2 kernels", files=",".join(CARD_TESTS), passed=len(outcomes.passed))
 
 
-def edge_case() -> None:
-    """Empty, masked and all-masked segments, narrow and odd widths."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    e, s = 5000, 900
-    ids = torch.sort(torch.randint(0, s // 2, (e,), generator=g,
-                                   device="cuda"))[0]
-    valid = (torch.rand(e, generator=g, device="cuda") > 0.3) & (ids % 5 != 1)
-    ptr = seg.segment_ptr(ids.to(torch.int32), s)
-    for c in (1, 3, 4, 64):
-        x = torch.randn(e, c, generator=g, device="cuda")
-        for reduce in ("sum", "max"):
-            for v in (None, valid):
-                check_call(x, ptr, v, reduce)
-                out = seg.segment_csr(x, ptr, v, reduce)
-                counts = ptr[1:] - ptr[:-1]
-                if v is not None:
-                    counts = seg.segment_csr_plain(
-                        v[:, None].float(), ptr, None, "sum")[:, 0]
-                if out[counts == 0].abs().sum() != 0:
-                    raise AssertionError("empty or all-masked segment not 0")
-    log("2 kernels", case="empty+masked+all-masked", widths="1,3,4,64",
-        ok=True)
-    # the edges of the tiling, at each width's own tile size
-    names = []
-    for c in EDGE_WIDTHS:
-        tile = seg.kernel_tile_rows(c)
-        for name, x, ptr, v in seg.segment_edge_cases(tile, c):
-            x, ptr = x.cuda(), ptr.cuda()
-            v = None if v is None else v.cuda()
-            for reduce in ("sum", "max"):
-                try:
-                    check_call(x, ptr, v, reduce)
-                except AssertionError as exc:
-                    raise AssertionError(
-                        f"edge case {name}, width {c}, tile {tile}: {exc}")
-            names.append(name)
-    log("2 kernels", case="tile edges: " + "+".join(dict.fromkeys(names)),
-        widths=",".join(map(str, EDGE_WIDTHS)), ok=True)
-
-
-def live_rows(ptr, valid, num_rows: int) -> int:
-    """Rows a segment reduction has to read: inside ``[ptr[0], ptr[-1])``
-    and valid.  The byte bounds count ``x`` at these rows only."""
-    lo, hi = int(ptr[0]), int(ptr[-1])
-    if valid is None:
-        return hi - lo
-    return int(valid[lo:hi].sum())
-
-
-def live_segments(ptr, valid, num_rows: int) -> int:
-    """Segments that hold a live row: the only rows of ``g`` (and of the
-    forward's result) that a backward has to read."""
-    keep = (torch.ones(num_rows, device=ptr.device) if valid is None
-            else valid.float())
-    return int((seg.segment_csr_plain(keep[:, None], ptr, None, "sum")
-                > 0).sum())
-
-
-def forward_buffers(x, ptr, tile):
-    """Preallocated ``(out, scratch)`` of one forward launch."""
-    e, c = x.shape
-    return (torch.empty((ptr.numel() - 1, c), device="cuda"),
-            seg.segment_csr_scratch(e, c, tile, "cuda"))
-
-
-def check_distinct(calls) -> None:
-    """No two recorded calls are the same reduction of the same rows."""
-    for i, a in enumerate(calls):
-        for j in range(i):
-            b = calls[j]
-            same = a[3] == b[3] and all(
-                (u is None) == (v is None) and (u is None or (
-                    u.shape == v.shape and torch.equal(u, v)))
-                for u, v in zip(a[:3], b[:3]))
-            if same:
-                raise AssertionError(f"calls {j} and {i} are one reduction")
-
-
-def tune_tiles(calls) -> None:
-    """Device time of every recorded call at every tile size, each first
-    held against the plain version; then the two kernels' shares of a call
-    at the default tile size, by the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+def check_forward_calls(calls, phase: str, count_key: str) -> None:
+    """Hold every recorded forward call against its plain version (max
+    exact, sum within ``SUM_RTOL``, the same bits on two runs)."""
     for i, (x, ptr, valid, reduce) in enumerate(calls):
-        e, c = x.shape
-        ref = seg.segment_csr_plain(x, ptr, valid, reduce)
-        times = {}
-        for tile in TUNE_TILES:
-            out, scratch = forward_buffers(x, ptr, tile)
-
-            def launch():
-                seg.segment_csr_into(x, ptr, valid, out, scratch, reduce,
-                                     tile)
-
-            launch()
-            if reduce == "max" and not torch.equal(out, ref):
-                raise AssertionError(f"tile {tile}: max")
-            if reduce == "sum" and rel_err(out, ref) > SUM_RTOL:
-                raise AssertionError(f"tile {tile}: sum")
-            times[tile] = graph_ms(launch)
-        log("2 kernels tune", call=i, reduce=reduce, rows=e, channels=c,
-            default_tile=seg.kernel_tile_rows(c),
-            **{f"tile{t}_ms": f"{ms:.4f}" for t, ms in times.items()})
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x, ptr, valid, reduce in calls:
-            for _ in range(10):
-                seg.segment_csr(x, ptr, valid, reduce)
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if "segment_csr" in ev.key:
-            log("2 kernels tune", kernel=ev.key[:100].replace(" ", ""),
-                launches=ev.count,
-                mean_us=f"{ev.self_device_time_total / ev.count:.2f}")
-
-
-def phase_kernels(model, batch, tune: bool = False) -> dict:
-    calls = record_segment_calls(model, batch)
-    if len(calls) != FORWARD_LAUNCHES:
-        raise AssertionError(f"{len(calls)} segment calls in one forward")
-    check_distinct(calls)
-    edge_case()
-    if tune:
-        tune_tiles(calls)
-    return measure_forward_calls(calls, "2 kernels", "calls_per_forward")
-
-
-def measure_forward_calls(calls, phase: str, count_key: str,
-                          iters: int = 20) -> dict:
-    """Hold every recorded forward call against its plain version and time
-    it: the kernel alone, the call through the wrapper, the plain version,
-    the library call (``iters`` calls each); returns the sums over the
-    calls."""
-    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                  bound_ms=0.0, max_abs_err=0.0)
-    for i, (x, ptr, valid, reduce) in enumerate(calls):
-        res = check_call(x, ptr, valid, reduce)
-        e, c = x.shape
-        s = ptr.numel() - 1
-        # read the live rows of x, valid and ptr once; write out once
-        live = live_rows(ptr, valid, e)
-        nbytes = (live * c * 4 + (e if valid is not None else 0)
-                  + 4 * (s + 1) + s * c * 4)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        tile = seg.kernel_tile_rows(c)
-        out, scratch = forward_buffers(x, ptr, tile)
-        kms, kms2 = kernel_ms(lambda: seg.segment_csr_into(
-            x, ptr, valid, out, scratch, reduce, tile))
-        cms = time_ms(lambda: seg.segment_csr(x, ptr, valid, reduce), iters)
-        pms = time_ms(lambda: seg.segment_csr_plain(x, ptr, valid, reduce),
-                      iters)
-        # the library call on pre-masked rows (timing only; never used)
-        fill = 0.0 if reduce == "sum" else float("-inf")
-        xm = x if valid is None else torch.where(valid[:, None], x, fill)
-        lms = time_ms(lambda: torch.segment_reduce(
-            xm, reduce, offsets=ptr, axis=0, unsafe=True), iters)
-        log(phase, call=i, reduce=reduce, rows=e, channels=c,
-            segments=s, masked=valid is not None,
-            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
-            empty_segments=int((ptr[1:] == ptr[:-1]).sum()), tile=tile,
-            kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
-            call_ms=f"{cms:.4f}", plain_ms=f"{pms:.4f}",
-            library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
-            max_abs_err=res["max_abs_err"])
-        for key, ms in (("ms", kms), ("call_ms", cms), ("plain_ms", pms),
-                        ("library_ms", lms), ("bound_ms", bound)):
-            totals[key] += ms
-        totals["max_abs_err"] = max(totals["max_abs_err"], res["max_abs_err"])
-        note_padding(totals, e, live)
-    log(phase, kernel="segment_csr", checked=True,
-        **{count_key: len(calls)}, kernel_ms=f"{totals['ms']:.4f}",
-        call_ms=f"{totals['call_ms']:.4f}",
-        bound_ms=f"{totals['bound_ms']:.4f}",
-        widest_rows=totals["rows"], widest_pad_share=totals["pad_share"])
-    return totals
-
-
-def note_padding(totals: dict, rows: int, live: int) -> None:
-    """Keep the widest call's rows and its padding-row share (the rows the
-    kernel walks and the bound does not count: masked or past the last
-    segment)."""
-    if rows > totals.get("rows", 0):
-        totals["rows"] = rows
-        totals["pad_share"] = round(1.0 - live / rows, 4)
+        err = check_call(x, ptr, valid, reduce)
+        log(phase, call=i, reduce=reduce, rows=x.shape[0],
+            channels=x.shape[1], segments=ptr.numel() - 1,
+            masked=valid is not None, max_abs_err=err)
+    log(phase, kernel="segment_csr", checked=True, **{count_key: len(calls)})
 
 
 def zero_launches() -> None:
@@ -1012,20 +683,15 @@ def image_count(np_batch) -> int:
 
 
 def serve_one(model, np_batch, phase: str, expect: int = FORWARD_LAUNCHES,
-              batch=None, **fields) -> float:
+              batch=None, **fields) -> None:
     """One eval forward of a request on the card, checked: logits of the
     expected shape, finite on the valid voxels, through ``expect`` launches
-    of the forward kernel; returns the forward's ms."""
+    of the forward kernel."""
     if batch is None:
         batch = batch_to_torch(np_batch, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     before = seg.LAUNCHES["segment_csr"]
-    t0 = time.perf_counter()
     with torch.no_grad():
         out = model(batch)
-    torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) * 1e3
     n = valid_voxels(np_batch)
     logits = out["logits"][:n]
     if logits.shape != (n, model.spec.num_classes):
@@ -1037,207 +703,44 @@ def serve_one(model, np_batch, phase: str, expect: int = FORWARD_LAUNCHES,
         raise AssertionError(f"{launched} forward launches, expected "
                              f"{expect}")
     log(phase, **fields, voxels=n, images=image_count(np_batch),
-        forward_ms=f"{fwd_ms:.1f}", voxels_per_s=f"{n / fwd_ms * 1e3:.0f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches={"segment_csr": launched})
-    return fwd_ms
 
 
-def phase_serving(model, requests) -> dict:
+def phase_serving(model, requests) -> None:
     zero_launches()
-    for i, (np_batch, prep_ms) in enumerate(requests):
-        serve_one(model, np_batch, "3 serving", request=i,
-                  preprocess_ms=f"{prep_ms:.1f}")
+    for i, np_batch in enumerate(requests):
+        serve_one(model, np_batch, "3 serving", request=i)
     if seg.LAUNCHES["segment_csr_bwd"] != 0:
         raise AssertionError("serving launched the backward kernel")
-    return dict(seg.LAUNCHES)
 
 
-def record_backward_calls(model, batch) -> list:
-    """Every ``segment_csr_bwd`` call of one training-mode forward and
-    backward: ``(g, x, out, ptr, valid, reduce, num_rows)`` as the autograd
-    function hands them over (the cotangent cloned)."""
-    calls, inner = [], seg.segment_csr_bwd
-
-    def recorder(g, x, out, ptr, valid, reduce, num_rows=None):
-        calls.append((g.clone(), x, out, ptr, valid, reduce, num_rows))
-        return inner(g, x, out, ptr, valid, reduce, num_rows)
-
-    seg.segment_csr_bwd = recorder
-    try:
-        out = model(batch)
-        loss = segmentation_loss(out["logits"], batch["labels"],
-                                 batch["graph"]["levels"][0]["valid"])
-        loss.backward()
-    finally:
-        seg.segment_csr_bwd = inner
-    model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    return calls
-
-
-def check_bwd_call(g, x, out, ptr, valid, reduce, num_rows) -> float:
-    """Backward kernel vs plain on one input: bit-equal or it raises;
-    returns the largest absolute difference (0.0 when they are equal)."""
-    got = seg.segment_csr_bwd(g, x, out, ptr, valid, reduce, num_rows)
-    torch.cuda.synchronize()
-    ref = seg.segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
-    err = float((got - ref).abs().max()) if got.numel() else 0.0
-    if got.shape != ref.shape or not torch.equal(got, ref):
-        raise AssertionError(f"segment_csr_bwd {reduce} differs: {err}")
-    return err
-
-
-def bwd_edge_case() -> None:
-    """Empty, masked and all-masked segments, narrow and odd widths, with
-    forced ties: both tied rows get the full cotangent, rows of an
-    all-masked segment get none."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    e, s = 5000, 900
-    ids = torch.sort(torch.randint(0, s // 2, (e,), generator=gen,
-                                   device="cuda"))[0]
-    valid = (torch.rand(e, generator=gen, device="cuda") > 0.3) & (ids % 5 != 1)
-    ptr = seg.segment_ptr(ids.to(torch.int32), s)
-    for c in (1, 3, 4, 64):
-        x = torch.randn(e, c, generator=gen, device="cuda")
-        # tie: copy each row onto its successor where both share a segment
-        same = torch.zeros(e, dtype=torch.bool, device="cuda")
-        same[1::2] = ids[1::2] == ids[0:-1:2]
-        x[same] = x[torch.nonzero(same)[:, 0] - 1]
-        g = torch.randn(s, c, generator=gen, device="cuda")
-        for v in (None, valid):
-            for reduce in ("sum", "max"):
-                out = seg.segment_csr(x, ptr, v, reduce)
-                check_bwd_call(g, x, out, ptr, v, reduce, e)
-            out = seg.segment_csr(x, ptr, v, "max")
-            gx = seg.segment_csr_bwd(g, x, out, ptr, v, "max")
-            keep = torch.ones_like(valid) if v is None else v
-            hit = keep[:, None] & (x == out[ids])
-            if not torch.equal(gx[hit], g[ids][hit]):
-                raise AssertionError("a max-attaining row lacks the full "
-                                     "cotangent")
-            tied = same & keep & torch.roll(keep, 1)
-            both = tied[:, None] & hit
-            if not (both.any() and torch.equal(
-                    gx[both], torch.roll(gx, 1, 0)[both])):
-                raise AssertionError("tied rows did not both get the cotangent")
-            if v is not None:
-                dead = ~valid | (ids % 5 == 1)
-                if gx[dead].abs().sum() != 0:
-                    raise AssertionError("masked or all-masked rows got "
-                                         "gradient")
-    log("2b backward kernels", case="empty+masked+all-masked+ties",
-        widths="1,3,4,64", ok=True)
-    # the forward's tile-edge inputs (all-empty and interleaved-empty calls
-    # of a crop-ladder bucket among them), with a random cotangent
-    names = []
-    for c in (1, 4, 128):
-        for name, x, ptr, v in seg.segment_edge_cases(
-                seg.kernel_tile_rows(c), c):
-            x, ptr = x.cuda(), ptr.cuda()
-            v = None if v is None else v.cuda()
-            g = torch.randn(ptr.numel() - 1, c, generator=gen, device="cuda")
-            for reduce in ("sum", "max"):
-                out = seg.segment_csr(x, ptr, v, reduce)
-                try:
-                    check_bwd_call(g, x, out, ptr, v, reduce, x.shape[0])
-                except AssertionError as exc:
-                    raise AssertionError(f"edge case {name}, width {c}: {exc}")
-            names.append(name)
-    log("2b backward kernels",
-        case="tile edges: " + "+".join(dict.fromkeys(names)),
-        widths="1,4,128", ok=True)
-
-
-def phase_backward_kernels(model, batch) -> dict:
-    calls = record_backward_calls(model, batch)
-    if not calls:
-        raise AssertionError("the train step recorded no segment backward")
-    bwd_edge_case()
-    if len(calls) != BACKWARD_LAUNCHES:
-        raise AssertionError(f"{len(calls)} segment backwards in one step")
-    return measure_backward_calls(calls, "2b backward kernels")
-
-
-def measure_backward_calls(calls, phase: str, iters: int = 20) -> dict:
+def check_backward_calls(calls, phase: str) -> None:
     """Hold every recorded backward call against its plain version
-    (bit-equal) and time it as :func:`measure_forward_calls` does."""
-    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                  bound_ms=0.0, max_abs_err=0.0)
+    (bit-equal)."""
     for i, (g, x, out, ptr, valid, reduce, num_rows) in enumerate(calls):
         err = check_bwd_call(g, x, out, ptr, valid, reduce, num_rows)
-        s, c = g.shape
-        e = x.shape[0] if x is not None else num_rows
-        # read valid, ptr, g at the segments that hold a live row (and, for
-        # max, the result there and the live rows of x: a masked row's
-        # gradient is 0 whatever x holds) once; write gx once
-        live, live_s = live_rows(ptr, valid, e), live_segments(ptr, valid, e)
-        nbytes = (live_s * c * 4 + (e if valid is not None else 0)
-                  + 4 * (s + 1) + e * c * 4)
-        if reduce == "max":
-            nbytes += live * c * 4 + live_s * c * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        gx = torch.empty((e, c), device="cuda")
-        kms, kms2 = kernel_ms(lambda: seg.segment_csr_bwd_into(
-            g, x, out, ptr, valid, gx, reduce))
-        cms = time_ms(lambda: seg.segment_csr_bwd(
-            g, x, out, ptr, valid, reduce, num_rows), iters)
-        pms = time_ms(lambda: seg.segment_csr_bwd_plain(
-            g, x, out, ptr, valid, reduce, num_rows), iters)
-        # the library form on precomputed ids (timing only; never used)
-        ids, keep = seg._row_segments(ptr, e)
-        if valid is not None:
-            keep = keep & valid
-        keep = keep[:, None]
-        if reduce == "sum":
-            lms = time_ms(lambda: torch.where(
-                keep, g.index_select(0, ids), 0.0), iters)
-        else:
-            lms = time_ms(lambda: torch.where(
-                keep & (x == out.index_select(0, ids)) & (x > -5e29),
-                g.index_select(0, ids), 0.0), iters)
-        log(phase, call=i, reduce=reduce, rows=e, channels=c,
-            segments=s, masked=valid is not None,
-            drop_rows=int(ptr[-1] - ptr[-2]), live_rows=live,
-            live_segments=live_s, kernel_ms=f"{kms:.4f}", kernel_ms_2n=f"{kms2:.4f}",
-            call_ms=f"{cms:.4f}", plain_ms=f"{pms:.4f}",
-            library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}",
-            max_abs_err=err)
-        for key, ms in (("ms", kms), ("call_ms", cms), ("plain_ms", pms),
-                        ("library_ms", lms), ("bound_ms", bound)):
-            totals[key] += ms
-        totals["max_abs_err"] = max(totals["max_abs_err"], err)
-        note_padding(totals, e, live)
-    log(phase, kernel="segment_csr_bwd", checked=True,
-        bit_equal=True, calls_per_step=len(calls),
-        kernel_ms=f"{totals['ms']:.4f}", call_ms=f"{totals['call_ms']:.4f}",
-        bound_ms=f"{totals['bound_ms']:.4f}",
-        widest_rows=totals["rows"], widest_pad_share=totals["pad_share"])
-    return totals
+        log(phase, call=i, reduce=reduce,
+            rows=x.shape[0] if x is not None else num_rows,
+            channels=g.shape[1], segments=g.shape[0],
+            masked=valid is not None, max_abs_err=err)
+    log(phase, kernel="segment_csr_bwd", checked=True, bit_equal=True,
+        calls_per_step=len(calls))
 
 
-def run_steps(model, batch, n_voxels: int, steps: int, warmup: int,
-              phase: str, expect: dict, **fields) -> dict:
+def run_steps(model, batch, steps: int, phase: str, expect: dict,
+              **fields) -> list:
     """``steps`` optimizer steps (SGD + momentum 0.9, LR 0.1, weight decay
-    1e-4, clip 10) of ``model`` on one batch on the card, each closed by a
-    synchronisation and checked (finite loss and gradient norm, ``expect``
-    launches); returns losses, timed step ms, the largest peak memory and
-    what was resident before the first step (models, batches: the peaks of
-    two runs compare only over it)."""
+    1e-4, clip 10) of ``model`` on one batch on the card, each checked
+    (finite loss and gradient norm, ``expect`` launches); returns the
+    losses."""
     model.train()
     state = TrainState.create(model, make_optimizer(
         make_schedule("constant", 0.1), grad_clip=10.0))
     step = make_train_step(model)
-    losses, step_ms, peak = [], [], 0
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()
+    losses = []
     for i in range(steps):
-        torch.cuda.reset_peak_memory_stats()
         before = dict(seg.LAUNCHES)
-        t0 = time.perf_counter()
         state, metrics = step(state, batch, None)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
@@ -1246,18 +749,11 @@ def run_steps(model, batch, n_voxels: int, steps: int, warmup: int,
             raise AssertionError(f"launches per step: {per_step}, expected "
                                  f"{expect}")
         losses.append(loss)
-        if i >= warmup:
-            step_ms.append(ms)
-        peak = max(peak, torch.cuda.max_memory_allocated())
         log(phase, **fields, step=i, loss=f"{loss:.6f}",
-            grad_norm=f"{gnorm:.4f}", step_ms=f"{ms:.1f}",
-            voxels_per_s=f"{n_voxels / ms * 1e3:.0f}", timed=i >= warmup,
-            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-            launches=per_step)
+            grad_norm=f"{gnorm:.4f}", launches=per_step)
     if state.step != steps:
         raise AssertionError(f"step counter {state.step}")
-    return {"losses": losses, "step_ms": step_ms, "peak": peak,
-            "resident": resident, "mean_ms": float(np.mean(step_ms))}
+    return losses
 
 
 def check_trained(model, start, means, losses) -> None:
@@ -1284,47 +780,32 @@ def snapshot(model) -> tuple:
              if isinstance(m, MaskedBatchNorm)})
 
 
-def phase_training(model, np_batch, check_batch) -> dict:
-    """Ten optimizer steps on one request; returns the launch counts."""
+def phase_training(model, np_batch, check_batch) -> None:
+    """Ten optimizer steps on one request, then one without tower remat."""
     batch = batch_to_torch(np_batch, device="cuda")
-    n = valid_voxels(np_batch)
     start, means = snapshot(model)
     zero_launches()
-    run = run_steps(model, batch, n, TRAIN_STEPS, TRAIN_WARMUP, "6 training",
-                    {"segment_csr": FORWARD_LAUNCHES,
-                     "segment_csr_bwd": BACKWARD_LAUNCHES})
-    launches = dict(seg.LAUNCHES)
-    check_trained(model, start, means, run["losses"])
-    log("6 training", steps=TRAIN_STEPS, timed_steps=len(run["step_ms"]),
-        params=sum(p.numel() for p in model.parameters()), voxels=n,
-        first_loss=f"{run['losses'][0]:.4f}",
-        last_loss=f"{run['losses'][-1]:.4f}",
-        mean_step_ms=f"{run['mean_ms']:.1f}",
-        min_step_ms=f"{min(run['step_ms']):.1f}",
-        voxels_per_s=f"{n / run['mean_ms'] * 1e3:.0f}", launches=launches)
+    expect = {"segment_csr": FORWARD_LAUNCHES,
+              "segment_csr_bwd": BACKWARD_LAUNCHES}
+    losses = run_steps(model, batch, TRAIN_STEPS, "6 training", expect)
+    check_trained(model, start, means, losses)
+    log("6 training", steps=TRAIN_STEPS,
+        params=sum(p.numel() for p in model.parameters()),
+        voxels=valid_voxels(np_batch), first_loss=f"{losses[0]:.4f}",
+        last_loss=f"{losses[-1]:.4f}", launches=dict(seg.LAUNCHES))
     model.eval()
     serve_one(model, check_batch, "6 training", after="training, eval mode")
-    # the same step without tower remat (``flagship_spec`` asks for 'convs'):
-    # what the default costs on the clock and saves in memory
+    # the same step without tower remat (``flagship_spec`` asks for
+    # 'convs'): the same first loss
     plain = MultimodalSeg(with_remat(model.spec, False), device="cuda",
                           seed=0)
-    short = run_steps(plain, batch, n, TRAIN_WARMUP + NO_REMAT_STEPS,
-                      TRAIN_WARMUP, "6 training",
-                      {"segment_csr": FORWARD_LAUNCHES,
-                       "segment_csr_bwd": BACKWARD_LAUNCHES}, remat=False)
-    log("6 training", remat=False, timed_steps=NO_REMAT_STEPS,
-        mean_step_ms=f"{short['mean_ms']:.1f}",
-        min_step_ms=f"{min(short['step_ms']):.1f}",
-        peak_mem_gib=f"{short['peak'] / 2**30:.2f}",
-        over_resident_gib=f"{(short['peak'] - short['resident']) / 2**30:.2f}",
-        convs_peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
-        convs_over_resident_gib=(
-            f"{(run['peak'] - run['resident']) / 2**30:.2f}"),
-        first_loss=f"{short['losses'][0]:.6f}")
-    err = abs(short["losses"][0] - run["losses"][0]) / abs(run["losses"][0])
+    short = run_steps(plain, batch, NO_REMAT_STEPS, "6 training", expect,
+                      remat=False)
+    err = abs(short[0] - losses[0]) / abs(losses[0])
+    log("6 training", remat=False, steps=NO_REMAT_STEPS,
+        first_loss=f"{short[0]:.6f}", first_loss_rel_err=f"{err:.3e}")
     if err > REMAT_LOSS_RTOL:
         raise AssertionError(f"remat changed the first loss: {err}")
-    return launches
 
 
 def phase_train_card_vs_cpu(model, np_batch, phase="7 train card vs cpu"
@@ -1633,7 +1114,6 @@ def phase_train_variants(model, np_batch, plain: dict) -> None:
                             all_f32=True, routing=True), 1),
     ]
     for phase, kw, calls in variants:
-        t0 = time.perf_counter()
         got = variant_steps(model, np_batch, calls, **kw)
         card, cpu = got["cuda"], got["cpu"]
         loss_err = rel_errs(card["losses"], cpu["losses"])
@@ -1685,8 +1165,7 @@ def phase_train_variants(model, np_batch, plain: dict) -> None:
             cpu_loss="/".join(f"{x:.6f}" for x in cpu["losses"]),
             loss_rel_err="/".join(f"{x:.3e}" for x in loss_err),
             grad_norm_rel_err="/".join(f"{x:.3e}" for x in norm_err),
-            moved="/".join(str(len(r)) for r in moves["cuda"]),
-            seconds=f"{time.perf_counter() - t0:.1f}", **fields)
+            moved="/".join(str(len(r)) for r in moves["cuda"]), **fields)
         if routed is not None:
             update_rel = log_routing(phase, got, calls, moves["cuda"])
         # phase 7's gradient-norm bound holds at the start weights; after an
@@ -1816,20 +1295,9 @@ def four_cameras(scene_pano, scene_pinhole) -> list:
     ]
 
 
-def timed_both(fn):
-    """``fn(device)`` on the card and on the CPU: ``({device: outputs},
-    {device: ms})``, the card's call after a warm-up and closed by a
-    synchronisation."""
-    out, ms = {}, {}
-    for device in ("cuda", "cpu"):
-        if device == "cuda":
-            fn(device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[device] = fn(device)
-        torch.cuda.synchronize()
-        ms[device] = (time.perf_counter() - t0) * 1e3
-    return out, ms
+def on_both(fn) -> dict:
+    """``{device: fn(device)}`` on the card and on the CPU."""
+    return {device: fn(device) for device in ("cuda", "cpu")}
 
 
 def phase_cameras_card_vs_cpu() -> None:
@@ -1844,26 +1312,24 @@ def phase_cameras_card_vs_cpu() -> None:
     from deepviewagg_tpu_torch.core import cameras, visibility
     from deepviewagg_tpu_torch.data import synthetic
 
-    t0 = time.perf_counter()
     pano = synthetic.make_scene(seed=0, density=CAMERA_DENSITY, n_cameras=1,
                                 image_size=S3DIS_PANORAMA)
     pin = synthetic.make_scene(seed=0, density=CAMERA_DENSITY, n_cameras=1,
                                camera_model="scannet",
                                image_size=SCANNET_NATIVE)
     pos = torch.from_numpy(pano.pos.astype(np.float32))
-    log("4c cameras card vs cpu", points=len(pos),
-        scene_s=f"{time.perf_counter() - t0:.1f}")
+    log("4c cameras card vs cpu", points=len(pos))
     depth_maps = {}
     cams = four_cameras(pano, pin)
     for cam in cams:
-        proj, proj_ms = timed_both(lambda d: [
+        proj = on_both(lambda d: [
             t.cpu() for t in cameras.project(pos.to(d), cam)])
         (xa, ya, da, va), (xb, yb, db, vb) = proj["cuda"], proj["cpu"]
         both = va & vb
         pix_err = float(torch.maximum((xa - xb).abs(), (ya - yb).abs())
                         [both].max())
         valid_agree = float((va == vb).double().mean())
-        maps, z_ms = timed_both(lambda d: [
+        maps = on_both(lambda d: [
             t.cpu() for t in visibility.splat_zbuffer(
                 cam, pos.to(d), voxel=0.05)[:2]])
         a, b = maps["cuda"][0], maps["cpu"][0]
@@ -1875,9 +1341,7 @@ def phase_cameras_card_vs_cpu() -> None:
             pix_max_abs_err=f"{pix_err:.3e}",
             dist_max_abs_err=f"{float((da - db).abs().max()):.3e}",
             valid_agree=f"{valid_agree:.6f}", seen_pixels=int(seen.sum()),
-            zbuffer_agree=f"{agree:.6f}",
-            project_ms=f"{proj_ms['cuda']:.1f}/{proj_ms['cpu']:.1f}",
-            zbuffer_ms=f"{z_ms['cuda']:.1f}/{z_ms['cpu']:.1f}")
+            zbuffer_agree=f"{agree:.6f}")
         if not (pix_err <= CAMERA_PIX_ATOL and valid_agree >= ZBUFFER_AGREE
                 and agree >= ZBUFFER_AGREE and seen.sum() > 1000):
             raise AssertionError(f"4c {cam.model}: pixels {pix_err}, valid "
@@ -1899,11 +1363,10 @@ def phase_cameras_card_vs_cpu() -> None:
 
     for name, fn, n in (("biasutti", biasutti, len(sub)),
                         ("depth_map", depth, len(pos))):
-        masks, ms = timed_both(fn)
+        masks = on_both(fn)
         agree = float((masks["cuda"] == masks["cpu"]).double().mean())
         log("4c cameras card vs cpu", method=name, points=n,
-            seen=int(masks["cpu"].sum()), agree=f"{agree:.6f}",
-            ms=f"{ms['cuda']:.1f}/{ms['cpu']:.1f}")
+            seen=int(masks["cpu"].sum()), agree=f"{agree:.6f}")
         if agree < ZBUFFER_AGREE or not masks["cpu"].any():
             raise AssertionError(f"4c {name}: card and CPU agree on {agree}")
 
@@ -1949,81 +1412,26 @@ def check_recipe_request(np_batch) -> dict:
 
 
 def phase_recipe_gather(batch) -> None:
-    """The pixel gather of the largest bucket in its parts, forward and
-    backward, by CUDA events (plain PyTorch with ordinary autograd; timing
-    only).  ``index_select``, which the port's gathers use, differentiates
-    through atomic adds; ``flat[idx]`` through ``index_put_`` with accumulate
-    (a sort, deterministic)."""
+    """8b: the pixel gather of the largest bucket at the tower's 128
+    channels takes the upsample route (the upsampled maps, then one
+    ``index_select`` of the rows)."""
     bucket = batch["mappings"][0]["buckets"][-1]
     images = batch["bucket_images"][-1]
     i_cap, (w, h) = images.shape[0], images.shape[1:3]
-    wf, hf, c = w // 8, h // 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    maps = torch.randn(i_cap, wf, hf, c, generator=gen, device="cuda")
-    img = bucket["pix_image"].clamp(0, i_cap - 1).to(torch.int64)
-    px, py = bucket["pix_x"].to(torch.int64), bucket["pix_y"].to(torch.int64)
-    rows = px.shape[0]
-    used = pixel_gather._use_upsample(i_cap, w, h, c, rows, 4)
-    idx = img * (w * h) + px.clamp(0, w - 1) * h + py.clamp(0, h - 1)
-    mw = pixel_gather._resize_matrix(w, wf, "cuda")
-    mh = pixel_gather._resize_matrix(h, hf, "cuda")
-
-    def upsample(m):
-        up = torch.einsum("aw,iwhc->iahc", mw, m)
-        return torch.einsum("bh,iahc->iabc", mh, up).reshape(-1, c)
-
-    flat = upsample(maps)
-    g_rows = torch.randn(rows, c, generator=gen, device="cuda")
-    g_flat = torch.randn_like(flat)
-    leaf = maps.clone().requires_grad_()
-    flat_leaf = flat.clone().requires_grad_()
-    xf = px.float() / (w - 1) * wf - 0.5
-    yf = py.float() / (h - 1) * hf - 0.5
-
-    def backward_of(fn, inp, g):
-        out = fn(inp)
-        torch.cuda.synchronize()
-
-        def run():
-            inp.grad = None
-            out.backward(g, retain_graph=True)
-
-        return time_ms(run, iters=5)
-
-    times = {
-        "upsample_einsums_fwd": time_ms(lambda: upsample(maps), iters=5),
-        "upsample_einsums_bwd": backward_of(upsample, leaf, g_flat),
-        "row_gather_index_fwd": time_ms(lambda: flat[idx], iters=5),
-        "row_gather_index_bwd_index_put": backward_of(
-            lambda f: f[idx], flat_leaf, g_rows),
-        "row_gather_index_select_fwd": time_ms(
-            lambda: flat.index_select(0, idx), iters=5),
-        "row_gather_index_select_bwd_atomics": backward_of(
-            lambda f: f.index_select(0, idx), flat_leaf, g_rows),
-        "four_tap_fwd": time_ms(
-            lambda: pixel_gather._bilinear(maps, img, xf, yf), iters=5),
-        "four_tap_bwd": backward_of(
-            lambda m: pixel_gather._bilinear(m, img, xf, yf), leaf, g_rows),
-    }
-    log("8b recipe gather", rows=rows, channels=c, maps=f"{i_cap}x{wf}x{hf}",
-        upsampled=f"{i_cap}x{w}x{h}",
-        upsampled_gib=f"{flat.numel() * 4 / 2**30:.2f}",
-        use_upsample=used, port_uses="upsample + index_select" if used
-        else "four taps (index_select)",
-        **{k + "_ms": f"{v:.3f}" for k, v in times.items()})
+    rows = bucket["pix_x"].shape[0]
+    used = pixel_gather._use_upsample(i_cap, w, h, 128, rows, 4)
+    log("8b recipe gather", rows=rows, channels=128,
+        maps=f"{i_cap}x{w // 8}x{h // 8}", upsampled=f"{i_cap}x{w}x{h}",
+        use_upsample=used)
     if not used:
         raise AssertionError("the recipe shape did not take the upsample path")
 
 
-def phase_recipe(model, trace: bool) -> dict:
+def phase_recipe(model) -> None:
     """Phases 8, 8a-8e: the crop-ladder path at the recipe's size."""
-    t0 = time.perf_counter()
     np_batch, _, _ = recipe_batch(device="cuda")
-    torch.cuda.synchronize()
-    prep_ms = (time.perf_counter() - t0) * 1e3
     shape = check_recipe_request(np_batch)
-    log("8 recipe request", preprocess_ms=f"{prep_ms:.1f}", **shape)
-    n = shape["voxels"]
+    log("8 recipe request", **shape)
     expect = ladder_launches(np_batch)
     batch = batch_to_torch(np_batch, device="cuda")
 
@@ -2035,8 +1443,8 @@ def phase_recipe(model, trace: bool) -> dict:
     masked_out = [c for c in calls if c[2] is not None and not c[2].any()]
     if len(masked_out) != 3:
         raise AssertionError(f"{len(masked_out)} all-masked calls")
-    fwd_totals = measure_forward_calls(calls, "8a recipe kernels",
-                                       "calls_per_recipe_forward")
+    check_forward_calls(calls, "8a recipe kernels",
+                          "calls_per_recipe_forward")
     del calls, masked_out
     train_model = copy.deepcopy(model).train()
     bwd_calls = record_backward_calls(train_model, batch)
@@ -2044,34 +1452,27 @@ def phase_recipe(model, trace: bool) -> dict:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              f"recipe step, expected "
                              f"{expect['segment_csr_bwd']}")
-    bwd_totals = measure_backward_calls(bwd_calls, "8a recipe kernels")
+    check_backward_calls(bwd_calls, "8a recipe kernels")
     del bwd_calls, train_model
     torch.cuda.empty_cache()
 
-    # 8b: the pixel gather in its parts
+    # 8b: the pixel gather's route
     phase_recipe_gather(batch)
-    torch.cuda.empty_cache()
 
     # 8c: serving
     zero_launches()
-    fwd_ms = [serve_one(model, np_batch, "8c recipe serving",
-                        expect=expect["segment_csr"], batch=batch, forward=i,
-                        timed=i > 0)
-              for i in range(RECIPE_FORWARDS)][1:]
-    serve_launches = dict(seg.LAUNCHES)
-    if serve_launches["segment_csr_bwd"] != 0:
+    for i in range(RECIPE_FORWARDS):
+        serve_one(model, np_batch, "8c recipe serving",
+                  expect=expect["segment_csr"], batch=batch, forward=i)
+    if seg.LAUNCHES["segment_csr_bwd"] != 0:
         raise AssertionError("serving launched the backward kernel")
-    log("8c recipe serving", timed_forwards=len(fwd_ms),
-        mean_forward_ms=f"{np.mean(fwd_ms):.1f}",
-        min_forward_ms=f"{min(fwd_ms):.1f}",
-        voxels_per_s=f"{n / np.mean(fwd_ms) * 1e3:.0f}",
-        launches=serve_launches)
+    log("8c recipe serving", forwards=RECIPE_FORWARDS,
+        launches=dict(seg.LAUNCHES))
 
     # 8d: training under the three remat modes, from the same weights
-    runs, train_launches, trained = {}, None, None
-    for remat, steps, warmup in (("convs", RECIPE_STEPS, RECIPE_WARMUP),
-                                 (False, RECIPE_SHORT_STEPS, RECIPE_WARMUP),
-                                 (True, RECIPE_SHORT_STEPS, RECIPE_WARMUP)):
+    runs = {}
+    for remat, steps in (("convs", RECIPE_STEPS), (False, RECIPE_SHORT_STEPS),
+                         (True, RECIPE_SHORT_STEPS)):
         m = MultimodalSeg(with_remat(model.spec, remat), device="cuda",
                           seed=0)
         start, means = snapshot(m)
@@ -2080,30 +1481,15 @@ def phase_recipe(model, trace: bool) -> dict:
             raise AssertionError("the seeded weights differ from the serving "
                                  "model's")
         zero_launches()
-        runs[remat] = run_steps(m, batch, n, steps, warmup,
-                                "8d recipe training", expect, remat=remat)
+        runs[remat] = run_steps(m, batch, steps, "8d recipe training",
+                                expect, remat=remat)
         if remat == "convs":
-            train_launches = dict(seg.LAUNCHES)
-            check_trained(m, start, means, runs[remat]["losses"])
-            trained = m
-        else:
-            del m
-        del start, means
+            check_trained(m, start, means, runs[remat])
+        del m, start, means
         torch.cuda.empty_cache()
-    for remat, run in runs.items():
-        log("8d recipe training", remat=remat, timed_steps=len(run["step_ms"]),
-            mean_step_ms=f"{run['mean_ms']:.1f}",
-            min_step_ms=f"{min(run['step_ms']):.1f}",
-            voxels_per_s=f"{n / run['mean_ms'] * 1e3:.0f}",
-            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
-            over_resident_gib=f"{(run['peak'] - run['resident']) / 2**30:.2f}",
-            first_loss=f"{run['losses'][0]:.6f}",
-            second_loss=f"{run['losses'][1]:.6f}",
-            last_loss=f"{run['losses'][-1]:.6f}")
-    ref = runs[False]["losses"]
+    ref = runs[False]
     for remat in ("convs", True):
-        errs = [abs(a - b) / abs(b)
-                for a, b in zip(runs[remat]["losses"][:2], ref[:2])]
+        errs = [abs(a - b) / abs(b) for a, b in zip(runs[remat][:2], ref[:2])]
         log("8d recipe training", remat=remat, against=False,
             first_loss_rel_err=f"{errs[0]:.3e}",
             second_loss_rel_err=f"{errs[1]:.3e}")
@@ -2117,22 +1503,6 @@ def phase_recipe(model, trace: bool) -> dict:
         raise AssertionError(f"small ladder {ladder}")
     phase_card_vs_cpu(model, small, "8e ladder card vs cpu")
     phase_train_card_vs_cpu(model, small, "8e ladder train card vs cpu")
-
-    if trace:
-        def forward():
-            with torch.no_grad():
-                model(batch)
-
-        phase_trace("recipe_forward", forward)
-        trained.train()
-        state = TrainState.create(trained, make_optimizer(
-            make_schedule("constant", 0.1), grad_clip=10.0))
-        step = make_train_step(trained)
-        step(state, batch, None)                   # warm-up, not traced
-        phase_trace("recipe_train_step", lambda: step(state, batch, None))
-    return {"forward": fwd_totals, "backward": bwd_totals,
-            "serve_launches": serve_launches,
-            "train_launches": train_launches}
 
 
 class Seams:
@@ -2155,43 +1525,30 @@ class Seams:
 
 class LoopProbe(Seams):
     """The seams of one ``cli.train.main`` run, patched for that run only:
-    every train step (closed by a synchronisation: ms, loss, launches of
-    each kernel), the consumer's wait in ``next()`` on the train loader and
-    the batch's valid voxels, every eval epoch (ms), the cache build and the
-    bucket probe (ms), the calls of each of the recipe's 2D augmentations,
-    the ``Trainer`` (its model's parameters as built) and the first train
+    every train step (loss, launches of each kernel), each train batch's
+    image shapes, valid voxels and pixel rows, the number of eval batches,
+    the bucket, the calls of each of the recipe's 2D augmentations, the
+    ``Trainer`` (its model's parameters as built) and the first train
     step's batch on the card (``batch``).  ``on_fit(trainer)`` runs just
     before ``Trainer.fit``."""
 
     def __init__(self, on_fit=None):
         super().__init__()
         self.on_fit = on_fit
-        self.losses, self.step_ms, self.step_launches = [], [], []
-        self.wait_ms, self.train_images, self.eval_batches = [], [], 0
+        self.losses, self.step_launches = [], []
+        self.train_images, self.eval_batches = [], 0
         self.train_voxels, self.bucket_pixels = [], []
-        self.eval_ms, self.cache_ms, self.probe_ms = [], [], []
-        self.augments = dict.fromkeys(AUGMENTS, 0)
+        self.augments = dict.fromkeys((*AUGMENTS, JITTER_APPLIED), 0)
         self.bucket = self.trainer = self.start = self.batch = None
 
     def __enter__(self):
         from deepviewagg_tpu_torch.cli import train as cli
         from deepviewagg_tpu_torch.data import transforms2d
-        from deepviewagg_tpu_torch.data.datasets import base, synthetic_ds
+        from deepviewagg_tpu_torch.data.datasets import base
+        from deepviewagg_tpu_torch.native import images as native_images
         from deepviewagg_tpu_torch.train import trainer
 
         probe = self
-
-        def timed(into):
-            def make(fn):
-                def run(*args, **kwargs):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = fn(*args, **kwargs)
-                    torch.cuda.synchronize()
-                    into.append((time.perf_counter() - t0) * 1e3)
-                    return out
-                return run
-            return make
 
         def make_train_step(original):
             def build(*args, **kwargs):
@@ -2201,11 +1558,7 @@ class LoopProbe(Seams):
                     if probe.batch is None:
                         probe.batch = batch
                     before = dict(seg.LAUNCHES)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
                     state, metrics = step(state, batch, generator)
-                    torch.cuda.synchronize()
-                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
                     loss = float(metrics["loss"])
                     if not np.isfinite(loss):
                         raise AssertionError(
@@ -2237,14 +1590,11 @@ class LoopProbe(Seams):
                 it = original(loader)
                 try:
                     while True:
-                        t0 = time.perf_counter()
                         try:
                             batch = next(it)
                         except StopIteration:
                             return
                         if loader.dataset.train:
-                            probe.wait_ms.append(
-                                (time.perf_counter() - t0) * 1e3)
                             probe.train_images.append(image_shapes(batch))
                             probe.train_voxels.append(valid_voxels(batch))
                             probe.bucket_pixels.append(
@@ -2258,19 +1608,15 @@ class LoopProbe(Seams):
 
         def auto_bucket(original):
             def run(*args, **kwargs):
-                t0 = time.perf_counter()
                 probe.bucket = original(*args, **kwargs)
-                probe.probe_ms.append((time.perf_counter() - t0) * 1e3)
                 return probe.bucket
             return run
 
         self._patch(trainer, "make_train_step", make_train_step)
         self._patch(trainer.Trainer, "__init__", init)
         self._patch(trainer.Trainer, "fit", fit)
-        self._patch(trainer.Trainer, "eval_epoch", timed(self.eval_ms))
         self._patch(base.BatchLoader, "__iter__", loader_iter)
-        self._patch(synthetic_ds, "build_synthetic_cache",
-                    timed(self.cache_ms))
+
         def counted(name):
             def make(fn):
                 def run(*args, **kwargs):
@@ -2279,9 +1625,19 @@ class LoopProbe(Seams):
                 return run
             return make
 
+        def applied(fn):
+            # the native pass with draws, or the numpy chain's application
+            def run(images, draws=None, *args, **kwargs):
+                if draws is not None:
+                    probe.augments[JITTER_APPLIED] += 1
+                return fn(images, draws, *args, **kwargs)
+            return run
+
         self._patch(cli, "auto_bucket", auto_bucket)
         for name in AUGMENTS:
             self._patch(transforms2d, name, counted(name))
+        self._patch(native_images, "jitter_normalize", applied)
+        self._patch(transforms2d, "apply_color_jitter", applied)
         return self
 
     def check_steps(self, phase: str, forward: int = FORWARD_LAUNCHES,
@@ -2300,19 +1656,11 @@ class LoopProbe(Seams):
             raise AssertionError(f"{phase}: parameters off the card {off[:5]}")
 
     def summary(self) -> dict:
-        waits = self.wait_ms
         return {
             "steps": len(self.losses),
-            "first_step_ms": f"{self.step_ms[0]:.1f}",
-            "mean_step_ms": f"{np.mean(self.step_ms[1:]):.1f}"
-            if len(self.step_ms) > 1 else "n/a",
-            "loader_wait_ms_first": f"{waits[0]:.1f}",
-            "loader_wait_ms_mean_rest": f"{np.mean(waits[1:]):.1f}"
-            if len(waits) > 1 else "n/a",
             "voxels_per_batch": f"{min(self.train_voxels)}-"
                                 f"{max(self.train_voxels)} (mean "
                                 f"{np.mean(self.train_voxels):.0f})",
-            "eval_epoch_ms": "/".join(f"{t:.1f}" for t in self.eval_ms),
             "eval_batches": self.eval_batches,
             "first_loss": f"{self.losses[0]:.6f}",
             "last_loss": f"{self.losses[-1]:.6f}",
@@ -2345,7 +1693,7 @@ def state_matches(trainer, saved: dict) -> list:
     return bad
 
 
-def loop_quick(cli, tmp: Path) -> dict:
+def loop_quick(cli, tmp: Path) -> None:
     """9a: ``conf/synthetic.yaml`` (the Quick start) for two epochs with an
     eval each, then one resumed epoch."""
     run_dir = tmp / "quick_run"
@@ -2399,21 +1747,19 @@ def loop_quick(cli, tmp: Path) -> dict:
     log("9a resume", restored_bit_equal=True, saved_step=saved["step"],
         steps=len(resumed.losses), step_after=after,
         launches=dict(seg.LAUNCHES))
-    return launches
 
 
-def loop_recipe(cli, tmp: Path) -> dict:
+def loop_recipe(cli, tmp: Path) -> tuple:
     """9b: ``conf/s3dis_benchmark.yaml`` on synthetic rooms: the recipe's
     model at its published widths, its batch, image slots and 2D size; then
     every sorted-segment call of the first train step's batch (forward in
     eval mode, backward in training mode, through the trained model) held
-    against its plain version and timed as in phases 2 / 2b."""
+    against its plain version.  Returns the arguments of the run's first
+    UNet graph build (for 13a)."""
     run_dir = tmp / "recipe_run"
     args = ["--config", str(CONF / "s3dis_benchmark.yaml"), *RECIPE_LOOP,
             f"data.root={tmp / 'recipe_data'}", f"training.run_dir={run_dir}",
             "training.tensorboard=false"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with LoopProbe() as probe, FirstGraph() as first_graph:
         cli.main(args)
@@ -2448,12 +1794,9 @@ def loop_recipe(cli, tmp: Path) -> dict:
         raw_points=len(area["raw_pos"]), voxels=len(area["pos"]),
         params=sum(p.numel() for p in probe.trainer.model.parameters()),
         images=probe.train_images[0],
-        cache_build_ms="/".join(f"{t:.0f}" for t in probe.cache_ms),
-        probe_ms=f"{probe.probe_ms[0]:.0f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches,
         val_miou="/".join(f"{r['val_miou']:.2f}" for r in records))
 
@@ -2462,34 +1805,29 @@ def loop_recipe(cli, tmp: Path) -> dict:
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
-    fwd = measure_forward_calls(calls, "9b recipe loop kernels",
-                                "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9b recipe loop kernels",
+                          "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9b recipe loop kernels",
-                                 LOOP_TIME_ITERS)
+    check_backward_calls(bwd_calls, "9b recipe loop kernels")
     del bwd_calls, model, batch
-    return {"launches": launches, "forward": fwd, "backward": bwd,
-            "graph": first_graph.args}
+    return first_graph.args
 
 
 class EvalProbe(Seams):
     """The seams of one ``cli.eval.main`` run, patched for that run only:
-    every eval step (closed by a synchronisation where the model is on the
-    card: ms, launches of each kernel), the model and the first eval batch
-    as the step got them (``model``, ``batch``), the eval bucket
-    (``bucket``), every pass over the loader (one per voting run: ms),
-    every vote added (cloud, size, ids and logits, copied), the vote
-    accumulator and every full-resolution remap (ms, raw and voted points;
-    one prediction per raw point is checked)."""
+    every eval step (launches of each kernel), the model and the first eval
+    batch as the step got them (``model``, ``batch``), the eval bucket
+    (``bucket``), every vote added (cloud, size, ids and logits, copied),
+    the vote accumulator and every full-resolution remap (raw and voted
+    points; one prediction per raw point is checked)."""
 
     def __init__(self):
         super().__init__()
-        self.step_ms, self.step_launches, self.pass_ms = [], [], []
-        self.adds, self.remaps = [], []
+        self.step_launches, self.adds, self.remaps = [], [], []
         self.votes = self.model = self.batch = self.bucket = None
 
     def __enter__(self):
@@ -2506,23 +1844,12 @@ class EvalProbe(Seams):
                     if probe.batch is None:
                         probe.model, probe.batch = model, batch
                     before = dict(seg.LAUNCHES)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
                     out = step(state, batch, generator)
-                    torch.cuda.synchronize()
-                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
                     probe.step_launches.append(
                         {k: seg.LAUNCHES[k] - before[k] for k in before})
                     return out
                 return run
             return build
-
-        def loader_iter(original):
-            def run(loader):
-                t0 = time.perf_counter()
-                yield from original(loader)
-                probe.pass_ms.append((time.perf_counter() - t0) * 1e3)
-            return run
 
         def votes(cls):
             class Recorded(cls):
@@ -2536,15 +1863,13 @@ class EvalProbe(Seams):
                     super().add(cloud, size, ids, logits)
 
                 def full_res_preds(self, cloud, vote_pos, raw_pos, **kwargs):
-                    t0 = time.perf_counter()
                     out = super().full_res_preds(cloud, vote_pos, raw_pos,
                                                  **kwargs)
-                    ms = (time.perf_counter() - t0) * 1e3
                     if out.shape != (len(raw_pos),):
                         raise AssertionError(f"full_res_preds {out.shape} "
                                              f"for {len(raw_pos)} raw points")
                     probe.remaps.append(dict(
-                        ms=ms, raw=len(raw_pos),
+                        raw=len(raw_pos),
                         voted=int(self.preds(cloud)[1].sum())))
                     return out
             return Recorded
@@ -2558,7 +1883,6 @@ class EvalProbe(Seams):
         self._patch(cli_eval, "make_eval_step", make_eval_step)
         self._patch(cli_eval, "auto_bucket", auto_bucket)
         self._patch(cli_eval, "VoteAccumulator", votes)
-        self._patch(base.BatchLoader, "__iter__", loader_iter)
         return self
 
     def run_logits(self, runs: int) -> list:
@@ -2571,34 +1895,27 @@ class EvalProbe(Seams):
 
     def summary(self) -> dict:
         return {
-            "batches": len(self.step_ms),
-            "eval_ms_per_batch": f"{np.mean(self.step_ms):.1f}",
-            "voting_run_ms": "/".join(f"{t:.1f}" for t in self.pass_ms),
-            "remaps": "/".join(f"{r['raw']}->{r['voted']}:{r['ms']:.1f}ms"
+            "batches": len(self.step_launches),
+            "remaps": "/".join(f"{r['raw']}->{r['voted']}"
                                for r in self.remaps),
         }
 
 
 def run_eval(cli_eval, args, device="cuda", forward=FORWARD_LAUNCHES):
     """``cli.eval.main(args)`` on ``device`` under an ``EvalProbe``, launch
-    counts zeroed just before and read just after, peak memory reset;
-    every eval step checked for ``forward`` (6 by default) forward and no
-    backward launches on the card.  Returns ``(metrics, probe,
-    launches)``; ``probe.resident_gib``: device memory allocated before the
-    run (held by earlier phases)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    counts zeroed just before and read just after; every eval step checked
+    for ``forward`` (6 by default) forward and no backward launches on the
+    card.  Returns ``(metrics, probe, launches)``."""
     zero_launches()
     with EvalProbe() as probe:
-        probe.resident_gib = torch.cuda.memory_allocated() / 2**30
         metrics = cli_eval.main([*args, "--device", device])
     launches = dict(seg.LAUNCHES)
     expect = ({"segment_csr": forward, "segment_csr_bwd": 0}
               if device == "cuda" else dict.fromkeys(seg.LAUNCHES, 0))
     bad = [d for d in probe.step_launches if d != expect]
-    if not probe.step_ms or bad:
-        raise AssertionError(f"eval: {len(probe.step_ms)} batches, launches "
-                             f"{bad[:2]} (expected {expect})")
+    if not probe.step_launches or bad:
+        raise AssertionError(f"eval: {len(probe.step_launches)} batches, "
+                             f"launches {bad[:2]} (expected {expect})")
     if not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"eval metrics {metrics}")
     return metrics, probe, launches
@@ -2634,17 +1951,15 @@ def check_doubled(probe, num_classes: int) -> float:
     return worst
 
 
-def loop_eval(cli_eval, tmp: Path) -> dict:
+def loop_eval(cli_eval, tmp: Path) -> None:
     """9c: ``cli.eval`` on 9b's run (the recipe's model at full width), its
     best-val-mIoU checkpoint, two voting runs and the full-resolution
     remap; then every sorted-segment call of one forward of the first eval
     batch (eval buckets sized from the eval data, images by coverage,
-    ``center_roll``) held against its plain version and timed as in phase
-    2."""
+    ``center_roll``) held against its plain version."""
     metrics, probe, launches = run_eval(cli_eval, [
         "--run_dir", str(tmp / "recipe_run"), "--weight", "best_val_miou",
         "--voting_runs", str(EVAL_VOTING_RUNS), "--full_res"])
-    peak = torch.cuda.max_memory_allocated() / 2**30
     for key in ("test_miou", "vote_miou", "full_res_miou"):
         if key not in metrics:
             raise AssertionError(f"{key} missing from {sorted(metrics)}")
@@ -2657,7 +1972,6 @@ def loop_eval(cli_eval, tmp: Path) -> dict:
     worst = check_doubled(probe, probe.votes.num_classes)
     b = probe.bucket
     log("9c eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
-        peak_mem_gib=f"{peak:.2f}", resident_gib=f"{probe.resident_gib:.2f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         launches_per_batch=probe.step_launches[0],
@@ -2671,10 +1985,8 @@ def loop_eval(cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    fwd = measure_forward_calls(calls, "9c eval kernels", "calls_per_forward",
-                                LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9c eval kernels", "calls_per_forward")
     del calls, model, batch
-    return {"launches": launches, "forward": fwd}
 
 
 def loop_mc_dropout(cli_eval, tmp: Path) -> None:
@@ -2749,12 +2061,10 @@ def loop_eval_card_vs_cpu(cli_eval, tmp: Path) -> None:
                              f"{card} vs {cpu}")
     log("9c'' eval card vs cpu", voxels=len(a), argmax_agree=f"{agree:.5f}",
         logits_rel_err=f"{rel_err(torch.from_numpy(a), torch.from_numpy(b)):.3e}",
-        metric_max_abs_diff=f"{worst:.5f}",
-        card_ms_per_batch=card_probe.summary()["eval_ms_per_batch"],
-        cpu_ms_per_batch=cpu_probe.summary()["eval_ms_per_batch"])
+        metric_max_abs_diff=f"{worst:.5f}")
 
 
-def loop_predict(tmp: Path) -> dict:
+def loop_predict(tmp: Path) -> None:
     """9d: ``cli.predict`` with a 3D-only Res16UNet34 (full width) trained by
     ``cli.train`` on 9b's rooms at the recipe's 5 cm for one epoch of 8
     spheres, on one room's raw cloud written as ``.npz`` and as ``.ply``:
@@ -2763,7 +2073,6 @@ def loop_predict(tmp: Path) -> dict:
     from deepviewagg_tpu_torch.cli import train as cli_train
     from deepviewagg_tpu_torch.data import synthetic
     from deepviewagg_tpu_torch.data.transforms3d import quantize_cloud
-    from deepviewagg_tpu_torch.models import segmentation
     from deepviewagg_tpu_torch.utils.ply import read_ply, write_ply
 
     run_dir = tmp / "predict_run"
@@ -2786,46 +2095,20 @@ def loop_predict(tmp: Path) -> dict:
                          "green": rgb[:, 1], "blue": rgb[:, 2]})
     voxels = len(quantize_cloud({"pos": scene.pos},
                                 stored["data"]["voxel_size"])["coords"])
-    forwards, params = [], []
-
-    class Timed(Seams):
-        def __enter__(self):
-            def make(fn):
-                def run(model, *args, **kwargs):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = fn(model, *args, **kwargs)
-                    torch.cuda.synchronize()
-                    forwards.append((time.perf_counter() - t0) * 1e3)
-                    params.append(sum(p.numel() for p in model.parameters()))
-                    return out
-                return run
-            self._patch(segmentation.SparseConv3dSeg, "forward", make)
-            return self
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated() / 2**30
     zero_launches()
-    with Timed():
-        outs = [cli_predict.main(["--run_dir", str(run_dir), "--input",
-                                  str(src), "--output",
-                                  str(tmp / f"pred_{src.suffix[1:]}.ply")])
-                for src in (npz, ply)]
+    outs = [cli_predict.main(["--run_dir", str(run_dir), "--input", str(src),
+                              "--output",
+                              str(tmp / f"pred_{src.suffix[1:]}.ply")])
+            for src in (npz, ply)]
     launches = dict(seg.LAUNCHES)
     labels = [read_ply(out)["label"] for out in outs]
     if not (np.array_equal(*labels) and len(labels[0]) == voxels):
         raise AssertionError(f"predict: {[len(x) for x in labels]} labels, "
                              f"{voxels} voxels, equal "
                              f"{np.array_equal(*labels)}")
-    log("9d predict", model="Res16UNet34", params=params[0],
-        raw_points=len(scene.pos), voxels=voxels,
-        forward_ms="/".join(f"{t:.1f}" for t in forwards),
-        voxels_per_s="/".join(f"{voxels / t * 1e3:.0f}" for t in forwards),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-        resident_gib=f"{resident:.2f}", labels_equal=True, classes=len(np.unique(labels[0])),
-        launches=launches)
-    return launches
+    log("9d predict", model="Res16UNet34", raw_points=len(scene.pos),
+        voxels=voxels, labels_equal=True,
+        classes=len(np.unique(labels[0])), launches=launches)
 
 
 def s3dis_panorama(pos, rgb, camera, rig, seed: int) -> np.ndarray:
@@ -2853,16 +2136,15 @@ def s3dis_panorama(pos, rgb, camera, rig, seed: int) -> np.ndarray:
 
 def write_s3dis_layout(root: Path) -> dict:
     """The 9e layout (see ``S3DIS_AREAS``); returns the raw points per area
-    and the decode ms of one panorama written with the per-row heuristic
-    filters instead (what an encoder picks)."""
+    (``raw``)."""
     from deepviewagg_tpu_torch.data import synthetic
-    from deepviewagg_tpu_torch.utils.image_io import read_png, write_png
+    from deepviewagg_tpu_torch.utils.image_io import write_png
 
     w, h = S3DIS_PANORAMA
     filters = [r % 5 for r in range(h)]
     rig = np.random.default_rng(0).integers(0, 256, (S3DIS_RIG_ROWS, w, 3),
                                             dtype=np.uint8)
-    raw, img = {}, None
+    raw = {}
     for area, rooms in S3DIS_AREAS.items():
         area_dir = root / f"Area_{area}"
         pose_dir, rgb_dir = area_dir / "data" / "pose", area_dir / "data" / "rgb"
@@ -2895,82 +2177,13 @@ def write_s3dis_layout(root: Path) -> dict:
                 img = s3dis_panorama(pos, scene.rgb, cam, rig, seed=i)
                 write_png(str(rgb_dir / f"{stem}_rgb.png"), img,
                           filters=filters, level=1)
-    probe = root / "heuristic_filters.png"
-    write_png(str(probe), img, level=1)
-    t0 = time.perf_counter()
-    read_png(str(probe))
-    decode_ms = (time.perf_counter() - t0) * 1e3
-    probe.unlink()
-    return {"raw": raw, "decode_ms_heuristic": decode_ms}
+    return {"raw": raw}
 
 
-class PreprocessProbe(Seams):
-    """The parts of a loader's preprocess (ms closed by a synchronisation,
-    summed per cloud; ``zbuffer`` is inside ``mapping``), patched for one
-    run: ``clouds[key] = {part: ms, "total": ms}``.  ``entry`` is the
-    module's preprocess function, ``key(*args)`` names the cloud it builds,
-    ``parts`` maps the module's attributes to part names."""
-
-    def __init__(self, module, entry: str, key, parts: dict):
-        super().__init__()
-        self.module, self.entry, self.key, self.parts = (module, entry, key,
-                                                         parts)
-        self.clouds: dict = {}
-
-    def __enter__(self):
-        import types
-
-        from deepviewagg_tpu_torch.core import visibility
-
-        probe, current = self, {}
-
-        def timed(part):
-            def make(fn):
-                def run(*args, **kwargs):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = fn(*args, **kwargs)
-                    torch.cuda.synchronize()
-                    into = probe.clouds.setdefault(current["key"], {})
-                    into[part] = into.get(part, 0.0) + (
-                        time.perf_counter() - t0) * 1e3
-                    return out
-                return run
-            return make
-
-        def keyed(original):
-            def run(*args, **kwargs):
-                current["key"] = probe.key(*args)
-                return timed("total")(original)(*args, **kwargs)
-            return run
-
-        self._patch(self.module, self.entry, keyed)
-        self._patch(self.module, "_voxel", lambda mod: types.SimpleNamespace(
-            grid_sample=timed("voxel")(mod.grid_sample)))
-        for attr, part in self.parts.items():
-            self._patch(self.module, attr, timed(part))
-        self._patch(visibility, "splat_zbuffer_batch", timed("zbuffer"))
-        return self
-
-
-def s3dis_probe() -> PreprocessProbe:
-    """9e's split of each area's preprocess (``S3DIS_PARTS``)."""
-    from deepviewagg_tpu_torch.data.datasets import s3dis
-
-    return PreprocessProbe(s3dis, "preprocess_s3dis_area",
-                           lambda root, area, *args: area, {
-                               "load_s3dis_room": "txt",
-                               "pca_features": "pca_knn",
-                               "build_mappings": "mapping",
-                               "load_image": "png",
-                               "_apply_non_static_mask": "mask",
-                               "save_area": "cache_write"})
-
-
-def check_s3dis_caches(root: Path, layout: dict, parts: dict) -> dict:
+def check_s3dis_caches(root: Path, layout: dict) -> dict:
     """Each area's cache: exact mappings (at most one pixel per view), no
     mapped pixel on the static band, the raw cloud kept, uint8 panoramas at
-    1024 x 512; logs the preprocess split; returns the caches' sizes."""
+    1024 x 512; returns the caches' sizes."""
     from deepviewagg_tpu_torch.data.datasets.base import load_area
 
     sizes = {}
@@ -2994,16 +2207,10 @@ def check_s3dis_caches(root: Path, layout: dict, parts: dict) -> dict:
         if len(cache["raw_pos"]) != layout["raw"][area]:
             raise AssertionError(f"area {area}: {len(cache['raw_pos'])} raw "
                                  f"points, {layout['raw'][area]} written")
-        t = parts[area]
-        rest = t["total"] - sum(t[p] for p in S3DIS_PARTS if p != "zbuffer")
         log("9e s3dis preprocess", area=area, rooms=rooms, panoramas=n_img,
             raw_points=len(cache["raw_pos"]), voxels=len(cache["pos"]),
             views=int(m.view_valid.sum()),
-            mapped_pixels=int(m.pix_valid.sum()),
-            total_ms=f"{t['total']:.0f}",
-            **{f"{p}_ms": f"{t[p]:.0f}" for p in S3DIS_PARTS},
-            png_ms_per_panorama=f"{t['png'] / n_img:.0f}",
-            rest_ms=f"{rest:.0f}")
+            mapped_pixels=int(m.pix_valid.sum()))
         sizes[area] = len(cache["raw_pos"])
     return sizes
 
@@ -3019,28 +2226,19 @@ def s3dis_zbuffer_card_vs_cpu(root: Path) -> None:
     pos = load_area(str(root / "processed_dva" / "area_5.npz"))["pos"]
     cam = s3dis.area_cameras(str(root / "Area_5"),
                              RECIPE_IMAGE_SIZE)[0]["camera"]
-    maps, ms = {}, {}
-    for device in ("cuda", "cpu"):
-        xyz = torch.as_tensor(pos, device=device)
-        splat_zbuffer_batch([cam], xyz, voxel=0.05, exact=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = splat_zbuffer_batch([cam], xyz, voxel=0.05, exact=True)[0][0]
-        torch.cuda.synchronize()
-        ms[device] = (time.perf_counter() - t0) * 1e3
-        maps[device] = out.cpu().numpy()
-    (a, card_ms), (b, cpu_ms) = ((maps[d], ms[d]) for d in ("cuda", "cpu"))
+    a, b = (splat_zbuffer_batch([cam], torch.as_tensor(pos, device=d),
+                                voxel=0.05, exact=True)[0][0].cpu().numpy()
+            for d in ("cuda", "cpu"))
     seen = (a >= 0) | (b >= 0)
     agree = float((a == b)[seen].mean())
     log("9e s3dis zbuffer card vs cpu", voxels=len(pos),
         image=f"{RECIPE_IMAGE_SIZE[0]}x{RECIPE_IMAGE_SIZE[1]}",
-        seen_pixels=int(seen.sum()), agree=f"{agree:.5f}",
-        card_ms=f"{card_ms:.1f}", cpu_ms=f"{cpu_ms:.1f}")
+        seen_pixels=int(seen.sum()), agree=f"{agree:.5f}")
     if agree < ZBUFFER_AGREE:
         raise AssertionError(f"exact z-buffer card vs cpu: {agree}")
 
 
-def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
+def loop_s3dis(cli, cli_eval, tmp: Path) -> None:
     """9e: ``cli.train`` with ``conf/s3dis_benchmark.yaml`` on the S3DIS
     raw layout (the recipe's model at its published widths; the areas
     preprocessed with exact splatting and the non-static mask), the first
@@ -3048,22 +2246,17 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     exact z-buffer card vs CPU, then ``cli.eval --voting_runs 2
     --full_res``."""
     root = tmp / "s3dis_raw"
-    t0 = time.perf_counter()
     layout = write_s3dis_layout(root)
     log("9e s3dis layout", areas=dict(S3DIS_AREAS),
         panoramas=f"{S3DIS_PANORAMAS} a room, {S3DIS_PANORAMA[0]}x"
                   f"{S3DIS_PANORAMA[1]}, rows cycling filters 0-4",
-        raw_points=layout["raw"],
-        write_s=f"{time.perf_counter() - t0:.1f}",
-        decode_ms_heuristic_filters=f"{layout['decode_ms_heuristic']:.0f}")
+        raw_points=layout["raw"])
     run_dir = tmp / "s3dis_run"
     args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
             f"data.root={root}", f"training.run_dir={run_dir}",
             "training.tensorboard=false", *S3DIS_LOOP]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with LoopProbe() as probe, s3dis_probe() as pre:
+    with LoopProbe() as probe:
         cli.main(args)
     launches = dict(seg.LAUNCHES)
     probe.check_steps("9e s3dis loop")
@@ -3080,16 +2273,14 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     records = read_records(run_dir)
     if len(records) != 1 or "val_miou" not in records[0]:
         raise AssertionError(f"metrics.jsonl: {records}")
-    raw = check_s3dis_caches(root, layout, pre.clouds)
+    raw = check_s3dis_caches(root, layout)
     b = probe.bucket
     log("9e s3dis loop", params=sum(
         p.numel() for p in probe.trainer.model.parameters()),
         augments=probe.augments, images=probe.train_images[0],
-        probe_ms=f"{probe.probe_ms[0]:.0f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches,
         val_miou=f"{records[0]['val_miou']:.2f}")
 
@@ -3098,15 +2289,14 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
-    fwd = measure_forward_calls(calls, "9e s3dis loop kernels",
-                                "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9e s3dis loop kernels",
+                          "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9e s3dis loop kernels",
-                                 LOOP_TIME_ITERS)
+    check_backward_calls(bwd_calls, "9e s3dis loop kernels")
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
     s3dis_zbuffer_card_vs_cpu(root)
@@ -3114,7 +2304,6 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     metrics, probe, eval_launches = run_eval(cli_eval, [
         "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
         "--full_res"])
-    peak = torch.cuda.max_memory_allocated() / 2**30
     for key in ("test_miou", "vote_miou", "full_res_miou"):
         if key not in metrics:
             raise AssertionError(f"{key} missing from {sorted(metrics)}")
@@ -3124,7 +2313,6 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     worst = check_doubled(probe, probe.votes.num_classes)
     b = probe.bucket
     log("9e s3dis eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
-        peak_mem_gib=f"{peak:.2f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         launches_per_batch=probe.step_launches[0], launches=eval_launches,
@@ -3138,11 +2326,9 @@ def loop_s3dis(cli, cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    eval_fwd = measure_forward_calls(calls, "9e s3dis eval kernels",
-                                     "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9e s3dis eval kernels",
+                          "calls_per_forward")
     del calls, model, batch
-    return {"launches": launches, "eval_launches": eval_launches,
-            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
 def scannet_frame(pos, rgb, camera, seed: int) -> np.ndarray:
@@ -3169,12 +2355,12 @@ def scannet_frame(pos, rgb, camera, seed: int) -> np.ndarray:
 
 def write_scannet_layout(root: Path) -> dict:
     """The 9f layout (see ``SCANNET_SCANS``); returns the vertices per scan
-    and the encode ms of the frames."""
+    (``vertices``)."""
     from deepviewagg_tpu_torch.data import synthetic
     from deepviewagg_tpu_torch.utils.image_io import write_jpeg
     from deepviewagg_tpu_torch.utils.ply import write_ply
 
-    vertices, encode_ms = {}, 0.0
+    vertices = {}
     for s, scan in enumerate(SCANNET_SCANS):
         d = root / "scans" / scan
         for sub in ("pose", "color", "intrinsic"):
@@ -3198,38 +2384,20 @@ def write_scannet_layout(root: Path) -> dict:
                 np.savetxt(d / "pose" / f"{i * SCANNET_FRAME_STEP + j}.txt",
                            cam.extrinsic)
             img = scannet_frame(pos, scene.rgb, cam, seed=i)
-            t0 = time.perf_counter()
             write_jpeg(str(d / "color" / f"{i * SCANNET_FRAME_STEP}.jpg"),
                        img)
-            encode_ms += (time.perf_counter() - t0) * 1e3
         np.savetxt(d / "intrinsic" / "intrinsic_color.txt",
                    np.asarray(scene.cameras[0].intrinsic, np.float32))
     for split in ("train", "val"):
         (root / f"scannetv2_{split}.txt").write_text("".join(
             f"{scan}\n" for scan, sp in SCANNET_SCANS.items() if sp == split))
-    return {"vertices": vertices,
-            "encode_ms_per_frame": encode_ms / (len(SCANNET_SCANS)
-                                                * SCANNET_FRAMES)}
+    return {"vertices": vertices}
 
 
-def scannet_probe() -> PreprocessProbe:
-    """9f's split of each scan's preprocess (``SCANNET_PARTS``)."""
-    from deepviewagg_tpu_torch.data.datasets import scannet
-
-    return PreprocessProbe(scannet, "preprocess_scannet_scan",
-                           lambda scan_dir, *args: Path(scan_dir).name, {
-                               "load_scan_cloud": "ply",
-                               "pca_features": "pca_knn",
-                               "build_mappings": "mapping",
-                               "load_image": "jpeg",
-                               "_apply_non_static_mask": "mask",
-                               "save_area": "cache_write"})
-
-
-def check_scannet_caches(root: Path, layout: dict, parts: dict) -> dict:
+def check_scannet_caches(root: Path, layout: dict) -> dict:
     """Each scan's cache: 8 uint8 frames of 320 x 240 (the coverage
-    selection ran), a mapping with views and pixels; logs the preprocess
-    split; returns the caches' voxel counts."""
+    selection ran), a mapping with views and pixels; returns the caches'
+    voxel counts."""
     from deepviewagg_tpu_torch.data.datasets.base import load_area
 
     sizes = {}
@@ -3244,18 +2412,13 @@ def check_scannet_caches(root: Path, layout: dict, parts: dict) -> dict:
                                  "mapping")
         if not (m.view_valid.sum() > 0 and m.pix_valid.sum() > 0):
             raise AssertionError(f"{scan}: an empty mapping")
-        t = parts[scan]
-        rest = t["total"] - sum(t[p] for p in SCANNET_PARTS if p != "zbuffer")
         log("9f scannet preprocess", scan=scan,
             vertices=layout["vertices"][scan], voxels=len(cache["pos"]),
-            frames=f"{SCANNET_FRAMES} kept of {SCANNET_FRAMES * SCANNET_FRAME_STEP}"
-                   f" poses, 8 after coverage",
+            frames=f"{SCANNET_FRAMES} kept of "
+                   f"{SCANNET_FRAMES * SCANNET_FRAME_STEP} poses, 8 after "
+                   "coverage",
             views=int(m.view_valid.sum()),
-            mapped_pixels=int(m.pix_valid.sum()),
-            total_ms=f"{t['total']:.0f}",
-            **{f"{p}_ms": f"{t[p]:.0f}" for p in SCANNET_PARTS},
-            jpeg_ms_per_frame=f"{t['jpeg'] / 8:.0f}",
-            rest_ms=f"{rest:.0f}")
+            mapped_pixels=int(m.pix_valid.sum()))
         sizes[scan] = len(cache["pos"])
     return sizes
 
@@ -3281,7 +2444,7 @@ def check_submission(sub: Path, sizes: dict) -> dict:
     return lines
 
 
-def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
+def loop_scannet(cli, cli_eval, tmp: Path) -> None:
     """9f: ``cli.train`` with ``conf/scannet_benchmark.yaml`` on the ScanNet
     layout (the recipe's model at its published widths: Res16UNet34, the
     512-d ``resnet18_l4`` tower, group-4 pool, concat early fusion; batch
@@ -3289,14 +2452,11 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     held against their plain versions, then ``cli.eval --voting_runs 2
     --submission`` and its first batch's calls."""
     root = tmp / "scannet_raw"
-    t0 = time.perf_counter()
     layout = write_scannet_layout(root)
     log("9f scannet layout", scans=dict(SCANNET_SCANS),
         vertices=layout["vertices"],
         frames=f"{SCANNET_FRAMES} a scan of {SCANNET_NATIVE[0]}x"
-               f"{SCANNET_NATIVE[1]}, poses {SCANNET_FRAMES * SCANNET_FRAME_STEP}",
-        write_s=f"{time.perf_counter() - t0:.1f}",
-        jpeg_encode_ms_per_frame=f"{layout['encode_ms_per_frame']:.0f}")
+               f"{SCANNET_NATIVE[1]}, poses {SCANNET_FRAMES * SCANNET_FRAME_STEP}")
     run_dir = tmp / "scannet_run"
     args = ["--config", str(CONF / "scannet_benchmark.yaml"),
             f"data.root={root}", f"training.run_dir={run_dir}",
@@ -3308,10 +2468,8 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
                "(eval_frequency 5 as written)",
         run_dir="temporary", tensorboard="off",
         widths="none cut", batch="4 as written", frames_size="320x240")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with LoopProbe() as probe, scannet_probe() as pre:
+    with LoopProbe() as probe:
         cli.main(args)
     launches = dict(seg.LAUNCHES)
     probe.check_steps("9f scannet loop")
@@ -3324,18 +2482,18 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     if any(shape[:3] != (24, *SCANNET_IMAGE_SIZE)
            for shape in probe.train_images):
         raise AssertionError(f"image batches {probe.train_images}")
-    if not probe.augments["color_jitter"]:
-        raise AssertionError(f"colour jitter not called: {probe.augments}")
-    sizes = check_scannet_caches(root, layout, pre.clouds)
+    if not (probe.augments["draw_color_jitter"]
+            and probe.augments[JITTER_APPLIED]):
+        raise AssertionError(f"colour jitter not drawn and applied: "
+                             f"{probe.augments}")
+    sizes = check_scannet_caches(root, layout)
     b = probe.bucket
     log("9f scannet loop", params=sum(
         p.numel() for p in probe.trainer.model.parameters()),
         augments=probe.augments, images=probe.train_images[0],
-        probe_ms=f"{probe.probe_ms[0]:.0f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches)
 
     model, batch = probe.trainer.model, probe.batch
@@ -3343,15 +2501,14 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
-    fwd = measure_forward_calls(calls, "9f scannet loop kernels",
-                                "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9f scannet loop kernels",
+                          "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9f scannet loop kernels",
-                                 LOOP_TIME_ITERS)
+    check_backward_calls(bwd_calls, "9f scannet loop kernels")
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
 
@@ -3359,12 +2516,10 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     metrics, probe, eval_launches = run_eval(cli_eval, [
         "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
         "--submission", str(sub)])
-    peak = torch.cuda.max_memory_allocated() / 2**30
     lines = check_submission(sub, sizes)
     worst = check_doubled(probe, probe.votes.num_classes)
     b = probe.bucket
     log("9f scannet eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
-        peak_mem_gib=f"{peak:.2f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         launches_per_batch=probe.step_launches[0], launches=eval_launches,
@@ -3377,11 +2532,9 @@ def loop_scannet(cli, cli_eval, tmp: Path) -> dict:
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    eval_fwd = measure_forward_calls(calls, "9f scannet eval kernels",
-                                     "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "9f scannet eval kernels",
+                          "calls_per_forward")
     del calls, model, batch
-    return {"launches": launches, "eval_launches": eval_launches,
-            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
 # --- 9g: KITTI-360 ----------------------------------------------------------
@@ -3510,8 +2663,8 @@ def kitti360_filters(h: int) -> np.ndarray:
 
 def write_kitti360_layout(root: Path, device="cuda") -> dict:
     """The 9g layout (see ``KITTI360_WINDOWS``), its frames rendered on
-    ``device``; returns the points per window and the PNG encode ms per
-    frame of each family."""
+    ``device``; returns the points per window (``points``) and the number
+    of frames (``frames``)."""
     from deepviewagg_tpu_torch.core.cameras import Camera
     from deepviewagg_tpu_torch.utils.image_io import write_png
     from deepviewagg_tpu_torch.utils.ply import write_ply
@@ -3577,7 +2730,6 @@ def write_kitti360_layout(root: Path, device="cuda") -> dict:
     rgb_dev = torch.from_numpy(rgb.astype(np.float32)).to(device)
     body = np.random.default_rng(2).integers(
         0, 256, (KITTI360_BODY_ROWS, KITTI360_FISHEYE[0], 3), dtype=np.uint8)
-    encode = {0: [], 1: []}
     k = np.eye(4, dtype=np.float32)
     k[:3, :3] = kitti360.read_perspective_calib(str(
         calib / "perspective.txt"))["P_rect_00"].reshape(3, 4)[:, :3]
@@ -3604,61 +2756,17 @@ def write_kitti360_layout(root: Path, device="cuda") -> dict:
         img = kitti360_frame(pos_dev, rgb_dev, camera,
                              body=None if cam == 0 else body)
         sub = "data_rect" if cam == 0 else "data_rgb"
-        t0 = time.perf_counter()
         write_png(str(root / "data_2d_raw" / KITTI360_SEQ / f"image_0{cam}"
                       / sub / f"{frame:010d}.png"), img,
                   filters=kitti360_filters(img.shape[0]), level=1)
-        encode[int(cam > 0)].append((time.perf_counter() - t0) * 1e3)
-    return {"points": points, "frames": len(frames),
-            "encode_ms": {f: float(np.mean(v)) for f, v in encode.items()}}
+    return {"points": points, "frames": len(frames)}
 
 
-class FrameTimes(Seams):
-    """ms of ``kitti360.load_image`` (decode + resize) per camera family,
-    told apart by the size asked for; patched for one run."""
-
-    def __init__(self):
-        super().__init__()
-        self.ms = {size: [] for size in KITTI360_FAMILIES}
-
-    def __enter__(self):
-        from deepviewagg_tpu_torch.data.datasets import kitti360
-
-        probe = self
-
-        def make(fn):
-            def run(path, size):
-                t0 = time.perf_counter()
-                out = fn(path, size)
-                probe.ms[tuple(size)].append(
-                    (time.perf_counter() - t0) * 1e3)
-                return out
-            return run
-
-        self._patch(kitti360, "load_image", make)
-        return self
-
-
-def kitti360_probe() -> PreprocessProbe:
-    """9g's split of each window's preprocess (``KITTI360_PARTS``)."""
-    from deepviewagg_tpu_torch.data.datasets import kitti360
-
-    return PreprocessProbe(kitti360, "preprocess_kitti360_window",
-                           lambda root, ply, *args: Path(ply).stem, {
-                               "load_window_cloud": "ply",
-                               "pca_features": "pca_knn",
-                               "build_mappings": "mapping",
-                               "load_image": "png",
-                               "_family_non_static": "mask",
-                               "save_area": "cache_write"})
-
-
-def check_kitti360_caches(root: Path, layout: dict, parts: dict,
-                          frames: FrameTimes) -> dict:
+def check_kitti360_caches(root: Path, layout: dict) -> dict:
     """Each window's cache: 30 uint8 frames kept of 33 candidates on one
     canvas of 704 x 350, both camera families, fisheye pixels inside 350 x
-    350 and none on the vehicle's body; logs the preprocess split; returns
-    the caches' voxel counts by cache name."""
+    350 and none on the vehicle's body; returns the caches' voxel counts by
+    cache name."""
     from deepviewagg_tpu_torch.data.datasets.base import load_area
 
     sizes = {}
@@ -3687,24 +2795,14 @@ def check_kitti360_caches(root: Path, layout: dict, parts: dict,
             raise AssertionError(f"{name}: fisheye pixels outside {fw}x{fh}")
         if (fe & (m.pix_y >= body + 1)).any():
             raise AssertionError(f"{name}: mapped pixels on the static body")
-        t = parts[name]
-        rest = t["total"] - sum(t[p] for p in KITTI360_PARTS if p != "zbuffer")
         log("9g kitti360 preprocess", window=name,
             points=layout["points"][name], voxels=len(cache["pos"]),
             images="30 kept of 33 (11 frame times x cam0, cam2, cam3)",
             kept_per_family=np.bincount(fam, minlength=2).tolist(),
             views=int(m.view_valid.sum()),
             mapped_pixels=int(m.pix_valid.sum()),
-            fisheye_pixels=int(fe.sum()),
-            total_ms=f"{t['total']:.0f}",
-            **{f"{p}_ms": f"{t[p]:.0f}" for p in KITTI360_PARTS},
-            rest_ms=f"{rest:.0f}")
+            fisheye_pixels=int(fe.sum()))
         sizes[cache_name] = len(cache["pos"])
-    pin, fish = (frames.ms[s] for s in KITTI360_FAMILIES)
-    log("9g kitti360 preprocess", png_frames_pinhole=len(pin),
-        png_ms_per_pinhole_frame=f"{np.mean(pin):.0f}",
-        png_frames_fisheye=len(fish),
-        png_ms_per_fisheye_frame=f"{np.mean(fish):.0f}")
     return sizes
 
 
@@ -3734,7 +2832,7 @@ def check_kitti360_submission(sub: Path, sizes: dict) -> dict:
     return lines
 
 
-def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
+def loop_kitti360(cli, cli_eval, tmp: Path) -> None:
     """9g: ``cli.train`` with ``conf/kitti360_benchmark.yaml`` on the
     KITTI-360 layout (the recipe's model at its published widths: five
     deep-stem ResNet18 truncations pooled to 32 / 32 / 64 / 128 / 256 with
@@ -3745,16 +2843,12 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     versions, then ``cli.eval --voting_runs 2 --submission`` and its first
     batch's calls."""
     root = tmp / "kitti360_raw"
-    t0 = time.perf_counter()
     layout = write_kitti360_layout(root)
     log("9g kitti360 layout", windows=dict(KITTI360_WINDOWS),
         points=layout["points"], frames=layout["frames"],
         sizes=f"cam0 {KITTI360_PINHOLE[0]}x{KITTI360_PINHOLE[1]}, cam2/cam3 "
               f"{KITTI360_FISHEYE[0]}x{KITTI360_FISHEYE[1]}",
-        filters="Up, 1 row in 50 each None/Sub/Avg/Paeth",
-        write_s=f"{time.perf_counter() - t0:.1f}",
-        png_encode_ms_per_frame={"pinhole": f"{layout['encode_ms'][0]:.0f}",
-                                 "fisheye": f"{layout['encode_ms'][1]:.0f}"})
+        filters="Up, 1 row in 50 each None/Sub/Avg/Paeth")
     run_dir = tmp / "kitti360_run"
     args = ["--config", str(CONF / "kitti360_benchmark.yaml"),
             f"data.root={root}", f"training.run_dir={run_dir}",
@@ -3768,10 +2862,8 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
                "(eval_frequency 5 as written)",
         run_dir="temporary", tensorboard="off", widths="none cut",
         batch="4 as written", sizes="704x188 and 350x350 as written")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with LoopProbe() as probe, kitti360_probe() as pre, FrameTimes() as fr:
+    with LoopProbe() as probe:
         cli.main(args)
     launches = dict(seg.LAUNCHES)
     probe.check_steps("9g kitti360 loop", KITTI360_FORWARD, KITTI360_BACKWARD)
@@ -3790,9 +2882,11 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     if not any(all(n > 0 for n in px) for px in probe.bucket_pixels):
         raise AssertionError("no batch holds both camera families: "
                              f"{probe.bucket_pixels}")
-    if not probe.augments["color_jitter"]:
-        raise AssertionError(f"colour jitter not called: {probe.augments}")
-    sizes = check_kitti360_caches(root, layout, pre.clouds, fr)
+    if not (probe.augments["draw_color_jitter"]
+            and probe.augments[JITTER_APPLIED]):
+        raise AssertionError(f"colour jitter not drawn and applied: "
+                             f"{probe.augments}")
+    sizes = check_kitti360_caches(root, layout)
     b = probe.bucket
     fe_bucket = probe.batch["mappings"][0]["buckets"][1]
     fv = fe_bucket["pix_valid"]
@@ -3802,12 +2896,11 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     log("9g kitti360 loop", params=sum(
         p.numel() for p in probe.trainer.model.parameters()),
         augments=probe.augments, images=probe.train_images[0],
-        bucket_pixels=probe.bucket_pixels, probe_ms=f"{probe.probe_ms[0]:.0f}",
+        bucket_pixels=probe.bucket_pixels,
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         ladder=list(b.image_ladder), ladder_image_caps=b.ladder_image_caps,
         ladder_pix_caps=b.ladder_pix_caps, **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches)
 
     model, batch = probe.trainer.model, probe.batch
@@ -3815,15 +2908,14 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != KITTI360_FORWARD:
         raise AssertionError(f"{len(calls)} segment calls in one forward")
-    fwd = measure_forward_calls(calls, "9g kitti360 loop kernels",
-                                "calls_per_forward", KITTI360_TIME_ITERS)
+    check_forward_calls(calls, "9g kitti360 loop kernels",
+                          "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != KITTI360_BACKWARD:
         raise AssertionError(f"{len(bwd_calls)} segment backwards in one "
                              "step")
-    bwd = measure_backward_calls(bwd_calls, "9g kitti360 loop kernels",
-                                 KITTI360_TIME_ITERS)
+    check_backward_calls(bwd_calls, "9g kitti360 loop kernels")
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
 
@@ -3831,12 +2923,10 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     metrics, probe, eval_launches = run_eval(cli_eval, [
         "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS),
         "--submission", str(sub)], forward=KITTI360_FORWARD)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     lines = check_kitti360_submission(sub, sizes)
     worst = check_doubled(probe, probe.votes.num_classes)
     b = probe.bucket
     log("9g kitti360 eval", voting_runs=EVAL_VOTING_RUNS, **probe.summary(),
-        peak_mem_gib=f"{peak:.2f}",
         bucket=f"levels={list(b.level_caps)} views={b.view_cap} "
                f"pix={b.pix_cap} imgs={b.image_cap}",
         ladder_image_caps=b.ladder_image_caps,
@@ -3853,11 +2943,9 @@ def loop_kitti360(cli, cli_eval, tmp: Path) -> dict:
     if len(calls) != KITTI360_FORWARD:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    eval_fwd = measure_forward_calls(calls, "9g kitti360 eval kernels",
-                                     "calls_per_forward", KITTI360_TIME_ITERS)
+    check_forward_calls(calls, "9g kitti360 eval kernels",
+                          "calls_per_forward")
     del calls, model, batch
-    return {"launches": launches, "eval_launches": eval_launches,
-            "forward": fwd, "backward": bwd, "eval_forward": eval_fwd}
 
 
 class FamilyProbe(Seams):
@@ -3945,49 +3033,22 @@ def check_propagated(first) -> dict:
 
 
 def family_kernels(model, batch, phase: str, forward: int,
-                   backward: int) -> tuple:
+                   backward: int) -> None:
     """Every segment call of one forward (eval mode) and of one train-mode
     forward and backward of ``model`` on ``batch``, held against the plain
-    versions and timed; ``forward`` / ``backward`` calls expected (no
-    backward: none measured, ``None`` in its place)."""
+    versions; ``forward`` / ``backward`` calls expected."""
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != forward:
         raise AssertionError(f"{phase}: {len(calls)} segment calls in one "
                              f"forward, expected {forward}")
-    fwd = measure_forward_calls(calls, phase, "calls_per_forward",
-                                FAMILY_TIME_ITERS)
+    check_forward_calls(calls, phase, "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != backward:
         raise AssertionError(f"{phase}: {len(bwd_calls)} segment backwards "
                              f"in one step, expected {backward}")
-    bwd = (measure_backward_calls(bwd_calls, phase, FAMILY_TIME_ITERS)
-           if backward else None)
-    return fwd, bwd
-
-
-def forward_ms(model, batch) -> float:
-    """Device ms of one eval-mode forward without autograd (mean of 3)."""
-    model.eval()
-
-    def forward():
-        with torch.no_grad():
-            model(batch)
-
-    return time_ms(forward, 3)
-
-
-def kernel_fields(fwd: dict, bwd) -> dict:
-    """The segment kernels' device time, share of the byte bound and the
-    widest call's padding-row share, forward and backward (none where the
-    step launches no backward)."""
-    out = {"kernel_ms_forward": f"{fwd['ms']:.4f}",
-           "bound_share_forward": f"{fwd['bound_ms'] / fwd['ms']:.3f}",
-           "pad_share_forward": fwd["pad_share"]}
-    if bwd is not None:
-        out.update(kernel_ms_backward=f"{bwd['ms']:.4f}",
-                   bound_share_backward=f"{bwd['bound_ms'] / bwd['ms']:.3f}")
-    return out
+    if backward:
+        check_backward_calls(bwd_calls, phase)
 
 
 def family_model(name: str, set_encoder, num_classes: int):
@@ -4002,7 +3063,7 @@ def family_model(name: str, set_encoder, num_classes: int):
     return build_model(spec, device="cuda", seed=0)
 
 
-def loop_families(cli, cli_eval, tmp: Path) -> dict:
+def loop_families(cli, cli_eval, tmp: Path) -> None:
     """9h: the paper's other model families on the S3DIS layout of 9e (the
     recipe's flat batches: 4 spheres of 2 m at 5 cm, 16 panoramas of 1024 x
     512): (a) ``cli.train`` of the light no3d model with the view-level
@@ -4015,7 +3076,6 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
     root = tmp / "s3dis_raw"
     if not (root / "Area_5").exists():
         write_s3dis_layout(root)
-    out = {"paths": {}, "launches": {}}
     log("9h families cuts", spheres=f"{FAMILY_SPHERES} a model, 1 epoch "
         "(recipe 200 x 2000)", steps_library="2 (one warm-up)",
         widths="none cut", batch="4 spheres x 4 image slots of 1024x512 "
@@ -4038,8 +3098,6 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
                                              a[0]["graph"]["levels"][0]
                                              ["valid"])))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         zero_launches()
         with LoopProbe(on_fit) as probe, FamilyProbe() as fam:
             cli.main(args)
@@ -4070,14 +3128,9 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
             raise AssertionError(f"not the late feature model: {spec}")
         log(f"9h {label} loop", model=name, params=sum(
             p.numel() for p in model.parameters()), **probe.summary(),
-            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
             launches_per_step=probe.step_launches[0], launches=launches,
             unseen_share_first_batch=f"{unseen_share:.4f}", **fields)
-        out["launches"][label] = launches
-        fwd, bwd = out["paths"][label] = family_kernels(
-            model, batch, f"9h {label} kernels", fwd_n, bwd_n)
-        log(f"9h {label} loop", forward_ms=f"{forward_ms(model, batch):.1f}",
-            **kernel_fields(fwd, bwd))
+        family_kernels(model, batch, f"9h {label} kernels", fwd_n, bwd_n)
         if label == "light":
             trained["batch"] = batch
         del model, probe
@@ -4089,19 +3142,17 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
                 str(EVAL_VOTING_RUNS)], forward=fwd_n)
         checked = {}
         if label == "light":
-            if prop.calls != len(eprobe.step_ms):
+            if prop.calls != len(eprobe.step_launches):
                 raise AssertionError(f"{prop.calls} propagations for "
-                                     f"{len(eprobe.step_ms)} eval batches")
+                                     f"{len(eprobe.step_launches)} eval "
+                                     "batches")
             checked = check_propagated(prop.first)
         elif prop.calls:
             raise AssertionError("a late model's eval propagated")
         log(f"9h {label} eval", voting_runs=EVAL_VOTING_RUNS,
-            **eprobe.summary(),
-            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-            launches_per_batch=eprobe.step_launches[0],
+            **eprobe.summary(), launches_per_batch=eprobe.step_launches[0],
             launches=eval_launches, **checked,
             **{k: f"{v:.3f}" for k, v in metrics.items()})
-        out["launches"][f"{label}_eval"] = eval_launches
         del eprobe
         torch.cuda.empty_cache()
 
@@ -4111,12 +3162,9 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
     for label, name, set_encoder, fwd_n, bwd_n in FAMILY_MODELS:
         phase = f"9h {label}"
         model = family_model(name, set_encoder, 13)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         zero_launches()
         with torch.no_grad():
             first = model.eval()(batch)
-        torch.cuda.synchronize()
         fwd_launches = dict(seg.LAUNCHES)
         if fwd_launches != {"segment_csr": fwd_n, "segment_csr_bwd": 0}:
             raise AssertionError(f"{phase}: forward launches {fwd_launches}")
@@ -4124,26 +3172,16 @@ def loop_families(cli, cli_eval, tmp: Path) -> dict:
         if logits.shape != (n, 13) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{phase}: logits {tuple(logits.shape)}")
         unseen = 1.0 - float((first["x_seen"] & valid).sum()) / n
-        fwd_ms = forward_ms(model, batch)
-        # two steps, both timed: the first, then the rest
-        run = run_steps(model, batch, n, 2, 0, phase,
-                        {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
-        fwd, bwd = family_kernels(model, batch, f"{phase} kernels", fwd_n,
-                                  bwd_n)
+        losses = run_steps(model, batch, 2, phase,
+                           {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
+        family_kernels(model, batch, f"{phase} kernels", fwd_n, bwd_n)
         log(phase, model=name, set_encoder=set_encoder or "default",
             params=sum(p.numel() for p in model.parameters()),
-            forward_ms=f"{fwd_ms:.1f}",
-            step_ms_first=f"{run['step_ms'][0]:.1f}",
-            step_ms_rest=f"{np.mean(run['step_ms'][1:]):.1f}",
-            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
             launches_per_forward=fwd_n, launches_per_step=(fwd_n, bwd_n),
-            **kernel_fields(fwd, bwd), unseen_share_first_batch=f"{unseen:.4f}",
-            losses="/".join(f"{x:.4f}" for x in run["losses"]))
-        out["paths"][label] = (fwd, bwd)
-        out["launches"][label] = fwd_launches
+            unseen_share_first_batch=f"{unseen:.4f}",
+            losses="/".join(f"{x:.4f}" for x in losses))
         del model, first
         torch.cuda.empty_cache()
-    return out
 
 
 # --- phase 9i: pretrained BatchNorm towers, the bottleneck and SE nets -------
@@ -4286,14 +3324,14 @@ def pretrained_remat_stats(spec, pth: str, batch) -> None:
     start = tower_stats(base.branch_l0.tower)
     weights = base.state_dict()
     del base
-    stats, n = {}, int(batch["graph"]["levels"][0]["valid"].sum())
+    stats = {}
     for remat in (False, True, "convs"):
         s = dataclasses.replace(spec, branches=tuple(
             (lvl, dataclasses.replace(b, remat_tower=remat))
             for lvl, b in spec.branches))
         model = build_model(s, device="cuda", seed=None)
         model.load_state_dict(weights)
-        run_steps(model, batch, n, 1, 0, "9i pretrained remat",
+        run_steps(model, batch, 1, "9i pretrained remat",
                   {"segment_csr": FORWARD_LAUNCHES,
                    "segment_csr_bwd": BACKWARD_LAUNCHES}, remat=remat)
         stats[remat] = tower_stats(model.branch_l0.tower)
@@ -4313,15 +3351,12 @@ def pretrained_remat_stats(spec, pth: str, batch) -> None:
 def pretrained_run(cli, root: Path, run_dir: Path, pth: str, frozen: bool,
                    phase: str):
     """``cli.train`` of the S3DIS recipe on 9e's layout with the checkpoint
-    as ``model.tower_weights`` (``PRETRAINED_LOOP``); returns the probe, the
-    loaded counts and the launches."""
+    as ``model.tower_weights`` (``PRETRAINED_LOOP``); returns the probe."""
     args = ["--config", str(CONF / "s3dis_benchmark.yaml"),
             f"data.root={root}", f"training.run_dir={run_dir}",
             "training.tensorboard=false", f"model.tower_weights={pth}",
             *PRETRAINED_LOOP] + (["model.tower_frozen=true"] if frozen
                                  else [])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with LoopProbe() as probe, TowerWeightsProbe() as weights:
         cli.main(args)
@@ -4344,10 +3379,9 @@ def pretrained_run(cli, root: Path, run_dir: Path, pth: str, frozen: bool,
     log(phase, model=spec.backbone, tower=b.tower, frozen=frozen,
         loaded=loaded, params=sum(
             p.numel() for p in probe.trainer.model.parameters()),
-        **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-        launches_per_step=probe.step_launches[0], launches=launches)
-    return probe, loaded, launches
+        **probe.summary(), launches_per_step=probe.step_launches[0],
+        launches=launches)
+    return probe
 
 
 def se_blocks(model) -> int:
@@ -4356,7 +3390,7 @@ def se_blocks(model) -> int:
     return sum(isinstance(m, SqueezeExcite) for m in model.modules())
 
 
-def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
+def loop_pretrained(cli, cli_eval, tmp: Path) -> None:
     """9i: (a) the S3DIS recipe with a pretrained (random-weight) MIT
     deep-stem checkpoint through ``cli.train`` and ``cli.eval --voting_runs
     2``, the tower card vs CPU, the first train and eval batches' segment
@@ -4374,7 +3408,6 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
     root = tmp / "s3dis_raw"
     if not (root / "Area_5").exists():
         write_s3dis_layout(root)
-    out = {"paths": {}, "launches": {}}
     log("9i pretrained cuts", spheres=f"{PRETRAINED_SPHERES} (recipe 200 x "
         f"2000; SE run {SE_SPHERES})", epochs=1,
         steps_library="2 (one warm-up)", widths="none cut",
@@ -4386,18 +3419,14 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
 
     # (a) the pretrained recipe, trained, evaluated, then frozen
     run_dir = tmp / "pretrained_run"
-    probe, loaded, launches = pretrained_run(
-        cli, root, run_dir, ade, False, "9i pretrained loop")
+    probe = pretrained_run(cli, root, run_dir, ade, False,
+                           "9i pretrained loop")
     model, batch = probe.trainer.model, probe.batch
     spec = model.spec
     del probe
-    out["launches"]["pretrained"] = launches
     pretrained_tower_card_vs_cpu(spec, ade, batch)
-    fwd, bwd = family_kernels(model, batch, "9i pretrained kernels",
-                              FORWARD_LAUNCHES, BACKWARD_LAUNCHES)
-    out["paths"]["pretrained"] = (fwd, bwd)
-    log("9i pretrained loop", forward_ms=f"{forward_ms(model, batch):.1f}",
-        **kernel_fields(fwd, bwd))
+    family_kernels(model, batch, "9i pretrained kernels", FORWARD_LAUNCHES,
+                   BACKWARD_LAUNCHES)
     del model
     torch.cuda.empty_cache()
     pretrained_remat_stats(spec, ade, batch)
@@ -4406,25 +3435,20 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
         "--run_dir", str(run_dir), "--voting_runs", str(EVAL_VOTING_RUNS)])
     worst = check_doubled(eprobe, eprobe.votes.num_classes)
     log("9i pretrained eval", voting_runs=EVAL_VOTING_RUNS,
-        **eprobe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-        launches_per_batch=eprobe.step_launches[0], launches=eval_launches,
-        votes_twice_rel_err=f"{worst:.2e}",
+        **eprobe.summary(), launches_per_batch=eprobe.step_launches[0],
+        launches=eval_launches, votes_twice_rel_err=f"{worst:.2e}",
         **{k: f"{v:.3f}" for k, v in metrics.items()})
-    out["launches"]["pretrained_eval"] = eval_launches
     calls = record_segment_calls(eprobe.model.eval(), eprobe.batch)
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} segment calls in one eval "
                              "forward")
-    out["paths"]["pretrained_eval"] = measure_forward_calls(
-        calls, "9i pretrained eval kernels", "calls_per_forward",
-        FAMILY_TIME_ITERS)
+    check_forward_calls(calls, "9i pretrained eval kernels",
+                          "calls_per_forward")
     del calls, eprobe
     torch.cuda.empty_cache()
 
-    probe, loaded, launches = pretrained_run(
-        cli, root, tmp / "pretrained_frozen_run", ade, True,
-        "9i pretrained frozen loop")
+    probe = pretrained_run(cli, root, tmp / "pretrained_frozen_run", ade,
+                           True, "9i pretrained frozen loop")
     want = converted_tower(ade)
     tower = probe.trainer.model.branch_l0.tower.state_dict()
     changed = [k for k, v in want.items()
@@ -4436,7 +3460,6 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
         tower_changed=len(changed), other_params_moved=moved_3d)
     if changed or set(want) != set(tower) or not moved_3d:
         raise AssertionError(f"frozen tower changed: {changed[:5]}")
-    out["launches"]["pretrained_frozen"] = launches
     del probe, tower
     torch.cuda.empty_cache()
 
@@ -4447,36 +3470,28 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
     counts = list(loaded.values())
     if counts != PYRAMID_LOADED:
         raise AssertionError(f"pyramid loaded {loaded}")
-    n = int(first["graph"]["levels"][0]["valid"].sum())
     zero_launches()
     with torch.no_grad():
         logits = model.eval()(first)["logits"][first["graph"]["levels"][0][
             "valid"]]
-    torch.cuda.synchronize()
     fwd_launches = dict(seg.LAUNCHES)
     if fwd_launches != {"segment_csr": PYRAMID_FORWARD,
                         "segment_csr_bwd": 0} or not bool(
                             torch.isfinite(logits).all()):
         raise AssertionError(f"pyramid forward launches {fwd_launches}")
-    run = run_steps(model, first, n, 1, 0, "9i pyramid",
-                    {"segment_csr": PYRAMID_FORWARD,
-                     "segment_csr_bwd": PYRAMID_BACKWARD})
+    losses = run_steps(model, first, 1, "9i pyramid",
+                       {"segment_csr": PYRAMID_FORWARD,
+                        "segment_csr_bwd": PYRAMID_BACKWARD})
     log("9i pyramid", model=PYRAMID_MODEL, loaded=loaded, params=sum(
         p.numel() for p in model.parameters()),
-        forward_ms=f"{forward_ms(model, first):.1f}",
-        step_ms=f"{run['step_ms'][0]:.1f}",
-        peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
         launches_per_step=(PYRAMID_FORWARD, PYRAMID_BACKWARD),
-        loss=f"{run['losses'][0]:.4f}")
-    out["launches"]["pyramid"] = fwd_launches
+        loss=f"{losses[0]:.4f}")
     del model
     torch.cuda.empty_cache()
 
     # (c) the squeeze-excitation Res16UNet34 through the CLIs, then the
     # bottleneck and SE nets at library level
-    se = loop_se(cli, root, tmp)
-    out["launches"].update(se["launches"])
-    out["paths"].update(se["paths"])
+    loop_se(cli, root, tmp)
     for label, name, fwd_n, bwd_n in SE_MODELS:
         phase = f"9i {label}"
         model = build_model(get_model_spec(name, 13, 4), device="cuda",
@@ -4485,40 +3500,28 @@ def loop_pretrained(cli, cli_eval, tmp: Path) -> dict:
                 fwd_n - (FORWARD_LAUNCHES if "-L4-" in name else 0),
                 bwd_n - (BACKWARD_LAUNCHES if "-L4-" in name else 0)):
             raise AssertionError(f"{phase}: {se_blocks(model)} SE blocks")
-        torch.cuda.synchronize()
         zero_launches()
         with torch.no_grad():
             logits = model.eval()(first)["logits"][first["graph"]["levels"][
                 0]["valid"]]
-        torch.cuda.synchronize()
         launches = dict(seg.LAUNCHES)
         if launches != {"segment_csr": fwd_n, "segment_csr_bwd": 0} or not \
                 bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{phase}: forward launches {launches}")
-        fwd_ms = forward_ms(model, first)
-        run = run_steps(model, first, n, 2, 0, phase,
-                        {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
-        fields = {}
+        losses = run_steps(model, first, 2, phase,
+                           {"segment_csr": fwd_n, "segment_csr_bwd": bwd_n})
         if fwd_n:
-            fwd, bwd = family_kernels(model, first, f"{phase} kernels",
-                                      fwd_n, bwd_n)
-            out["paths"][label] = (fwd, bwd)
-            fields = kernel_fields(fwd, bwd)
+            family_kernels(model, first, f"{phase} kernels", fwd_n, bwd_n)
         log(phase, model=name, params=sum(p.numel()
                                           for p in model.parameters()),
-            se_blocks=se_blocks(model), forward_ms=f"{fwd_ms:.1f}",
-            step_ms_first=f"{run['step_ms'][0]:.1f}",
-            step_ms_rest=f"{np.mean(run['step_ms'][1:]):.1f}",
-            peak_mem_gib=f"{run['peak'] / 2**30:.2f}",
-            launches_per_forward=fwd_n, launches_per_step=(fwd_n, bwd_n),
-            losses="/".join(f"{x:.4f}" for x in run["losses"]), **fields)
-        out["launches"][label] = launches
+            se_blocks=se_blocks(model), launches_per_forward=fwd_n,
+            launches_per_step=(fwd_n, bwd_n),
+            losses="/".join(f"{x:.4f}" for x in losses))
         del model
         torch.cuda.empty_cache()
-    return out
 
 
-def loop_se(cli, root: Path, tmp: Path) -> dict:
+def loop_se(cli, root: Path, tmp: Path) -> None:
     """9i (c): ``cli.train`` of ``SERes16UNet34`` (3D only: every launch is
     a squeeze-excitation pool) on 9e's layout for one epoch of
     ``SE_SPHERES`` spheres, its first batch's segment calls against plain,
@@ -4539,8 +3542,6 @@ def loop_se(cli, root: Path, tmp: Path) -> dict:
             "training.epochs=1", f"data.samples_per_epoch={SE_SPHERES}",
             "training.eval_frequency=2", "data.num_classes=13",
             "data.kwargs={fold: 5, keep_raw: true}"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with LoopProbe() as probe:
         cli.main(args)
@@ -4551,13 +3552,9 @@ def loop_se(cli, root: Path, tmp: Path) -> dict:
         raise AssertionError(f"not {name}: {model.spec}")
     log("9i se loop", model=name, params=sum(
         p.numel() for p in model.parameters()), **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches)
     del probe
-    fwd, bwd = family_kernels(model, batch, "9i se loop kernels", fwd_n,
-                              bwd_n)
-    log("9i se loop", forward_ms=f"{forward_ms(model, batch):.1f}",
-        **kernel_fields(fwd, bwd))
+    family_kernels(model, batch, "9i se loop kernels", fwd_n, bwd_n)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -4582,14 +3579,10 @@ def loop_se(cli, root: Path, tmp: Path) -> dict:
             return self
 
     zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with Counted():
         dst = cli_predict.main(["--run_dir", str(run_dir), "--input",
                                 str(src), "--output",
                                 str(tmp / "se_room_pred.ply")])
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     predict_launches = dict(seg.LAUNCHES)
     labels = read_ply(dst)["label"]
     expect = {"segment_csr": fwd_n * len(forwards), "segment_csr_bwd": 0}
@@ -4597,11 +3590,7 @@ def loop_se(cli, root: Path, tmp: Path) -> dict:
         raise AssertionError(f"se predict: {len(labels)} labels for {voxels} "
                              f"voxels, launches {predict_launches}")
     log("9i se predict", model=name, raw_points=len(pts), voxels=voxels,
-        forwards=len(forwards), predict_ms=f"{ms:.1f}",
-        launches=predict_launches)
-    return {"launches": {"seres16unet34": launches,
-                         "seres16unet34_predict": predict_launches},
-            "paths": {"seres16unet34": (fwd, bwd)}}
+        forwards=len(forwards), launches=predict_launches)
 
 
 
@@ -4915,21 +3904,18 @@ def s3dis_inline_caches(root: Path) -> None:
                            keep_raw=True)
 
 
-def preprocess_shards(root: Path, out: Path) -> dict:
+def preprocess_shards(root: Path, out: Path) -> None:
     """``cli.preprocess --dataset s3dis`` in two shards into ``out``; each
     cache held against 9e's in-line one: byte-equal, else equal array by
-    array (the zip container of ``np.savez_compressed`` carries a time).
-    Returns the ms per area."""
+    array (the zip container of ``np.savez_compressed`` carries a time)."""
     import filecmp
 
     from deepviewagg_tpu_torch.cli import preprocess as cli_pre
 
-    ms = {}
-    with s3dis_probe() as pre:
-        for shard in (0, 1):
-            cli_pre.main(["--dataset", "s3dis", "--root", str(root), "--out",
-                          str(out), "--voxel-size", "0.05", "--keep-raw",
-                          "--shard", str(shard), "--num-shards", "2"])
+    for shard in (0, 1):
+        cli_pre.main(["--dataset", "s3dis", "--root", str(root), "--out",
+                      str(out), "--voxel-size", "0.05", "--keep-raw",
+                      "--shard", str(shard), "--num-shards", "2"])
     inline = root / "processed_dva"
     names = sorted(p.name for p in out.iterdir())
     if names != sorted(p.name for p in inline.iterdir()):
@@ -4946,12 +3932,7 @@ def preprocess_shards(root: Path, out: Path) -> dict:
             raise AssertionError(f"{name}: cli.preprocess differs from the "
                                  "in-line cache")
         equal[name] = "arrays"
-    for area, t in pre.clouds.items():
-        ms[area] = t["total"]
-    log("9j preprocess", shards=2, areas=sorted(ms),
-        ms_per_area={a: f"{v:.0f}" for a, v in sorted(ms.items())},
-        equal=equal)
-    return ms
+    log("9j preprocess", shards=2, equal=equal)
 
 
 def check_flagship_ingest(path: str) -> None:
@@ -4983,7 +3964,7 @@ def ref_kinds(spec, label: str) -> None:
         raise AssertionError(f"9j {label}: not the entry's spec: {spec}")
 
 
-def loop_reference(cli, cli_eval, tmp: Path) -> dict:
+def loop_reference(cli, cli_eval, tmp: Path) -> None:
     """9j: reference-YAML ingest end to end (see ``REF_ENTRIES``):
     preprocess shards, the flagship ingest, then for each of (a) the shared
     trunk, (b) tower reuse and (c) the raw-RGB branch ``cli.train`` (4
@@ -4998,12 +3979,11 @@ def loop_reference(cli, cli_eval, tmp: Path) -> dict:
         write_s3dis_layout(root)
     if not (root / "processed_dva" / "area_5.npz").exists():
         s3dis_inline_caches(root)
-    out = {"paths": {}, "launches": {}}
     log("9j reference cuts", spheres=f"{REF_SPHERES} a model (4 steps), 1 "
         "epoch (recipe 200 x 2000)", widths="none cut",
         batch="4 spheres x 4 image slots of 1024x512 as ingested",
         rehearsal=" ".join(REF_REHEARSAL) or "defaults")
-    out["preprocess_ms"] = preprocess_shards(root, tmp / "ref_caches")
+    preprocess_shards(root, tmp / "ref_caches")
     conf = write_reference_conf(tmp / "ref")
     env = {"DVA_REFERENCE_CONF": str(conf / "models/segmentation"),
            "DVA_REFERENCE_DATA_CONF": str(conf / "data/segmentation/"
@@ -5014,7 +3994,7 @@ def loop_reference(cli, cli_eval, tmp: Path) -> dict:
         check_flagship_ingest(str(conf / "models/segmentation/multimodal/"
                                          "sparseconv3d.yaml"))
         for label, entry, fwd_n, bwd_n in REF_ENTRIES:
-            ref_run(cli, cli_eval, root, tmp, label, entry, fwd_n, bwd_n, out)
+            ref_run(cli, cli_eval, root, tmp, label, entry, fwd_n, bwd_n)
         shared = get_model_spec(f"ref:sparseconv3d/{REF_ENTRIES[0][1]}", 4,
                                 4)
     finally:
@@ -5024,19 +4004,18 @@ def loop_reference(cli, cli_eval, tmp: Path) -> dict:
             else:
                 os.environ[k] = v
     ref_card_vs_cpu(shared)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with KnnGridCalls() as grid:
-        out["rehearsal"] = scale_rehearsal.main(list(REF_REHEARSAL))
-    if len(grid.ms) != 1:
-        raise AssertionError(f"9j rehearsal: {len(grid.ms)} grid kNN calls")
-    log("9j scale rehearsal", seconds=f"{time.perf_counter() - t0:.1f}",
-        knn_grid_ms=f"{grid.ms[0]:.0f}", **out["rehearsal"])
-    return out
+        rehearsal = scale_rehearsal.main(list(REF_REHEARSAL))
+    if grid.calls != 1:
+        raise AssertionError(f"9j rehearsal: {grid.calls} grid kNN calls")
+    log("9j scale rehearsal", knn_grid_calls=grid.calls,
+        **{k: rehearsal[k] for k in ("raw_points", "voxels",
+                                     "full_res_points",
+                                     "vote_spilled_clouds")})
 
 
 def ref_run(cli, cli_eval, root: Path, tmp: Path, label: str, entry: str,
-            fwd_n, bwd_n, out: dict) -> None:
+            fwd_n, bwd_n) -> None:
     """One 9j model through ``cli.train`` and ``cli.eval``."""
     flat = () if label == "raw" else REF_FLAT
     run_dir = tmp / f"ref_{label}_run"
@@ -5044,8 +4023,6 @@ def ref_run(cli, cli_eval, root: Path, tmp: Path, label: str, entry: str,
             f"model.name=ref:sparseconv3d/{entry}",
             f"training.run_dir={run_dir}", "training.tensorboard=false",
             *REF_LOOP, *flat]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with LoopProbe() as probe:
         cli.main(args)
@@ -5066,15 +4043,10 @@ def ref_run(cli, cli_eval, root: Path, tmp: Path, label: str, entry: str,
         data_ref="s3disfused-sparse", flat=" ".join(flat) or "ladder",
         params=sum(p.numel() for p in model.parameters()),
         images=probe.train_images[0], **probe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_step=probe.step_launches[0], launches=launches,
         val_miou=f"{records[0]['val_miou']:.2f}")
-    out["launches"][label] = launches
     del probe
-    fwd, bwd = out["paths"][label] = family_kernels(
-        model, batch, f"9j {label} kernels", fwd_n, bwd_n)
-    log(f"9j {label} loop", forward_ms=f"{forward_ms(model, batch):.1f}",
-        **kernel_fields(fwd, bwd))
+    family_kernels(model, batch, f"9j {label} kernels", fwd_n, bwd_n)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -5083,11 +4055,9 @@ def ref_run(cli, cli_eval, root: Path, tmp: Path, label: str, entry: str,
         *flat], forward=fwd_n)
     worst = check_doubled(eprobe, eprobe.votes.num_classes)
     log(f"9j {label} eval", voting_runs=EVAL_VOTING_RUNS, **eprobe.summary(),
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches_per_batch=eprobe.step_launches[0], launches=eval_launches,
         votes_twice_rel_err=f"{worst:.2e}",
         **{k: f"{v:.3f}" for k, v in metrics.items()})
-    out["launches"][f"{label}_eval"] = eval_launches
     del eprobe
     torch.cuda.empty_cache()
 
@@ -5100,8 +4070,8 @@ def ref_card_vs_cpu(spec) -> None:
     atomic maxima behind bilinear taps route near ties apart), beside the
     CPU against itself on half its threads."""
     phase = "9j shared f32 card vs cpu"
-    np_batch, _ = make_request(0, "cuda", branch_levels=(0, 1, 2, 3, 4),
-                               **CHECK_REQUEST)
+    np_batch = make_request(0, "cuda", branch_levels=(0, 1, 2, 3, 4),
+                            **CHECK_REQUEST)
     model = MultimodalSeg(spec, device="cuda", seed=0).eval()
     phase_card_vs_cpu(model, np_batch, phase="9j shared card vs cpu")
     phase_train_card_vs_cpu(model, np_batch,
@@ -5129,37 +4099,31 @@ def ref_card_vs_cpu(spec) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_loop(tmp: Path) -> dict:
+def phase_loop(tmp: Path) -> tuple:
     """Phase 9: the experiment loop on the card, through the entry point a
     user calls (``cli.train.main``), in this process; data and run dirs
-    under ``tmp``."""
+    under ``tmp``.  Returns 9b's first UNet graph build (for 13a)."""
     from deepviewagg_tpu_torch.cli import eval as cli_eval
     from deepviewagg_tpu_torch.cli import train as cli
 
-    def part(name, fn, *args):
-        """``fn(*args)``, its seconds on the host clock logged."""
-        t0 = time.perf_counter()
+    def part(fn, *args):
         out = fn(*args)
         torch.cuda.empty_cache()
-        log("9 loop", part=name, seconds=f"{time.perf_counter() - t0:.1f}")
         return out
 
-    quick = part("9a", loop_quick, cli, tmp)
-    recipe = part("9b", loop_recipe, cli, tmp)
-    evaluation = part("9c", loop_eval, cli_eval, tmp)
-    part("9c'", loop_mc_dropout, cli_eval, tmp)
-    part("9c''", loop_eval_card_vs_cpu, cli_eval, tmp)
-    predict = part("9d", loop_predict, tmp)
-    s3dis = part("9e", loop_s3dis, cli, cli_eval, tmp)
-    scannet = part("9f", loop_scannet, cli, cli_eval, tmp)
-    kitti360 = part("9g", loop_kitti360, cli, cli_eval, tmp)
-    families = part("9h", loop_families, cli, cli_eval, tmp)
-    pretrained = part("9i", loop_pretrained, cli, cli_eval, tmp)
-    reference = part("9j", loop_reference, cli, cli_eval, tmp)
-    return {"quick": quick, "recipe": recipe, "eval": evaluation,
-            "predict": predict, "s3dis": s3dis, "scannet": scannet,
-            "kitti360": kitti360, "families": families,
-            "pretrained": pretrained, "reference": reference}
+    part(loop_quick, cli, tmp)
+    graph = part(loop_recipe, cli, tmp)
+    part(loop_eval, cli_eval, tmp)
+    part(loop_mc_dropout, cli_eval, tmp)
+    part(loop_eval_card_vs_cpu, cli_eval, tmp)
+    part(loop_predict, tmp)
+    part(loop_s3dis, cli, cli_eval, tmp)
+    part(loop_scannet, cli, cli_eval, tmp)
+    part(loop_kitti360, cli, cli_eval, tmp)
+    part(loop_families, cli, cli_eval, tmp)
+    part(loop_pretrained, cli, cli_eval, tmp)
+    part(loop_reference, cli, cli_eval, tmp)
+    return graph
 
 
 # phase 10: data and view parallelism (deepviewagg_tpu_torch/parallel/).
@@ -5167,8 +4131,7 @@ def phase_loop(tmp: Path) -> dict:
 # NCCL refuses two ranks on one card): the flagship's
 # data-parallel step on the bench request against the plain step from the
 # same weights (the loss equal, the update within the plain step's own
-# run-to-run gap on the card), the step ms of both, one all-reduce of the
-# flagship's 202 MB of gradients, the collectives' NCCL paths, then
+# run-to-run gap on the card), the collectives' NCCL paths, then
 # cli.train with training.data_parallel=true on 9e's layout
 # (PARALLEL_LOOP: 4 steps of the S3DIS recipe and an eval), resumed for one
 # step (PARALLEL_RESUME) with the restore checked bit for bit.  10b holds
@@ -5178,7 +4141,6 @@ def phase_loop(tmp: Path) -> dict:
 # valid counts, with other labels, colours and images) against one process
 # on their union; the batches swapped; view parallel (1 x 2) against one
 # process on the bench request.
-PARALLEL_TIMED_STEPS = 3
 PARALLEL_SPHERES = 16                  # 4 steps of batch 4
 PARALLEL_LOOP = ("training.epochs=1",
                  f"data.samples_per_epoch={PARALLEL_SPHERES}",
@@ -5187,7 +4149,6 @@ PARALLEL_LOOP = ("training.epochs=1",
                  "training.data_parallel=true")
 PARALLEL_RESUME = ("data.samples_per_epoch=4", "training.eval_frequency=2",
                    "training.resume=true")
-ALLREDUCE_ITERS = 5
 GLOO_WORLD = 2
 GLOO_TIMEOUT_S = 300
 SWAP_RTOL = 1e-6                       # two ranks' sums, in either order
@@ -5197,17 +4158,6 @@ SWAP_RTOL = 1e-6                       # two ranks' sums, in either order
 # bit-equal, so the DP step's update is held to three times the plain
 # pair's gap, at least DP_UPDATE_FLOOR (three times the larger gap)
 DP_UPDATE_FLOOR = 1e-2
-_CARD = []
-
-
-def card_tag() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    if not _CARD:
-        _CARD.append(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0].replace(" ", "_"))
-    return _CARD[0]
 
 
 def sgd_state(model):
@@ -5247,18 +4197,6 @@ def record_step_calls(step, state, batch) -> tuple:
     return state, metrics, fwd, bwd
 
 
-def timed_steps(step, state, batch, n: int) -> float:
-    """Mean host ms of ``n`` steps, each closed by a synchronisation."""
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, batch, None)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.mean(times))
-
-
 def nccl_collectives(col) -> None:
     """The collectives' NCCL paths at world 1 (all_gather_into_tensor,
     reduce_scatter_tensor, all_reduce), forward and gradient."""
@@ -5274,9 +4212,8 @@ def nccl_collectives(col) -> None:
                              "identity")
 
 
-def parallel_step_check(model, np_batch) -> dict:
-    """10a at the library level (see PARALLEL_*): returns the kernels'
-    sums over the DP step's segment calls and its launch counts."""
+def parallel_step_check(model, np_batch) -> None:
+    """10a at the library level (see PARALLEL_*)."""
     import torch.distributed as dist
 
     from deepviewagg_tpu_torch.parallel import collectives as col
@@ -5294,7 +4231,6 @@ def parallel_step_check(model, np_batch) -> dict:
         torch.cuda.synchronize()
         plain.append((float(metrics["loss"]), float(metrics["grad_norm"]),
                       update_of(m, start)))
-        plain_ms = timed_steps(step, state, batch, PARALLEL_TIMED_STEPS)
         del m, state, step
     m = copy.deepcopy(model).train()
     pmesh.replicate(m, mesh)
@@ -5318,39 +4254,24 @@ def parallel_step_check(model, np_batch) -> dict:
         raise AssertionError(f"10a dp vs plain: loss {loss} vs {plain[0][0]}"
                              f" (plain gap {loss_gap}), update {dp_gap} vs "
                              f"the plain steps' own gap {gap}")
-    dp_ms = timed_steps(step, state, batch, PARALLEL_TIMED_STEPS)
-    # one all-reduce of the gradients as one flat buffer, and the step's
-    # bucketed mean (flatten, all-reduce, divide, copy back)
-    grads = [p.grad for p in m.parameters() if p.grad is not None]
-    flat = torch.cat([g.flatten() for g in grads])
-    ar_ms = time_ms(lambda: dist.all_reduce(flat), ALLREDUCE_ITERS)
-    mean_ms = time_ms(lambda: col.all_reduce_mean_(grads), ALLREDUCE_ITERS)
     nccl_collectives(col)
-    log("10a dp step", card=card_tag(), backend=dist.get_backend(),
+    log("10a dp step", backend=dist.get_backend(),
         world=dist.get_world_size(), devices=torch.cuda.device_count(),
         params=sum(p.numel() for p in m.parameters()),
         loss_dp=f"{loss:.7f}", loss_plain=f"{plain[0][0]:.7f}/"
         f"{plain[1][0]:.7f}", loss_bit_equal=loss == plain[0][0],
         grad_norm_dp=f"{gnorm:.6f}", grad_norm_plain=f"{plain[0][1]:.6f}",
         update_rel_gap_dp=f"{dp_gap:.3e}",
-        update_rel_gap_plain_runs=f"{gap:.3e}",
-        step_ms_plain=f"{plain_ms:.1f}", step_ms_dp=f"{dp_ms:.1f}",
-        launches=launches, nccl_identity=True)
-    log("10a allreduce", card=card_tag(), bytes=flat.numel() * 4,
-        all_reduce_ms=f"{ar_ms:.3f}", bucketed_mean_ms=f"{mean_ms:.3f}",
-        buckets=-(-flat.numel() * 4 // col.BUCKET_BYTES),
-        gb_per_s=f"{flat.numel() * 4 / ar_ms / 1e6:.1f}")
-    del state, step, grads, flat
-    fwd = measure_forward_calls(fwd_calls, "10a dp kernels",
-                                "calls_per_forward", FAMILY_TIME_ITERS)
-    bwd = measure_backward_calls(bwd_calls, "10a dp kernels",
-                                 FAMILY_TIME_ITERS)
+        update_rel_gap_plain_runs=f"{gap:.3e}", launches=launches,
+        nccl_identity=True)
+    del state, step
+    check_forward_calls(fwd_calls, "10a dp kernels", "calls_per_forward")
+    check_backward_calls(bwd_calls, "10a dp kernels")
     del m, fwd_calls, bwd_calls
     torch.cuda.empty_cache()
-    return {"forward": fwd, "backward": bwd, "launches": launches}
 
 
-def loop_parallel(cli, tmp: Path) -> dict:
+def loop_parallel(cli, tmp: Path) -> None:
     """10a through the entry point: ``cli.train`` with
     ``training.data_parallel=true`` on 9e's layout in this process's
     process group, then resumed."""
@@ -5373,7 +4294,7 @@ def loop_parallel(cli, tmp: Path) -> dict:
             or not (run_dir / "latest.pt").exists()):
         raise AssertionError(f"10a parallel loop: mesh {mesh}, "
                              f"{len(probe.losses)} steps, {records}")
-    log("10a parallel loop", card=card_tag(), world=mesh.n_data,
+    log("10a parallel loop", world=mesh.n_data,
         **probe.summary(), launches=launches,
         val_miou=f"{records[0]['val_miou']:.2f}")
     saved = torch.load(run_dir / "latest.pt", map_location="cpu",
@@ -5385,10 +4306,8 @@ def loop_parallel(cli, tmp: Path) -> dict:
     resumed.check_steps("10a parallel resume")
     if restored != [[]]:
         raise AssertionError(f"10a resume: restored state differs {restored}")
-    log("10a parallel resume", card=card_tag(), restored_bit_equal=True,
-        saved_step=saved["step"], steps=len(resumed.losses),
-        step_ms=resumed.summary()["first_step_ms"])
-    return launches
+    log("10a parallel resume", restored_bit_equal=True,
+        saved_step=saved["step"], steps=len(resumed.losses))
 
 
 def variant_samples(samples, num_classes: int) -> list:
@@ -5481,13 +4400,10 @@ def gloo_rank(rank: int, port: int, out_dir: str) -> None:
                 else:
                     step = pmesh.data_parallel_step(
                         make_train_step(model, group=mesh.data_group), mesh)
-                t0 = time.perf_counter()
                 state, m = step(state, batches[order[mesh.data_rank]], None)
-                torch.cuda.synchronize()
                 res[name] = {"loss": float(m["loss"]),
                              "grad_norm": float(m["grad_norm"]),
-                             "digest": state_digest(model),
-                             "ms": (time.perf_counter() - t0) * 1e3}
+                             "digest": state_digest(model)}
                 if rank == 0 and name != "swapped":
                     res[name]["update"] = update_of(model, start).float().cpu()
         torch.save(res, Path(out_dir) / f"rank{rank}.pt")
@@ -5590,19 +4506,16 @@ def phase_gloo(model, tmp: Path) -> None:
     if swap > SWAP_RTOL:
         raise AssertionError(f"10b: swapping the batches moved the loss by "
                              f"{swap}")
-    log("10b gloo", card=card_tag(), world=GLOO_WORLD,
+    log("10b gloo", world=GLOO_WORLD,
         gloo_cuda_collectives=got[0]["gloo_cuda"],
-        valid_voxels_each=valid_voxels(batch_a),
-        seconds=f"{time.perf_counter() - t0:.1f}")
+        valid_voxels_each=valid_voxels(batch_a))
     for name, c in checks.items():
-        log(f"10b {name}", card=card_tag(),
+        log(f"10b {name}",
             vs="union (one process)" if name == "dp" else "one process",
             loss=f"{got[0][name]['loss']:.7f}",
             loss_rel=f"{c['loss']:.2e}", grad_norm_rel=f"{c['grad_norm']:.2e}",
-            update_rel=f"{c['update']:.2e}", ranks_bit_equal=True,
-            step_ms_rank0=f"{got[0][name]['ms']:.1f}")
-    log("10b swapped", card=card_tag(), loss_rel_to_dp=f"{swap:.2e}",
-        ranks_bit_equal=True)
+            update_rel=f"{c['update']:.2e}", ranks_bit_equal=True)
+    log("10b swapped", loss_rel_to_dp=f"{swap:.2e}", ranks_bit_equal=True)
 
 
 def free_port() -> int:
@@ -5614,27 +4527,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_parallel(model, np_batch, cli, tmp: Path) -> dict:
+def phase_parallel(model, np_batch, cli, tmp: Path) -> None:
     """Phase 10: data and view parallelism (see PARALLEL_*, GLOO_*)."""
     import torch.distributed as dist
 
     from deepviewagg_tpu_torch.parallel import multihost
 
-    t0 = time.perf_counter()
     multihost.initialize(device="cuda")
     try:
-        step = parallel_step_check(model, np_batch)
-        log("10 parallel", part="10a step",
-            seconds=f"{time.perf_counter() - t0:.1f}")
-        loop = loop_parallel(cli, tmp)
-        log("10 parallel", part="10a loop",
-            seconds=f"{time.perf_counter() - t0:.1f}")
+        parallel_step_check(model, np_batch)
+        loop_parallel(cli, tmp)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     phase_gloo(model, tmp)
-    log("10 parallel", part="10b", seconds=f"{time.perf_counter() - t0:.1f}")
-    return {**step, "loop_launches": loop}
 
 
 # phase 11: the non-segmentation tasks through their entry point,
@@ -5645,12 +4551,10 @@ def phase_parallel(model, np_batch, cli, tmp: Path) -> dict:
 # points), panoptic (PanopticSeg, Res16UNet14, voxel 0.15, caps 12288 ..
 # 512, batch 2), registration (RegistrationNet, Res16UNetTest, descriptor
 # 16, caps 4096 .. 256), procedural data, TASK_BATCHES batches of one epoch,
-# the first step a warm-up.  11a: the run; every step closed by a
-# synchronisation and checked (finite loss, TASK_LAUNCHES); step ms (median
-# of the timed steps), peak memory.  11b: every segment_csr forward and
-# backward call of one classification step (the global mean and max pools
-# of the coarsest level's batch_idx into num_batches + 1 segments) held
-# against the plain versions and timed as in phases 2 / 2b.  11c: the first
+# 11a: the run; every step checked (finite loss, TASK_LAUNCHES).  11b: every
+# segment_csr forward and backward call of one classification step (the
+# global mean and max pools of the coarsest level's batch_idx into
+# num_batches + 1 segments) held against the plain versions.  11c: the first
 # step of each task on the card and on the CPU from the same weights and
 # batch (no dropout), twice: with the production bf16 conv operands, the
 # loss within phase 7's TRAIN_LOSS_RTOL and the gradient norm within its
@@ -5682,14 +4586,13 @@ ZERO_DESCRIPTOR = 1e-6                  # raw descriptor norm of such a row
 
 class TaskProbe(Seams):
     """The seams of one ``cli.train_task.main`` run: every train step
-    (closed by a synchronisation: ms, loss, launches of each kernel), the
-    task's step builder with its arguments, the model's parameters and
-    running statistics as ``TaskTrainer.init`` left them, and the first
-    host batch."""
+    (loss, launches of each kernel), the task's step builder with its
+    arguments, the model's parameters and running statistics as
+    ``TaskTrainer.init`` left them, and the first host batch."""
 
     def __init__(self):
         super().__init__()
-        self.step_ms, self.losses, self.launches = [], [], []
+        self.losses, self.launches = [], []
         self.make = self.trainer = self.start = self.host_batch = None
 
     def __enter__(self):
@@ -5704,11 +4607,7 @@ class TaskProbe(Seams):
 
                 def run(state, batch, generator):
                     before = dict(seg.LAUNCHES)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
                     state, metrics = step(state, batch, generator)
-                    torch.cuda.synchronize()
-                    probe.step_ms.append((time.perf_counter() - t0) * 1e3)
                     loss = float(metrics["loss"])
                     if not np.isfinite(loss):
                         raise AssertionError(
@@ -5793,16 +4692,13 @@ def task_card_vs_cpu(task: str, probe) -> None:
              (ALL_F32_LOSS_RTOL, ALL_F32_GRAD_NORM_RTOL))):
         with ctx():
             card = task_first_step(probe, "cuda")
-            t0 = time.perf_counter()
             cpu = task_first_step(probe, "cpu")
-            cpu_s = time.perf_counter() - t0
         gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
                 for k in cpu}
         log("11c task card vs cpu", task=task, operands=mode,
             loss_card=f"{card['loss']:.6f}", loss_cpu=f"{cpu['loss']:.6f}",
             grad_norm_card=f"{card['grad_norm']:.4f}",
-            grad_norm_cpu=f"{cpu['grad_norm']:.4f}",
-            cpu_step_s=f"{cpu_s:.2f}", **extra,
+            grad_norm_cpu=f"{cpu['grad_norm']:.4f}", **extra,
             **{f"{k}_rel_gap": f"{v:.2e}" for k, v in gaps.items()})
         if gaps["loss"] > bounds[0] or (task in TASK_GRAD_NORM_HELD
                                         and gaps["grad_norm"] > bounds[1]):
@@ -5811,9 +4707,9 @@ def task_card_vs_cpu(task: str, probe) -> None:
                                  f"{gaps['grad_norm']} (bounds {bounds})")
 
 
-def task_kernels(probe) -> tuple:
+def task_kernels(probe) -> None:
     """11b: every segment call of one classification step (a copy of the
-    trained model, the first batch) against the plain versions, timed."""
+    trained model, the first batch) against the plain versions."""
     model = copy.deepcopy(probe.trainer.model)
     _, _, fwd, bwd = record_step_calls(
         probe.make(model), task_adam(model),
@@ -5823,26 +4719,21 @@ def task_kernels(probe) -> tuple:
         raise AssertionError(f"11b: {len(fwd)} + {len(bwd)} segment calls "
                              f"in one classification step, expected "
                              f"{expect}")
-    x, ptr, valid, _ = fwd[0]
+    x, ptr, _, _ = fwd[0]
     log("11b task kernels", rows=x.shape[0], channels=x.shape[1],
-        segments=ptr.numel() - 1, live_rows=live_rows(ptr, valid,
-                                                      x.shape[0]),
-        ptr=ptr.tolist())
-    return (measure_forward_calls(fwd, "11b task kernels", "calls_per_step"),
-            measure_backward_calls(bwd, "11b task kernels"))
+        segments=ptr.numel() - 1, ptr=ptr.tolist())
+    check_forward_calls(fwd, "11b task kernels", "calls_per_step")
+    check_backward_calls(bwd, "11b task kernels")
 
 
-def phase_tasks() -> dict:
-    """Phase 11 (see TASK_*): returns the kernels' sums over 11b's calls and
-    each task's launch counts over its 11a run."""
+def phase_tasks() -> None:
+    """Phase 11 (see TASK_*)."""
     from deepviewagg_tpu_torch.cli import train_task as cli_task
 
-    launches, kernels = {}, None
+    launches = {}
     for task in TASKS:
-        t0 = time.perf_counter()
         zero_launches()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         with TaskProbe() as probe:
             metrics = cli_task.main(["--task", task, "--batches",
                                      str(TASK_BATCHES[task])])
@@ -5865,18 +4756,12 @@ def phase_tasks() -> dict:
             params=sum(p.numel() for p in probe.trainer.model.parameters()),
             steps=len(probe.losses),
             losses="/".join(f"{v:.4f}" for v in probe.losses),
-            first_step_ms=f"{probe.step_ms[0]:.1f}",
-            step_ms_median=f"{np.median(probe.step_ms[1:]):.1f}",
-            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
             launches=launches[task],
             **{k: f"{v:.4f}" for k, v in metrics.items()
-               if k not in ("batches", "loss")})
+               if k not in ("batches", "loss", "time_s")})
         if task == "classification":
-            kernels = task_kernels(probe)
+            task_kernels(probe)
         task_card_vs_cpu(task, probe)
-        log("11 tasks", task=task, seconds=f"{time.perf_counter() - t0:.1f}")
-    return {"forward": kernels[0], "backward": kernels[1],
-            "launches": launches}
 
 
 # --- phase 12: the point backbones ---------------------------------------------
@@ -5903,7 +4788,7 @@ BACKBONE_K, PPNET_SELF_K = 32, 16
 RANDLA_DECIMATION, RANDLA_K = 4, 16
 PVCNN_RESOLUTIONS = (24, 16, 12)
 SEG_CLASSES, CLS_CLASSES = 13, 40
-BACKBONE_WARMUP, BACKBONE_TIMED = 2, 4       # train steps (Adam, task_adam)
+BACKBONE_STEPS = 6                           # train steps (Adam, task_adam)
 # name: ((forward, backward) sorted-segment launches per train step, bf16
 # operands).  PointNet: three masked maxima over batch_idx (T-Net 3, T-Net
 # 64, the global descriptor), each differentiated; PVCNN: the voxel mean's
@@ -5976,16 +4861,12 @@ def backbone_graphs() -> tuple:
     points = {"feats": np.concatenate([scene.rgb[take].astype(np.float32),
                                        np.ones((n, 1), np.float32)], 1),
               "valid": valid, "labels": scene.labels[take].astype(np.int32)}
-    t0 = time.perf_counter()
     pn = build_pointnet_graph(pos, zeros, valid, n_points=BACKBONE_LEVELS,
                               radii=BACKBONE_RADII, k=BACKBONE_K,
                               self_k=PPNET_SELF_K)
-    t1 = time.perf_counter()
     rl = build_randla_graph(pos, zeros, valid, decimation=RANDLA_DECIMATION,
                             num_levels=len(BACKBONE_LEVELS), k=RANDLA_K)
     log("12 backbones", part="graphs", points=n,
-        pointnet_graph_s=f"{t1 - t0:.2f}",
-        randla_graph_s=f"{time.perf_counter() - t1:.2f}",
         group_count_mean="/".join(f"{lvl['group_count'].mean():.1f}"
                                   for lvl in pn["levels"]))
     return dict(points, pn_graph=pn), dict(points, rl_graph=rl)
@@ -6037,25 +4918,20 @@ def backbone_step(model, name: str):
 
 
 def backbone_run(name: str, host_batch: dict) -> tuple:
-    """12a: one eval-mode forward and BACKBONE_WARMUP + BACKBONE_TIMED train
-    steps of ``name`` on the card, every step's segment launches asserted;
-    returns the model's start state (parameters and running statistics),
-    the trained model, its optimizer state, the batch on the card and the
-    launch counts over the run."""
+    """12a: one eval-mode forward and BACKBONE_STEPS train steps of
+    ``name`` on the card, every step's segment launches asserted; returns
+    the model's start state (parameters and running statistics), the
+    trained model, its optimizer state and the batch on the card."""
     (fwd, bwd), _ = BACKBONES[name]
     zero_launches()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     model = build_backbone(name, "cuda")
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     batch = batch_to_torch(host_batch, "cuda")
     rows = (BACKBONE_SAMPLES if name == "pointnet_cls"
             else host_batch["feats"].shape[0])
-    t0 = time.perf_counter()
     with torch.no_grad():
         logits = model.eval()(batch)["logits"]
-    torch.cuda.synchronize()
-    forward_ms = (time.perf_counter() - t0) * 1e3
     want_classes = CLS_CLASSES if name == "pointnet_cls" else SEG_CLASSES
     if logits.shape != (rows, want_classes) or not torch.isfinite(
             logits).all():
@@ -6065,14 +4941,10 @@ def backbone_run(name: str, host_batch: dict) -> tuple:
         raise AssertionError(f"12a {name}: eval forward launched "
                              f"{seg.LAUNCHES}, expected {fwd} + 0")
     step, state = backbone_step(model, name), task_adam(model)
-    losses, ms = [], []
-    for i in range(BACKBONE_WARMUP + BACKBONE_TIMED):
+    losses = []
+    for i in range(BACKBONE_STEPS):
         before = dict(seg.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, metrics = step(state, batch, None)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
         got = {k: seg.LAUNCHES[k] - before[k] for k in before}
         if got != {"segment_csr": fwd, "segment_csr_bwd": bwd}:
@@ -6085,21 +4957,16 @@ def backbone_run(name: str, host_batch: dict) -> tuple:
     off = [k for k, p in model.named_parameters() if p.device.type != "cuda"]
     if off:
         raise AssertionError(f"12a {name}: parameters off the card {off[:3]}")
-    launches = dict(seg.LAUNCHES)
     log("12a backbones", model=name, cls=type(model).__name__,
         params=sum(p.numel() for p in model.parameters()), rows=rows,
-        forward_ms=f"{forward_ms:.1f}", steps=len(losses),
-        losses="/".join(f"{v:.4f}" for v in losses),
-        first_step_ms=f"{ms[0]:.1f}",
-        step_ms_median=f"{np.median(ms[1:]):.1f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
-        launches_per_step=f"{fwd}+{bwd}", launches=launches)
-    return start, model, state, batch, launches
+        steps=len(losses), losses="/".join(f"{v:.4f}" for v in losses),
+        launches_per_step=f"{fwd}+{bwd}", launches=dict(seg.LAUNCHES))
+    return start, model, state, batch
 
 
-def backbone_kernels(name: str, model, state, batch) -> tuple:
+def backbone_kernels(name: str, model, state, batch) -> None:
     """12b: every segment call of one train step of ``name`` (the trained
-    model) held against the plain versions and timed as 11b does."""
+    model) held against the plain versions."""
     (fwd_n, bwd_n), _ = BACKBONES[name]
     _, _, fwd, bwd = record_step_calls(backbone_step(model, name), state,
                                        batch)
@@ -6107,14 +4974,12 @@ def backbone_kernels(name: str, model, state, batch) -> tuple:
         raise AssertionError(f"12b {name}: {len(fwd)} + {len(bwd)} segment "
                              f"calls in one step, expected {fwd_n} + "
                              f"{bwd_n}")
-    x, ptr, valid, _ = max(fwd, key=lambda c: c[0].numel())
+    x, ptr, _, _ = max(fwd, key=lambda c: c[0].numel())
     log("12b backbone kernels", model=name, widest_rows=x.shape[0],
-        channels=x.shape[1], segments=ptr.numel() - 1,
-        live_rows=live_rows(ptr, valid, x.shape[0]))
+        channels=x.shape[1], segments=ptr.numel() - 1)
     phase = f"12b {name} kernels"
-    return (measure_forward_calls(fwd, phase, "calls_per_step",
-                                  FAMILY_TIME_ITERS),
-            measure_backward_calls(bwd, phase, FAMILY_TIME_ITERS))
+    check_forward_calls(fwd, phase, "calls_per_step")
+    check_backward_calls(bwd, phase)
 
 
 def backbone_card_vs_cpu(name: str, start: dict, host_batch: dict) -> None:
@@ -6126,11 +4991,9 @@ def backbone_card_vs_cpu(name: str, start: dict, host_batch: dict) -> None:
     for device in ("cuda", "cpu"):
         model = build_backbone(name, device, seed=None)
         model.load_state_dict(start)
-        t0 = time.perf_counter()
         _, metrics = backbone_step(model, name)(
             task_adam(model), batch_to_torch(host_batch, device), None)
         got[device] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
-        got[device]["s"] = time.perf_counter() - t0
         del model
     bounds = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL) if bf16
               else (ALL_F32_LOSS_RTOL, ALL_F32_GRAD_NORM_RTOL))
@@ -6143,55 +5006,44 @@ def backbone_card_vs_cpu(name: str, start: dict, host_batch: dict) -> None:
         grad_norm_card=f"{got['cuda']['grad_norm']:.5f}",
         grad_norm_cpu=f"{got['cpu']['grad_norm']:.5f}",
         loss_rel_gap=f"{gaps['loss']:.2e}",
-        grad_norm_rel_gap=f"{gaps['grad_norm']:.2e}",
-        cpu_step_s=f"{got['cpu']['s']:.2f}", bounds=bounds)
+        grad_norm_rel_gap=f"{gaps['grad_norm']:.2e}", bounds=bounds)
     if gaps["loss"] > bounds[0] or gaps["grad_norm"] > bounds[1]:
         raise AssertionError(f"12c {name}: loss gap {gaps['loss']}, "
                              f"grad_norm gap {gaps['grad_norm']} (bounds "
                              f"{bounds})")
 
 
-def phase_backbones() -> dict:
-    """Phase 12 (see BACKBONE_*): returns each kernel-launching model's sums
-    over 12b's calls (``paths``) and each model's launch counts over its
-    12a run (``launches``)."""
-    t0 = time.perf_counter()
+def phase_backbones() -> None:
+    """Phase 12 (see BACKBONE_*)."""
     blocks = backbone_blocks()
     graph, randla = backbone_graphs()
     lvl = blocks["graph"]["levels"][0]
     log("12 backbones", part="batches", rows=blocks["feats"].shape[0],
         valid=int(lvl["valid"].sum()), samples=BACKBONE_SAMPLES,
-        graph_points=graph["feats"].shape[0],
-        seconds=f"{time.perf_counter() - t0:.1f}")
-    paths, launches = {}, {}
+        graph_points=graph["feats"].shape[0])
     for name in BACKBONES:
-        t0 = time.perf_counter()
         host = (blocks if name.startswith("pointnet") or name == "pvcnn"
                 else randla if name == "randlanet" else graph)
-        start, model, state, batch, launches[name] = backbone_run(name, host)
+        start, model, state, batch = backbone_run(name, host)
         if BACKBONES[name][0] != (0, 0):
-            paths[name] = backbone_kernels(name, model, state, batch)
+            backbone_kernels(name, model, state, batch)
         del model, state, batch
         torch.cuda.empty_cache()
         backbone_card_vs_cpu(name, start, host)
-        log("12 backbones", model=name,
-            seconds=f"{time.perf_counter() - t0:.1f}")
-    return {"paths": paths, "launches": launches}
 
 # phase 13: the native host builders (deepviewagg_tpu_torch/native:
 # kernelmap.cpp built by g++ in phase 1), the HTML viewer with its demo and
 # the kNN transforms.  13a: the UNet graph of 9b's first train batch (every
 # level's coordinates, maps and parents) built by the native builders and by
-# the numpy versions (``*_plain``), byte-equal, host ms of each (median of
-# NATIVE_TIMED); unique_coords / query_coords on 9e's Area_1 raw cloud at
-# the recipe's 5 cm, the same.  13b: the scale rehearsal's cloud (scene
+# the numpy versions (``*_plain``), byte-equal; unique_coords /
+# query_coords on 9e's Area_1 raw cloud at the recipe's 5 cm, the same.  13b: the scale rehearsal's cloud (scene
 # seed 0 at its defaults, voxelized at 4 cm, centred: the brute force's
 # expanded form loses ~1e-4 at 24 m from the origin): the host's grid kNN at
 # the rehearsal's k against the card's brute force, at the JAX package's
 # own bounds (distances rtol 1e-3 / atol 2e-4 row by row; ids >= 99.9%
 # equal, or else every differing id a tie with the k-th distance within
-# that bound: the voxel means of planes hold many), ms of both, then
-# pca_features on the card through the host path.  13c:
+# that bound: the voxel means of planes hold many), then pca_features on
+# the card through the host path (one grid kNN call).  13c:
 # ``cli.demo_synthetic`` on the card at its defaults (4 epochs of 8 steps):
 # the files, the viewer's data, each panel decoded to its image's bytes,
 # FORWARD_LAUNCHES + BACKWARD_LAUNCHES a step (the flagship's pools) and
@@ -6202,7 +5054,6 @@ def phase_backbones() -> dict:
 # multiples of TIES_LATTICE (within 1 m every product and sum of the kNN's
 # expanded squared distances is then exact in float32 on both devices), and
 # thinned until no point's TIES_K + 1 nearest hold equal distances.
-NATIVE_TIMED = 5
 GRID_K = 30                       # the rehearsal's pca_features k
 GRID_RTOL, GRID_ATOL, GRID_IDS = 1e-3, 2e-4, 0.999
 REHEARSAL_ROOM, REHEARSAL_POINTS, REHEARSAL_VOXEL = (24.0, 18.0, 3.0), 1e6, 0.04
@@ -6249,36 +5100,24 @@ class PlainBuilders(Seams):
 
 
 class KnnGridCalls(Seams):
-    """The host ms of each ``ops.knn.knn_grid`` call (``pca_features``
-    past HOST_KNN_POINTS points)."""
+    """The number of ``ops.knn.knn_grid`` calls (``pca_features`` past
+    HOST_KNN_POINTS points)."""
 
     def __init__(self):
         super().__init__()
-        self.ms = []
+        self.calls = 0
 
     def __enter__(self):
         from deepviewagg_tpu_torch.ops import knn
 
         def grid(original):
             def run(*args, **kwargs):
-                t0 = time.perf_counter()
-                out = original(*args, **kwargs)
-                self.ms.append((time.perf_counter() - t0) * 1e3)
-                return out
+                self.calls += 1
+                return original(*args, **kwargs)
             return run
 
         self._patch(knn, "knn_grid", grid)
         return self
-
-
-def host_ms(fn, n: int = NATIVE_TIMED) -> tuple:
-    """(median host ms of ``n`` calls of ``fn``, the last result)."""
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        out = fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times)), out
 
 
 def same_bytes(a, b) -> bool:
@@ -6296,9 +5135,9 @@ def native_graph(first) -> None:
     def build():
         return sg.build_unet_graph(coords, *args, **kwargs)
 
-    native_ms, native = host_ms(build)
+    native = build()
     with PlainBuilders():
-        plain_ms, plain = host_ms(build)
+        plain = build()
     a, b = sg.graph_to_device(native), sg.graph_to_device(plain)
     maps = 0
     for lvl, (x, y) in enumerate(zip(a["levels"], b["levels"])):
@@ -6312,8 +5151,7 @@ def native_graph(first) -> None:
     log("13a native graph", voxels=len(coords),
         levels="/".join(str(lvl.num_valid) for lvl in native.levels),
         caps="/".join(str(len(lvl.valid)) for lvl in native.levels),
-        maps=maps + 1, equal="bytes", native_ms=f"{native_ms:.1f}",
-        plain_ms=f"{plain_ms:.1f}", speedup=f"{plain_ms / native_ms:.2f}")
+        maps=maps + 1, equal="bytes")
 
 
 def native_grid(root: Path) -> None:
@@ -6324,20 +5162,17 @@ def native_grid(root: Path) -> None:
     raw = load_area(str(root / "processed_dva" / "area_1.npz"))["raw_pos"]
     coords = np.concatenate([np.zeros((len(raw), 1), np.int32), np.round(
         raw / 0.05).astype(np.int32)], 1)
-    u_ms, (uniq, inverse) = host_ms(lambda: voxel.unique_coords(coords))
-    up_ms, (uniq_p, inverse_p) = host_ms(
-        lambda: voxel.unique_coords_plain(coords))
-    q_ms, hit = host_ms(lambda: voxel.query_coords(uniq, coords))
-    qp_ms, hit_p = host_ms(lambda: voxel.query_coords_plain(uniq, coords))
+    uniq, inverse = voxel.unique_coords(coords)
+    uniq_p, inverse_p = voxel.unique_coords_plain(coords)
+    hit = voxel.query_coords(uniq, coords)
+    hit_p = voxel.query_coords_plain(uniq, coords)
     if not (same_bytes(uniq, uniq_p) and same_bytes(inverse, inverse_p)
             and same_bytes(hit, hit_p)):
         raise AssertionError("13a Area_1 grid: native and plain differ")
     if not np.array_equal(hit, inverse):
         raise AssertionError("13a Area_1 grid: a row does not find its voxel")
     log("13a native grid", raw_points=len(raw), voxels=len(uniq),
-        equal="bytes", unique_native_ms=f"{u_ms:.1f}",
-        unique_plain_ms=f"{up_ms:.1f}", query_native_ms=f"{q_ms:.1f}",
-        query_plain_ms=f"{qp_ms:.1f}")
+        equal="bytes")
 
 
 def boundary_ties(pos, idg, sg, sb) -> float:
@@ -6364,7 +5199,6 @@ def native_knn() -> None:
     from deepviewagg_tpu_torch.ops import knn
     from deepviewagg_tpu_torch.ops.voxel import grid_sample
 
-    t0 = time.perf_counter()
     room = REHEARSAL_ROOM
     area = 2 * (room[0] * room[1] + room[0] * room[2] + room[1] * room[2])
     scene = synthetic.make_scene(seed=0, room=room,
@@ -6373,15 +5207,9 @@ def native_knn() -> None:
                                  r_max=16.0)
     pos = grid_sample(scene.pos, REHEARSAL_VOXEL)["pos"]
     pos = pos - pos.mean(0)
-    scene_s = time.perf_counter() - t0
-    grid_ms, (d2g, idg) = host_ms(lambda: knn.knn_grid(pos, pos, GRID_K), 2)
+    d2g, idg = knn.knn_grid(pos, pos, GRID_K)
     pos_t = torch.as_tensor(pos, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    d2b, idb = knn.knn(pos_t, pos_t, GRID_K)
-    torch.cuda.synchronize()
-    brute_ms = (time.perf_counter() - t0) * 1e3
-    d2b, idb = d2b.cpu().numpy(), idb.cpu().numpy()
+    d2b, idb = (t.cpu().numpy() for t in knn.knn(pos_t, pos_t, GRID_K))
     bs = np.sort(d2b, 1)
     excess = float((np.abs(np.sort(d2g, 1) - bs)
                     - (GRID_ATOL + GRID_RTOL * np.abs(bs))).max())
@@ -6395,25 +5223,19 @@ def native_knn() -> None:
     if not np.array_equal(idg[:, 0], np.arange(len(pos))):
         raise AssertionError("13b grid kNN: a point is not its own first")
     del d2b, idb, bs, sg, sb
-    with KnnGridCalls() as calls:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    with KnnGridCalls() as grid:
         geo = pca_features(pos, k=GRID_K, device="cuda")
-        torch.cuda.synchronize()
-        pca_ms = (time.perf_counter() - t0) * 1e3
-    if len(calls.ms) != 1 or not np.array_equal(
+    if grid.calls != 1 or not np.array_equal(
             geo["nn_idx"].cpu().numpy(), idg):
-        raise AssertionError(f"13b pca_features: {len(calls.ms)} grid kNN "
+        raise AssertionError(f"13b pca_features: {grid.calls} grid kNN "
                              "calls, or other neighbours")
     if not all(bool(torch.isfinite(v).all()) for v in geo.values()
                if v.dtype.is_floating_point):
         raise AssertionError("13b pca_features: non-finite features")
     log("13b native knn", raw_points=len(scene.pos), voxels=len(pos),
-        k=GRID_K, scene_s=f"{scene_s:.1f}", grid_ms=f"{grid_ms:.0f}",
-        brute_card_ms=f"{brute_ms:.0f}", ids_equal=f"{ids:.6f}",
+        k=GRID_K, ids_equal=f"{ids:.6f}",
         differing_ids_off_kth_tie=f"{tie:.3e}", distance_excess=f"{excess:.3e}",
-        pca_ms=f"{pca_ms:.0f}", pca_grid_ms=f"{calls.ms[0]:.0f}",
-        rtol=GRID_RTOL, atol=GRID_ATOL)
+        pca_grid_calls=grid.calls, rtol=GRID_RTOL, atol=GRID_ATOL)
     del geo
     torch.cuda.empty_cache()
 
@@ -6428,16 +5250,14 @@ def panel_pixels(b64: str, tmp: Path) -> np.ndarray:
     return read_png(str(path))
 
 
-def native_demo(tmp: Path) -> dict:
+def native_demo(tmp: Path) -> None:
     """13c: ``cli.demo_synthetic`` on the card at its defaults."""
     from deepviewagg_tpu_torch.cli import demo_synthetic
 
     out_dir = tmp / "demo"
     zero_launches()
-    t0 = time.perf_counter()
     with LoopProbe() as probe:
         out = demo_synthetic.main(["--out", str(out_dir)])
-    seconds = time.perf_counter() - t0
     launches = dict(seg.LAUNCHES)
     probe.check_steps("13c demo")
     steps, forwards = DEMO_EPOCHS * DEMO_STEPS, DEMO_EPOCHS + 1
@@ -6461,9 +5281,7 @@ def native_demo(tmp: Path) -> dict:
             1, 0, 2)
         if not np.array_equal(panel_pixels(panel["png"], tmp), want_px):
             raise AssertionError("13c viewer: a panel is not its image")
-    log("13c demo", seconds=f"{seconds:.1f}", steps=len(probe.losses),
-        first_step_ms=f"{probe.step_ms[0]:.1f}",
-        step_ms_median=f"{np.median(probe.step_ms[1:]):.1f}",
+    log("13c demo", steps=len(probe.losses),
         losses=f"{probe.losses[0]:.4f}/{probe.losses[-1]:.4f}",
         val_miou=f"{out['metrics']['val_miou']:.2f}",
         launches=launches, ply_bytes=Path(out["ply"]).stat().st_size,
@@ -6474,17 +5292,14 @@ def native_demo(tmp: Path) -> dict:
     calls = record_segment_calls(model.eval(), batch)
     if len(calls) != FORWARD_LAUNCHES:
         raise AssertionError(f"13c: {len(calls)} segment calls a forward")
-    fwd = measure_forward_calls(calls, "13c demo kernels",
-                                "calls_per_forward", LOOP_TIME_ITERS)
+    check_forward_calls(calls, "13c demo kernels", "calls_per_forward")
     del calls
     bwd_calls = record_backward_calls(model.train(), batch)
     if len(bwd_calls) != BACKWARD_LAUNCHES:
         raise AssertionError(f"13c: {len(bwd_calls)} segment backwards")
-    bwd = measure_backward_calls(bwd_calls, "13c demo kernels",
-                                 LOOP_TIME_ITERS)
+    check_backward_calls(bwd_calls, "13c demo kernels")
     del bwd_calls, model, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "forward": fwd, "backward": bwd}
 
 
 def ties_free(pos: np.ndarray) -> np.ndarray:
@@ -6518,14 +5333,10 @@ def native_transforms(root: Path) -> None:
     rows = rows[ties_free(q[rows])]
     cloud = {"pos": q[rows], "rgb": cache["rgb"][near][rows],
              "labels": cache["labels"][near][rows]}
-    out, ms = {}, {}
-    for device in ("cuda", "cpu"):
-        chain = t3.Compose([t3.RandomWalkDropout(device=device),
-                            t3.DensityFilter(radius_nn=0.1, min_num=4,
-                                             device=device)])
-        t0 = time.perf_counter()
-        out[device] = chain(dict(cloud), np.random.default_rng(0))
-        ms[device] = (time.perf_counter() - t0) * 1e3
+    out = on_both(lambda device: t3.Compose([
+        t3.RandomWalkDropout(device=device),
+        t3.DensityFilter(radius_nn=0.1, min_num=4, device=device)])(
+            dict(cloud), np.random.default_rng(0)))
     for key in cloud:
         if not same_bytes(out["cuda"][key], out["cpu"][key]):
             raise AssertionError(f"13d transforms: {key} differs card vs CPU")
@@ -6534,434 +5345,56 @@ def native_transforms(root: Path) -> None:
         raise AssertionError(f"13d transforms kept {kept} of "
                              f"{len(cloud['pos'])}")
     log("13d transforms", sphere_voxels=len(near), ties_free=len(rows),
-        kept=kept, equal="bytes", card_ms=f"{ms['cuda']:.1f}",
-        cpu_ms=f"{ms['cpu']:.1f}")
+        kept=kept, equal="bytes")
 
 
-def phase_native(loop: dict, tmp: Path) -> dict:
-    """Phase 13 (see NATIVE_TIMED); 9b's first graph from ``loop``, 9e's
-    layout under ``tmp``."""
+def phase_native(graph: tuple, tmp: Path) -> None:
+    """Phase 13; 9b's first graph build in ``graph``, 9e's layout under
+    ``tmp``."""
     root = tmp / "s3dis_raw"
-    parts = (("13a", lambda: (native_graph(loop["recipe"]["graph"]),
-                              native_grid(root))),
-             ("13b", native_knn), ("13c", lambda: native_demo(tmp)),
-             ("13d", lambda: native_transforms(root)))
-    out = {}
-    for name, fn in parts:
-        t0 = time.perf_counter()
-        out[name] = fn()
-        log("13 native", part=name, seconds=f"{time.perf_counter() - t0:.1f}")
-    return out["13c"]
-
-
-# phase 14: the Lovász loss at the PTv3 cell's level 0 (12 crops of 102,400
-# points, 13 classes); bound: the scan kernel's bytes (err and fg read once,
-# w written once: 9 bytes a class and row) at 3.35 TB/s
-LOVASZ_ROWS, LOVASZ_CLASSES = 1_228_800, 13
-
-
-def phase_lovasz() -> dict:
-    """14: the Lovász-softmax at the PTv3 cell's shape.  The scan kernel
-    alone (``lovasz_scan_into``, from a replayed CUDA graph) against its
-    byte bound, the plain formula's scan and products (``_lovasz_grad`` over
-    ``[N, C]`` on dim 0, the path the card took before the kernel) and
-    ``torch.cumsum`` over the flattened ``[C N]`` foreground (a library
-    yardstick that the port never calls); the kernel's weights bit for bit
-    against the plain formula's; then the whole loss, forward and forward +
-    backward, through ``lovasz_softmax`` (class-major, the kernel) and
-    through the plain formula on the card, with the peak memory of each."""
-    from deepviewagg_tpu_torch.models import losses
-    from deepviewagg_tpu_torch.ops import lovasz as lv
-
-    n, c = LOVASZ_ROWS, LOVASZ_CLASSES
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    logits = torch.randn((n, c), generator=gen, device="cuda") * 2.0
-    labels = torch.randint(-1, c, (n,), generator=gen, device="cuda")
-    valid = torch.rand(n, generator=gen, device="cuda") > 0.05
-    # the class-major inputs as lovasz_softmax_class_major builds them
-    mask = (labels != -1) & valid
-    fg_t = ((labels[None, :] == torch.arange(c, device="cuda")[:, None])
-            & mask[None, :]).to(torch.uint8)
-    err_t = torch.where(mask[None, :],
-                        torch.abs(fg_t - torch.softmax(logits, -1).t()),
-                        0.0).contiguous()
-    err_s, order = torch.sort(err_t, dim=1, descending=True, stable=True)
-    fg_s = torch.gather(fg_t, 1, order)
-    w = torch.empty_like(err_s)
-    loss = torch.empty(c, dtype=torch.float32, device="cuda")
-    counts, partial = lv.lovasz_scratch(c, n, "cuda")
-    launches = lv.LAUNCHES["lovasz"]
-    ms, ms_twice = kernel_ms(lambda: lv.lovasz_scan_into(
-        err_s, fg_s, w, loss, counts, partial))
-    graphed = lv.LAUNCHES["lovasz"] - launches
-    err_nc, fg_nc = err_s.t().contiguous(), fg_s.t().contiguous().float()
-    ref_w = losses._lovasz_grad(fg_nc)
-    ref_loss = torch.sum(err_nc * ref_w, dim=0)
-    torch.cuda.synchronize()
-    assert torch.equal(w, ref_w.t().contiguous()), "lovasz weights differ"
-    loss_err = rel_err(loss, ref_loss)
-    assert loss_err <= 1e-6, loss_err
-    plain_ms = time_ms(lambda: torch.sum(
-        err_nc * losses._lovasz_grad(fg_nc), dim=0), iters=5)
-    flat = fg_s.reshape(-1).float()
-    scanned = torch.empty_like(flat)
-    library_ms = graph_ms(lambda: torch.cumsum(flat, 0, out=scanned))
-    bound_ms = 9.0 * c * n / 3.35e12 * 1e3
-    del err_nc, fg_nc, ref_w, flat, scanned, err_t, fg_t, order
-
-    def forward(fn):
-        with torch.no_grad():
-            fn(logits, labels, valid)
-
-    def both(fn):
-        x = logits.detach().requires_grad_()
-        fn(x, labels, valid).backward()
-
-    out = {"ms": ms, "ms_twice_launches": ms_twice, "bound_ms": bound_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "loss_rel_err": loss_err, "graphed_launches": graphed}
-    for label, fn in (("kernel", losses.lovasz_softmax),
-                      ("plain", losses._lovasz_softmax_plain)):
-        forward(fn)
-        both(fn)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        both(fn)
-        torch.cuda.synchronize()
-        out[f"{label}_peak_mib"] = (torch.cuda.max_memory_allocated()
-                                    - base) / 2**20
-        out[f"{label}_fwd_ms"] = time_ms(lambda: forward(fn), iters=5)
-        out[f"{label}_fwd_bwd_ms"] = time_ms(lambda: both(fn), iters=5)
-    log("14 lovasz", rows=n, classes=c, **{
-        k: (f"{v:.4f}" if isinstance(v, float) else v)
-        for k, v in out.items()})
-    return out
-
-
-def kernel_family(name: str) -> str:
-    """Coarse family of a CUDA kernel name, for the trace summary."""
-    low = name.lower()
-    # cuDNN convs and cuBLAS GEMMs share "xmma"/"gemm" in their names; the
-    # convs carry "conv", "fprop" or "implicit"
-    # the forward's finish kernel starts while its tile kernel still runs
-    # and waits for it, so its duration overlaps the tile kernel's
-    for key, fam in (("segment_csr_bwd", "segment_csr_bwd (ours)"),
-                     ("segment_csr_tile", "segment_csr tile kernel (ours)"),
-                     ("segment_csr_finish", "segment_csr finish kernel "
-                      "(ours; includes its wait for the tile kernel)"),
-                     ("indexing_backward", "scatter-add (index_put "
-                      "accumulate: autograd of x[idx])"),
-                     ("index_put", "scatter-add (index_put accumulate: "
-                      "autograd of x[idx])"),
-                     ("indexfunc", "scatter-add (index_add atomics: "
-                      "autograd of index_select, the pixel gather)"),
-                     ("indexselect", "gather/scatter"),
-                     ("conv", "conv2d"), ("fprop", "conv2d"),
-                     ("implicit", "conv2d"), ("gemm", "matmul"),
-                     ("index", "gather/scatter"), ("gather", "gather/scatter"),
-                     ("scatter", "gather/scatter"), ("sort", "sort/search"),
-                     ("search", "sort/search"), ("reduce", "reduction"),
-                     ("norm", "norm"), ("rowwisemoments", "norm"),
-                     ("upsample", "resize (PPM upsampling)"),
-                     ("pool", "pooling"), ("copy", "copy/cast"),
-                     ("cat", "copy/cast"), ("elementwise", "elementwise")):
-        if key in low:
-            return fam
-    return "other"
-
-
-def phase_trace(what: str, run, repeats: int = 3) -> None:
-    """Device time by kernel family and the device's idle share over
-    ``repeats`` calls of ``run`` (one forward or one train step of one
-    request) under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(repeats):
-            run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    fams: dict = {}
-    other: dict = {}
-    for ev in prof.key_averages():
-        # device-side events only: an operator's entry repeats its kernels'
-        us = ev.self_device_time_total
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            fam = kernel_family(ev.key)
-            fams[fam] = fams.get(fam, 0.0) + us
-            if fam == "other":
-                other[ev.key] = other.get(ev.key, 0.0) + us
-    busy = sum(fams.values())
-    log("5 trace", what=what, repeats=repeats,
-        wall_ms_each=f"{wall_us / repeats / 1e3:.2f}",
-        device_ms_each=f"{busy / repeats / 1e3:.2f}",
-        idle_share=f"{1 - busy / wall_us:.3f}")
-    for fam, us in sorted(fams.items(), key=lambda kv: -kv[1]):
-        log("5 trace", what=what, family=fam,
-            ms_each=f"{us / repeats / 1e3:.3f}", share=f"{us / busy:.3f}")
-    for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:4]:
-        log("5 trace", what=what, family="other",
-            kernel=key[:90].replace(" ", ""),
-            ms_each=f"{us / repeats / 1e3:.3f}")
-
-
-def trace_forward_and_train(model, train_model, np_batch) -> None:
-    batch = batch_to_torch(np_batch, device="cuda")
-
-    def forward():
-        with torch.no_grad():
-            model(batch)
-
-    phase_trace("forward", forward)
-    train_model.train()
-    state = TrainState.create(train_model, make_optimizer(
-        make_schedule("constant", 0.1), grad_clip=10.0))
-    step = make_train_step(train_model)
-    step(state, batch, None)                       # warm-up, not traced
-    phase_trace("train_step", lambda: step(state, batch, None))
+    native_graph(graph)
+    native_grid(root)
+    native_knn()
+    native_demo(tmp)
+    native_transforms(root)
 
 
 def main() -> None:
-    start = time.perf_counter()
-    trace = "--trace" in sys.argv[1:]
-    tune = "--tune" in sys.argv[1:]
     device = phase_card()
     phase_build()
-    t0 = time.perf_counter()
+    phase_kernels()
     model = MultimodalSeg(flagship_spec(), device="cuda", seed=0).eval()
     log("3 serving", model="flagship", params=sum(
-        p.numel() for p in model.parameters()),
-        build_s=f"{time.perf_counter() - t0:.1f}")
+        p.numel() for p in model.parameters()))
     requests = [make_request(seed, "cuda", **SERVE_REQUEST)
                 for seed in range(3)]
-    totals = phase_kernels(model, batch_to_torch(requests[0][0], "cuda"),
-                           tune)
-    launches = phase_serving(model, requests)
-    check_request, _ = make_request(0, "cuda", **CHECK_REQUEST)
+    phase_serving(model, requests)
+    check_request = make_request(0, "cuda", **CHECK_REQUEST)
     phase_card_vs_cpu(model, check_request)
     phase_cameras_card_vs_cpu()
     # training runs on a copy, so the serving model keeps its weights
-    train_model = copy.deepcopy(model).train()
-    bwd_totals = phase_backward_kernels(
-        train_model, batch_to_torch(requests[0][0], "cuda"))
-    train_launches = phase_training(train_model, requests[0][0],
-                                    requests[1][0])
+    phase_training(copy.deepcopy(model).train(), requests[0], requests[1])
+    torch.cuda.empty_cache()
     plain_step = phase_train_card_vs_cpu(model, check_request)
     phase_train_variants(model, check_request, plain_step)
     phase_tower_card_vs_cpu(model, check_request)
-    recipe = phase_recipe(model, trace)
-    if trace:
-        trace_forward_and_train(model, train_model, requests[0][0])
-    del train_model
+    phase_recipe(model)
     torch.cuda.empty_cache()
-    # phases 9 and 10 share one temporary directory (10a trains on 9e's
+    # phases 9, 10 and 13 share one temporary directory (10a trains on 9e's
     # layout), deleted afterwards
     from deepviewagg_tpu_torch.cli import train as cli
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
     try:
-        loop = phase_loop(tmp)
-        parallel = phase_parallel(model, requests[0][0], cli, tmp)
-        t0 = time.perf_counter()
-        demo = phase_native(loop, tmp)
-        log("13 native", part="all",
-            seconds=f"{time.perf_counter() - t0:.1f}")
+        graph = phase_loop(tmp)
+        phase_parallel(model, requests[0], cli, tmp)
+        phase_native(graph, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    tasks = phase_tasks()
-    log("11 tasks", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
-    t0 = time.perf_counter()
-    backbones = phase_backbones()
-    log("12 backbones", part="all", seconds=f"{time.perf_counter() - t0:.1f}")
-    lovasz = phase_lovasz()
-
-    def entry(name, source, replaces, totals, paths, **counts):
-        keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
-                "max_abs_err", "pad_share")
-        return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, **counts,
-            "max_abs_err": max([totals["max_abs_err"]] + [
-                t["max_abs_err"] for t in paths.values()]),
-            "ms": totals["ms"], "call_ms": totals["call_ms"],
-            "plain_ms": totals["plain_ms"],
-            "bound_ms": totals["bound_ms"], "bound_by": "bytes",
-            "library_ms": totals["library_ms"], "checked": True,
-            **{path: {k: t[k] for k in keys} for path, t in paths.items()},
-        }
-
-    # ``launches``: the kernel's count over the path that drives it first
-    # (serving for the forward, training for the backward); times are sums
-    # over the calls of one forward / one train step: ``ms`` on the device,
-    # ``call_ms`` through the wrapper; ``recipe``: the same sums over the
-    # calls of one recipe forward / train step, ``launches_recipe_*``: the
-    # counts over the recipe's serving and training runs;
-    # ``loop_recipe``: the same sums over the calls of one forward / train
-    # step of phase 9b's first batch, ``loop_eval``: over the calls of one
-    # forward of phase 9c's first eval batch; ``launches_loop_*``: the counts
-    # over the first run of phase 9a (two epochs with evals), over phase 9b
-    # and over phase 9c's eval; ``launches_predict``: over phase 9d's two
-    # predictions (a 3D-only model: none); ``loop_s3dis``: the sums over the
-    # calls of one forward / train step of phase 9e's first S3DIS batch,
-    # ``loop_s3dis_eval``: over the calls of one forward of its first eval
-    # batch, ``launches_loop_s3dis``: the counts over 9e's train run (one epoch and
-    # an eval), ``launches_loop_s3dis_eval``: over its ``cli.eval`` run;
-    # ``loop_scannet`` / ``loop_scannet_eval`` and their launch counts: the
-    # same for phase 9f (ScanNet); ``pad_share``: the padding-row share of
-    # each path's widest call
-    loop_recipe, loop_eval = loop["recipe"], loop["eval"]
-    s3dis_run, scannet_run = loop["s3dis"], loop["scannet"]
-    kitti360_run = loop["kitti360"]
-    # ``loop_families_<model>``: the same sums over the calls of one forward
-    # / train step of phase 9h's first batch through each model;
-    # ``launches_loop_families_<run>``: the counts over 9h's train and eval
-    # runs of the light and late models and over the first forward of each
-    # library-level model
-    families = loop["families"]
-    fam_paths = {f"loop_families_{k}": v for k, v in
-                 families["paths"].items()}
-    fam_launches = {f"launches_loop_families_{k}": v for k, v in
-                    families["launches"].items()}
-    # ``loop_pretrained`` / ``loop_pretrained_eval``: the same sums over the
-    # calls of phase 9i's first train batch (the recipe with its tower
-    # loaded) and first eval batch; ``families_se_<model>``: over the calls
-    # of one forward / train step of each squeeze-excitation or bottleneck
-    # model that launches a kernel (9i's first batch, SERes16UNet34's own);
-    # ``launches_loop_pretrained_<run>`` / ``launches_families_se_<model>``:
-    # the counts over 9i's train, eval and predict runs and over each
-    # library-level model's first forward
-    pre = loop["pretrained"]
-    pre_paths = {("loop_pretrained" if k == "pretrained" else
-                  "loop_pretrained_eval" if k == "pretrained_eval" else
-                  f"families_se_{k}"): v for k, v in pre["paths"].items()}
-    pre_launches = {(f"launches_loop_{k}" if k.startswith("pretrained")
-                     or k == "pyramid" else f"launches_families_se_{k}"): v
-                    for k, v in pre["launches"].items()}
-    # ``loop_reference_<model>``: the same sums over the calls of one forward
-    # / train step of phase 9j's first batch through each ``ref:`` model;
-    # ``launches_loop_reference_<run>``: the counts over 9j's train and eval
-    # runs of each
-    ref = loop["reference"]
-    ref_paths = {f"loop_reference_{k}": v for k, v in ref["paths"].items()}
-    ref_launches = {f"launches_loop_reference_{k}": v
-                    for k, v in ref["launches"].items()}
-    # ``loop_tasks``: the same sums over the calls of one classification
-    # step of phase 11b; ``launches_loop_tasks_<task>``: the counts over
-    # each task's ``cli.train_task`` run of phase 11a
-    task_launches = {f"launches_loop_tasks_{k}": v
-                     for k, v in tasks["launches"].items()}
-    # ``loop_backbones_<model>``: the same sums over the calls of one train
-    # step of each phase 12 model that launches a kernel (PointNet and
-    # PVCNN); ``launches_loop_backbones_<model>``: the counts over each
-    # model's 12a run (an eval forward and six steps)
-    bb_paths = {f"loop_backbones_{k}": v
-                for k, v in backbones["paths"].items()}
-    bb_launches = {f"launches_loop_backbones_{k}": v
-                   for k, v in backbones["launches"].items()}
-    kernels = [
-        entry("segment_csr", "deepviewagg_tpu_torch/csrc/segment_csr.cu",
-              "deepviewagg_tpu/ops/pallas_segment.py:75", totals,
-              {"recipe": recipe["forward"],
-               "loop_recipe": loop_recipe["forward"],
-               "loop_eval": loop_eval["forward"],
-               "loop_s3dis": s3dis_run["forward"],
-               "loop_s3dis_eval": s3dis_run["eval_forward"],
-               "loop_scannet": scannet_run["forward"],
-               "loop_scannet_eval": scannet_run["eval_forward"],
-               "loop_kitti360": kitti360_run["forward"],
-               "loop_kitti360_eval": kitti360_run["eval_forward"],
-               **{k: v[0] for k, v in fam_paths.items()},
-               **{k: (v if k == "loop_pretrained_eval" else v[0])
-                  for k, v in pre_paths.items()},
-               **{k: v[0] for k, v in ref_paths.items()},
-               "parallel_dp": parallel["forward"],
-               "loop_tasks": tasks["forward"],
-               **{k: v[0] for k, v in bb_paths.items()},
-               "loop_demo": demo["forward"]},
-              launches=launches["segment_csr"],
-              launches_training=train_launches["segment_csr"],
-              launches_recipe_serving=recipe["serve_launches"]["segment_csr"],
-              launches_recipe_training=recipe["train_launches"]["segment_csr"],
-              launches_loop_quick=loop["quick"]["segment_csr"],
-              launches_loop_recipe=loop_recipe["launches"]["segment_csr"],
-              launches_loop_eval=loop_eval["launches"]["segment_csr"],
-              launches_predict=loop["predict"]["segment_csr"],
-              launches_loop_s3dis=s3dis_run["launches"]["segment_csr"],
-              launches_loop_s3dis_eval=s3dis_run["eval_launches"][
-                  "segment_csr"],
-              launches_loop_scannet=scannet_run["launches"]["segment_csr"],
-              launches_loop_scannet_eval=scannet_run["eval_launches"][
-                  "segment_csr"],
-              launches_loop_kitti360=kitti360_run["launches"]["segment_csr"],
-              launches_loop_kitti360_eval=kitti360_run["eval_launches"][
-                  "segment_csr"],
-              **{k: v["segment_csr"] for k, v in fam_launches.items()},
-              **{k: v["segment_csr"] for k, v in pre_launches.items()},
-              **{k: v["segment_csr"] for k, v in ref_launches.items()},
-              launches_parallel_dp=parallel["launches"]["segment_csr"],
-              launches_loop_parallel=parallel["loop_launches"][
-                  "segment_csr"],
-              **{k: v["segment_csr"] for k, v in task_launches.items()},
-              **{k: v["segment_csr"] for k, v in bb_launches.items()},
-              launches_loop_demo=demo["launches"]["segment_csr"]),
-        entry("segment_csr_bwd",
-              "deepviewagg_tpu_torch/csrc/segment_csr_bwd.cu",
-              "deepviewagg_tpu/ops/pallas_segment.py:177", bwd_totals,
-              {"recipe": recipe["backward"],
-               "loop_recipe": loop_recipe["backward"],
-               "loop_s3dis": s3dis_run["backward"],
-               "loop_scannet": scannet_run["backward"],
-               "loop_kitti360": kitti360_run["backward"],
-               **{k: v[1] for k, v in fam_paths.items()},
-               **{k: v[1] for k, v in pre_paths.items()
-                  if k != "loop_pretrained_eval"},
-               **{k: v[1] for k, v in ref_paths.items()
-                  if v[1] is not None},
-               "parallel_dp": parallel["backward"],
-               "loop_tasks": tasks["backward"],
-               **{k: v[1] for k, v in bb_paths.items()},
-               "loop_demo": demo["backward"]},
-              launches=train_launches["segment_csr_bwd"],
-              launches_recipe_training=recipe["train_launches"][
-                  "segment_csr_bwd"],
-              launches_loop_quick=loop["quick"]["segment_csr_bwd"],
-              launches_loop_recipe=loop_recipe["launches"][
-                  "segment_csr_bwd"],
-              launches_loop_eval=loop_eval["launches"]["segment_csr_bwd"],
-              launches_predict=loop["predict"]["segment_csr_bwd"],
-              launches_loop_s3dis=s3dis_run["launches"]["segment_csr_bwd"],
-              launches_loop_s3dis_eval=s3dis_run["eval_launches"][
-                  "segment_csr_bwd"],
-              launches_loop_scannet=scannet_run["launches"][
-                  "segment_csr_bwd"],
-              launches_loop_scannet_eval=scannet_run["eval_launches"][
-                  "segment_csr_bwd"],
-              launches_loop_kitti360=kitti360_run["launches"][
-                  "segment_csr_bwd"],
-              launches_loop_kitti360_eval=kitti360_run["eval_launches"][
-                  "segment_csr_bwd"],
-              **{k: v["segment_csr_bwd"] for k, v in fam_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in pre_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in ref_launches.items()},
-              launches_parallel_dp=parallel["launches"]["segment_csr_bwd"],
-              launches_loop_parallel=parallel["loop_launches"][
-                  "segment_csr_bwd"],
-              **{k: v["segment_csr_bwd"] for k, v in task_launches.items()},
-              **{k: v["segment_csr_bwd"] for k, v in bb_launches.items()},
-              launches_loop_demo=demo["launches"]["segment_csr_bwd"]),
-        {"name": "lovasz", "route": "cuda",
-         "source": "deepviewagg_tpu_torch/csrc/lovasz.cu",
-         "replaces": None, "bound_by": "bytes", "checked": True,
-         **{k: lovasz[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "library_ms", "loss_rel_err")}},
-    ]
-    log("done", seconds=f"{time.perf_counter() - start:.1f}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    phase_tasks()
+    phase_backbones()
+    log("done")
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

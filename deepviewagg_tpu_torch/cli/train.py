@@ -71,7 +71,7 @@ def setup_device(name: str) -> torch.device:
     """The entry points' device: ``name`` (``cuda`` unless the caller asks
     for ``cpu``); raises where CUDA is asked for and absent.  Pins TF32 off
     for float32 matmuls and cuDNN convolutions (PyTorch leaves the cuDNN
-    one on), so that a run computes what ``chip_smoke.py`` measures and the
+    one on), so that a run computes what ``chip_smoke.py`` checks and the
     sparse convs' float32 GEMMs stay float32, and prints both flags."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -349,8 +349,10 @@ class SphereDataset:
         """Image picks, centre roll and the 2D augmentations of a sample;
         returns the sample, how its images are to be normalized (None: they
         are not; ``"fused"``: a raw stack that the native pass takes and no
-        blur was drawn for; ``"plain"``: the numpy chain) and, when fused,
-        the colour jitter drawn but not applied yet (or None)."""
+        blur was drawn for, its colour jitter drawn but not applied yet;
+        ``"plain"``: the numpy chain, the jitter and blur applied) and, when
+        fused, that jitter (or None).  The route is decided in one place,
+        after the draws."""
         # Cache taxonomy (ref chain order: ColorJitter -> flip ->
         # ToFloatImage -> Normalize): uint8 and non-negative float caches
         # are RAW — radiometric augments apply and ImageNet normalization
@@ -405,17 +407,6 @@ class SphereDataset:
                 blur = (self.blur_p > 0 and radiometric_ok
                         and sub.get("images") is not None
                         and self._rng.uniform() < self.blur_p)
-                if jitter is not None and (
-                        blur or not native_images.takes(sub["images"])):
-                    # the numpy chain: before a blur, or for a stack the
-                    # native pass does not take
-                    sub["images"] = transforms2d.apply_color_jitter(
-                        sub["images"], jitter)
-                    jitter = None
-                if blur:
-                    sub["images"] = transforms2d.gaussian_blur(
-                        sub["images"], self._rng
-                    )
             else:
                 # eval: deterministic max-coverage selection under the
                 # PIXEL budget (the reference applies its memory credit at
@@ -444,9 +435,16 @@ class SphereDataset:
         imgs = sub.get("images")
         if not needs_normalize or imgs is None:
             return sub, None, None
-        if blur or not native_images.takes(imgs):
-            return sub, "plain", None
-        return sub, "fused", jitter
+        if not blur and native_images.takes(imgs):
+            return sub, "fused", jitter
+        # the numpy chain: the colour jitter before a blur, or a stack the
+        # native pass does not take
+        if jitter is not None:
+            sub["images"] = transforms2d.apply_color_jitter(imgs, jitter)
+        if blur:
+            sub["images"] = transforms2d.gaussian_blur(sub["images"],
+                                                       self._rng)
+        return sub, "plain", None
 
 
 class BatchLoader:

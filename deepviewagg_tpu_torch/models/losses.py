@@ -6,13 +6,11 @@ NLL on log-softmax logits plus an optional Lovász hinge on the softmax
 are static-shape with validity masks (padding rows and ``IGNORE_LABEL`` = -1
 contribute exactly zero).
 
-The Lovász-softmax's scan runs where its tensors lie: on the CPU the plain
-formula over the ``[N, C]`` errors sorted on dim 0 (``_lovasz_grad``); on
-a CUDA card over a class-major sort, each class's ``[N]`` errors a
-contiguous row, through the hand-written kernel of ``ops/lovasz.py``
-(PyTorch's cumsum on dim 0 is an outer-dimension scan, one thread block a
-class: the largest item of a large batch's step).  Both give the same weights
-bit for bit on the same sorted input.
+The Lovász-softmax runs over a class-major sort on every device: each
+class's ``[N]`` errors a contiguous row, the scan and the products through
+``ops/lovasz.py`` (the hand-written kernel on a CUDA card, its plain version
+on the CPU; PyTorch's cumsum along dim 0 of ``[N, C]`` is an
+outer-dimension scan, one thread block a class).
 """
 
 from __future__ import annotations
@@ -20,12 +18,11 @@ from __future__ import annotations
 import torch
 
 from ..ops.lovasz import lovasz_dot
-from ..ops.lovasz import lovasz_grad as _lovasz_grad
 from ..utils import trace
 
 __all__ = ["IGNORE_LABEL", "cross_entropy", "lovasz_softmax",
-           "lovasz_softmax_class_major", "segmentation_loss",
-           "sqrt_inverse_class_weights", "view_level_loss", "propagate_unseen"]
+           "segmentation_loss", "sqrt_inverse_class_weights",
+           "view_level_loss", "propagate_unseen"]
 
 IGNORE_LABEL = -1
 
@@ -54,48 +51,22 @@ def lovasz_softmax(logits, labels, valid=None):
 
     Invalid rows get error exactly 0, so they sort to the tail and contribute
     nothing to the per-class dot product (metrics/lovasz_loss.py semantics
-    without its dynamic filtering).  All classes are handled at once.  A
-    CUDA tensor takes :func:`lovasz_softmax_class_major` (the kernel), a CPU
-    tensor the plain formula, one column a class.  Traced, a call is the
-    device span ``loss.lovasz`` and one count of ``loss.lovasz_kernel`` or
-    ``loss.lovasz_plain``."""
+    without its dynamic filtering).  All classes are handled at once, in a
+    class-major layout: the errors as ``[C, N]`` rows, each sorted along its
+    row (stable), the foreground as uint8 gathered by that order, and
+    :func:`ops.lovasz.lovasz_dot` for the scan and the products.  Traced, a
+    call is the device span ``loss.lovasz``."""
     with trace.span("loss.lovasz", device=logits):
-        if logits.device.type == "cuda":
-            trace.count("loss.lovasz_kernel")
-            return lovasz_softmax_class_major(logits, labels, valid)
-        trace.count("loss.lovasz_plain")
-        return _lovasz_softmax_plain(logits, labels, valid)
-
-
-def _lovasz_softmax_plain(logits, labels, valid=None):
-    mask = _mask(labels, valid)
-    probs = torch.softmax(logits, dim=-1)
-    classes = torch.arange(logits.shape[-1], device=logits.device)
-    fg = ((labels[:, None] == classes) & mask[:, None]).to(torch.float32)
-    err = torch.where(mask[:, None], torch.abs(fg - probs), 0.0)
-    err_s, order = torch.sort(err, dim=0, descending=True, stable=True)
-    fg_s = torch.gather(fg, 0, order)
-    loss_c = torch.sum(err_s * _lovasz_grad(fg_s), dim=0)
-    return _present_mean(loss_c, torch.sum(fg, dim=0) > 0)
-
-
-def lovasz_softmax_class_major(logits, labels, valid=None):
-    """:func:`lovasz_softmax` over a class-major layout: the errors as
-    ``[C, N]`` rows, each sorted along its contiguous row (stable, so the
-    order and every weight are the plain path's), the foreground as uint8
-    gathered by that order, and :func:`ops.lovasz.lovasz_dot` for the scan
-    and the products (the kernel on a card, its plain version on the
-    CPU)."""
-    mask = _mask(labels, valid)
-    probs_t = torch.softmax(logits, dim=-1).t()
-    classes = torch.arange(logits.shape[-1], device=logits.device)
-    fg_t = ((labels[None, :] == classes[:, None])
-            & mask[None, :]).to(torch.uint8)
-    err_t = torch.where(mask[None, :], torch.abs(fg_t - probs_t),
-                        0.0).contiguous()
-    err_s, order = torch.sort(err_t, dim=1, descending=True, stable=True)
-    loss_c = lovasz_dot(err_s, torch.gather(fg_t, 1, order))
-    return _present_mean(loss_c, torch.sum(fg_t, dim=1) > 0)
+        mask = _mask(labels, valid)
+        probs_t = torch.softmax(logits, dim=-1).t()
+        classes = torch.arange(logits.shape[-1], device=logits.device)
+        fg_t = ((labels[None, :] == classes[:, None])
+                & mask[None, :]).to(torch.uint8)
+        err_t = torch.where(mask[None, :], torch.abs(fg_t - probs_t),
+                            0.0).contiguous()
+        err_s, order = torch.sort(err_t, dim=1, descending=True, stable=True)
+        loss_c = lovasz_dot(err_s, torch.gather(fg_t, 1, order))
+        return _present_mean(loss_c, torch.sum(fg_t, dim=1) > 0)
 
 
 def _present_mean(loss_c, present):

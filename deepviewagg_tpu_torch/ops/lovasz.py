@@ -9,20 +9,23 @@ along the sorted order (``w``, :func:`lovasz_scan`), differentiable in
 
 On a CUDA tensor :func:`lovasz_scan` launches the hand-written kernel
 ``csrc/lovasz.cu`` (counted in ``LAUNCHES``) or raises; on a CPU tensor it
-runs :func:`lovasz_scan_plain`: :func:`lovasz_grad`, the plain formula
-that the loss's CPU path takes along dim 0, along the last dimension.  The
-kernel cuts each class's rows into tiles of :data:`TILE_ROWS` and joins
-them from per-tile counts; :func:`lovasz_scan_tiled_plain` is that scheme
-in plain PyTorch (for tests only: nothing on the main path calls it).
+runs :func:`lovasz_scan_plain`: :func:`lovasz_grad`, the plain formula,
+along the last dimension.  The kernel cuts each class's rows into tiles of
+:data:`TILE_ROWS` and joins them from per-tile counts;
+:func:`lovasz_scan_tiled_plain` is that scheme in plain PyTorch (for tests
+only: nothing on the main path calls it).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..utils import cuda_build
+
 __all__ = ["LAUNCHES", "TILE_ROWS", "lovasz_grad", "lovasz_scan",
-           "lovasz_scan_plain", "lovasz_scan_tiled_plain", "lovasz_scan_into",
-           "lovasz_scratch", "lovasz_dot"]
+           "lovasz_scan_plain", "lovasz_scan_tiled_plain", "lovasz_dot"]
 
 # launches of the hand-written kernel, counted where the wrapper launches it
 # (one a call: the entry point's three passes)
@@ -110,60 +113,13 @@ def _check_args(err_s, fg_s):
                          f"at most 65535 classes, got [{c}, {n}]")
 
 
-_LIB = []
-
-
-def _lib():
-    """The kernel's library, built and loaded once a process."""
-    if not _LIB:
-        from ..utils import cuda_build
-
-        lib = cuda_build.load("lovasz")
-        if lib.lovasz_tile_rows() != TILE_ROWS:
-            raise RuntimeError(f"csrc/lovasz.cu tiles {lib.lovasz_tile_rows()}"
-                               f" rows, ops/lovasz.py {TILE_ROWS}")
-        _LIB.append(lib)
-    return _LIB[0]
-
-
-def lovasz_scratch(classes: int, rows: int, device):
-    """Uninitialised scratch of one launch: per class and tile an int32
-    count and a float64 partial product."""
-    tiles = -(-rows // TILE_ROWS)
-    return (torch.empty(classes * tiles, dtype=torch.int32, device=device),
-            torch.empty(classes * tiles, dtype=torch.float64, device=device))
-
-
-def lovasz_scan_into(err_s, fg_s, w, loss, counts, partial) -> None:
-    """Launch the kernel on contiguous CUDA tensors into the preallocated
-    ``w [C, N]``, ``loss [C]`` and scratch (of :func:`lovasz_scratch`): what
-    :func:`lovasz_scan` does after its checks and allocations.  For timing
-    the kernel apart from the wrapper."""
-    c, n = err_s.shape
-    tiles = -(-n // TILE_ROWS)
-    if not (err_s.is_cuda and w.shape == (c, n) and loss.shape == (c,)
-            and w.dtype == loss.dtype == torch.float32
-            and counts.dtype == torch.int32 and counts.numel() >= c * tiles
-            and partial.dtype == torch.float64
-            and partial.numel() >= c * tiles
-            and all(t.is_contiguous() and t.device == err_s.device
-                    for t in (err_s, fg_s, w, loss, counts, partial))):
-        raise ValueError("lovasz_scan_into: contiguous CUDA err_s, fg_s, "
-                         "float32 w [C, N] and loss [C], and the scratch, on "
-                         "one device")
-    fn = _lib().lovasz_f32
-    device = err_s.device
-    stream = torch.cuda.current_stream(device).cuda_stream
-    args = (err_s.data_ptr(), fg_s.data_ptr(), w.data_ptr(), loss.data_ptr(),
-            counts.data_ptr(), partial.data_ptr(), c, n, stream)
-    if device.index is None or device.index == torch.cuda.current_device():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"lovasz kernel launch failed: CUDA error {rc}")
-    LAUNCHES["lovasz"] += 1
+@functools.cache
+def _check_library() -> None:
+    """Once a process: the kernel's library tiles as this module does."""
+    rows = cuda_build.load("lovasz").lovasz_tile_rows()
+    if rows != TILE_ROWS:
+        raise RuntimeError(f"csrc/lovasz.cu tiles {rows} rows, "
+                           f"ops/lovasz.py {TILE_ROWS}")
 
 
 def lovasz_scan(err_s: torch.Tensor, fg_s: torch.Tensor):
@@ -175,11 +131,19 @@ def lovasz_scan(err_s: torch.Tensor, fg_s: torch.Tensor):
         return lovasz_scan_plain(err_s, fg_s)
     if err_s.device.type != "cuda":
         raise RuntimeError(f"lovasz_scan: unsupported device {err_s.device}")
+    _check_library()
     c, n = err_s.shape
-    w = torch.empty((c, n), dtype=torch.float32, device=err_s.device)
-    loss = torch.empty(c, dtype=torch.float32, device=err_s.device)
-    lovasz_scan_into(err_s.contiguous(), fg_s.contiguous(), w, loss,
-                     *lovasz_scratch(c, n, err_s.device))
+    device = err_s.device
+    err_s, fg_s = err_s.contiguous(), fg_s.contiguous()
+    w = torch.empty((c, n), dtype=torch.float32, device=device)
+    loss = torch.empty(c, dtype=torch.float32, device=device)
+    # per class and tile an int32 count and a float64 partial product
+    tiles = -(-n // TILE_ROWS)
+    counts = torch.empty(c * tiles, dtype=torch.int32, device=device)
+    partial = torch.empty(c * tiles, dtype=torch.float64, device=device)
+    cuda_build.launch("lovasz", "lovasz_f32", device, (
+        err_s.data_ptr(), fg_s.data_ptr(), w.data_ptr(), loss.data_ptr(),
+        counts.data_ptr(), partial.data_ptr(), c, n), LAUNCHES)
     return w, loss
 
 

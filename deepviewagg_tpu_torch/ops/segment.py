@@ -36,14 +36,13 @@ from typing import Optional
 
 import torch
 
+from ..utils import cuda_build
+
 __all__ = [
     "LAUNCHES",
     "segment_csr",
     "segment_csr_plain",
     "segment_csr_tiled_plain",
-    "segment_csr_into",
-    "segment_csr_scratch",
-    "segment_csr_bwd_into",
     "segment_edge_cases",
     "kernel_tile_rows",
     "segment_csr_bwd",
@@ -312,37 +311,10 @@ def _check_args(name, x, ptr, valid, num_rows):
 
 
 def kernel_tile_rows(channels: int) -> int:
-    """Rows per tile of the forward kernel for ``[E, channels]`` inputs,
-    chosen from ``chip_smoke.py --tune`` on an H100 (PERF.md)."""
+    """Rows per tile of the forward kernel for ``[E, channels]`` inputs:
+    the fastest of a sweep of tile sizes (32-2048) over the flagship's
+    calls on an H100."""
     return 512 if 2 < channels < 128 else 1024
-
-
-_FUNCTIONS = {}
-
-
-def _kernel_function(name: str):
-    """The C entry point ``<name>_f32``, built and resolved once a process."""
-    fn = _FUNCTIONS.get(name)
-    if fn is None:
-        from ..utils import cuda_build
-
-        fn = _FUNCTIONS[name] = getattr(cuda_build.load(name), name + "_f32")
-    return fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream, raise when the
-    launch is refused, count it."""
-    fn = _kernel_function(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index is None or device.index == torch.cuda.current_device():
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
 
 
 def _ptr_or_none(t: Optional[torch.Tensor]):
@@ -351,36 +323,6 @@ def _ptr_or_none(t: Optional[torch.Tensor]):
 
 def _contiguous(t: Optional[torch.Tensor]):
     return t if t is None or t.is_contiguous() else t.contiguous()
-
-
-def segment_csr_scratch(num_rows: int, channels: int, tile_rows: int,
-                        device) -> torch.Tensor:
-    """Uninitialised scratch of one forward launch: per tile two partial
-    rows (the segments that cross its edges) and two int32 of bookkeeping."""
-    tiles = -(-num_rows // tile_rows)
-    return torch.empty(tiles * (2 * channels + 2), dtype=torch.float32,
-                       device=device)
-
-
-def segment_csr_into(x, ptr, valid, out, scratch, reduce: str,
-                     tile_rows: int) -> None:
-    """Launch the forward kernel on contiguous CUDA tensors into the
-    preallocated ``out [S, C]`` and ``scratch`` (of
-    :func:`segment_csr_scratch`): what :func:`segment_csr` does after its
-    checks and allocations.  For timing the kernel apart from the wrapper."""
-    e, c = x.shape
-    tiles = -(-e // tile_rows)
-    if not (x.is_cuda and out.shape == (ptr.numel() - 1, c)
-            and scratch.numel() >= tiles * (2 * c + 2)
-            and ptr.is_contiguous()
-            and (valid is None or valid.is_contiguous())
-            and all(t.is_contiguous() and t.device == x.device
-                    and t.dtype == torch.float32 for t in (x, out, scratch))):
-        raise ValueError("segment_csr_into: contiguous float32 CUDA x, out "
-                         "[S, C] and scratch on one device")
-    _launch("segment_csr", x.device, x.data_ptr(), ptr.data_ptr(),
-            _ptr_or_none(valid), out.data_ptr(), scratch.data_ptr(), e,
-            ptr.numel() - 1, c, int(reduce == "max"), tile_rows)
 
 
 def _segment_csr_forward(x, ptr, valid, reduce):
@@ -393,31 +335,17 @@ def _segment_csr_forward(x, ptr, valid, reduce):
     e, c = x.shape
     s = ptr.numel() - 1
     tile_rows = kernel_tile_rows(c)
+    x, ptr, valid = _contiguous(x), _contiguous(ptr), _contiguous(valid)
     out = torch.empty((s, c), dtype=torch.float32, device=x.device)
-    scratch = segment_csr_scratch(e, c, tile_rows, x.device)
-    segment_csr_into(_contiguous(x), _contiguous(ptr), _contiguous(valid),
-                     out, scratch, reduce, tile_rows)
+    # per tile two partial rows (the segments that cross its edges) and two
+    # int32 of bookkeeping
+    scratch = torch.empty(-(-e // tile_rows) * (2 * c + 2),
+                          dtype=torch.float32, device=x.device)
+    cuda_build.launch("segment_csr", "segment_csr_f32", x.device, (
+        x.data_ptr(), ptr.data_ptr(), _ptr_or_none(valid), out.data_ptr(),
+        scratch.data_ptr(), e, s, c, int(reduce == "max"), tile_rows),
+        LAUNCHES)
     return out
-
-
-def segment_csr_bwd_into(g, x, out, ptr, valid, gx, reduce: str) -> None:
-    """Launch the backward kernel on contiguous CUDA tensors into the
-    preallocated ``gx [E, C]``: what :func:`segment_csr_bwd` does after its
-    checks and allocation.  For timing the kernel apart from the wrapper."""
-    is_max = reduce == "max"
-    given = (g, gx, ptr) + ((x, out) if is_max else ()) + (
-        () if valid is None else (valid,))
-    if not (g.is_cuda and gx.dtype == torch.float32
-            and gx.shape[1] == g.shape[1]
-            and all(t.is_contiguous() and t.device == g.device
-                    for t in given)):
-        raise ValueError("segment_csr_bwd_into: contiguous CUDA tensors on "
-                         "one device, gx float32 [E, C]")
-    _launch("segment_csr_bwd", g.device, g.data_ptr(),
-            x.data_ptr() if is_max else None,
-            out.data_ptr() if is_max else None, ptr.data_ptr(),
-            _ptr_or_none(valid), gx.data_ptr(), gx.shape[0], g.shape[0],
-            g.shape[1], int(is_max))
 
 
 def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
@@ -438,7 +366,8 @@ def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
     if g.shape[0] != s:
         raise ValueError(f"segment_csr_bwd: g has {g.shape[0]} rows for "
                          f"{s} segments")
-    if reduce == "max" and not (
+    is_max = reduce == "max"
+    if is_max and not (
             x.dtype == out.dtype == torch.float32 and x.shape == (e, c)
             and out.shape == g.shape and x.device == out.device == g.device):
         raise TypeError("segment_csr_bwd: x [E, C] and out [S, C] must be "
@@ -447,9 +376,14 @@ def segment_csr_bwd(g: torch.Tensor, x: Optional[torch.Tensor],
         return segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
     if g.device.type != "cuda":
         raise RuntimeError(f"segment_csr_bwd: unsupported device {g.device}")
+    g, ptr, valid = _contiguous(g), _contiguous(ptr), _contiguous(valid)
+    # the copies stay bound until the launch: a freed one's block could
+    # take the next copy before the kernel reads it
+    x, out = (_contiguous(x), _contiguous(out)) if is_max else (None, None)
     gx = torch.empty((e, c), dtype=torch.float32, device=g.device)
-    segment_csr_bwd_into(_contiguous(g), _contiguous(x), _contiguous(out),
-                         _contiguous(ptr), _contiguous(valid), gx, reduce)
+    cuda_build.launch("segment_csr_bwd", "segment_csr_bwd_f32", g.device, (
+        g.data_ptr(), _ptr_or_none(x), _ptr_or_none(out), ptr.data_ptr(),
+        _ptr_or_none(valid), gx.data_ptr(), e, s, c, int(is_max)), LAUNCHES)
     return gx
 
 

@@ -8,7 +8,8 @@ per-process temporary file, then renamed, so that processes building at once
 leave one whole library) and is loaded with ``ctypes``.  Sources come from
 the package alone, so a fresh checkout builds everything it needs; a build
 failure raises with the compiler's log (there is no fallback).  ``build``
-starts one compiler per source, all at once.
+starts one compiler per source, all at once.  :func:`launch` calls a kernel's
+entry point on a device's current stream and counts the launch.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["KERNELS", "HOST", "build", "load"]
+__all__ = ["KERNELS", "HOST", "build", "load", "launch"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _BUILD = _PKG / "_build"
@@ -142,3 +143,23 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib
+
+
+def launch(name: str, entry: str, device, args: Sequence,
+           launches: Dict[str, int]) -> None:
+    """Call ``entry`` of the kernel library ``name`` with ``args`` and the
+    current CUDA stream of ``device`` last, on that device; raise when the
+    launch is refused (a non-zero return code, a CUDA error); count it in
+    ``launches[name]``."""
+    import torch
+
+    fn = getattr(load(name), entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1

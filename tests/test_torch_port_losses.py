@@ -1,6 +1,7 @@
 """The port's losses against the JAX package: values and logit gradients of
 the masked cross-entropy (class weights, ignore labels, validity), the
-Lovász-softmax (with an absent class) and the view-level loss.  Same float32
+Lovász-softmax (with an absent class and with every class present) and the
+view-level loss.  Same float32
 arithmetic, summation order only: 1e-6 relative."""
 
 import jax
@@ -11,15 +12,17 @@ import torch
 
 from deepviewagg_tpu.models import losses as jl
 from deepviewagg_tpu_torch.models import losses as tl
+from deepviewagg_tpu_torch.ops import lovasz as lv
 from torch_port_util import _torch_threads, rel_err  # noqa: F401
 
 _TOL = 1e-6
 
 
-def _case(n=400, c=6, seed=0):
+def _case(n=400, c=6, seed=0, absent=True):
+    """``absent``: class ``c - 1`` is in no label."""
     rng = np.random.default_rng(seed)
     logits = (rng.normal(size=(n, c)) * 2.0).astype(np.float32)
-    labels = rng.integers(0, c - 1, n).astype(np.int32)   # class c-1 absent
+    labels = rng.integers(0, c - 1 if absent else c, n).astype(np.int32)
     labels[rng.random(n) < 0.1] = -1
     valid = rng.random(n) > 0.2
     weights = rng.uniform(0.5, 2.0, c).astype(np.float32)
@@ -71,9 +74,14 @@ def test_cross_entropy_with_nothing_to_score_is_zero():
 
 
 @pytest.mark.parametrize("with_valid", [False, True])
-def test_lovasz_softmax_matches_jax_with_an_absent_class(with_valid):
-    logits, labels, valid, _ = _case(seed=1)
-    assert not (labels == logits.shape[1] - 1).any()
+@pytest.mark.parametrize("absent", [True, False],
+                         ids=["an_absent_class", "every_class_present"])
+def test_lovasz_softmax_matches_jax(absent, with_valid):
+    """The class-major loss (sorted ``[C, N]`` rows, the scan's plain
+    version on the CPU) against the JAX package, with one class absent from
+    the labels and with every class present."""
+    logits, labels, valid, _ = _case(seed=1, absent=absent)
+    assert (labels == logits.shape[1] - 1).any() != absent
     v = valid if with_valid else None
     _check(
         lambda a: jl.lovasz_softmax(a, jnp.asarray(labels),
@@ -83,29 +91,14 @@ def test_lovasz_softmax_matches_jax_with_an_absent_class(with_valid):
         logits)
 
 
-@pytest.mark.parametrize("with_valid", [False, True])
-def test_lovasz_softmax_class_major_matches_jax(with_valid):
-    """The card's class-major layout (sorted ``[C, N]`` rows, the scan's
-    plain version on the CPU) against the JAX package on the same case."""
-    logits, labels, valid, _ = _case(seed=1)
-    v = valid if with_valid else None
-    _check(
-        lambda a: jl.lovasz_softmax(a, jnp.asarray(labels),
-                                    None if v is None else jnp.asarray(v)),
-        lambda a: tl.lovasz_softmax_class_major(
-            a, torch.from_numpy(labels),
-            None if v is None else torch.from_numpy(v)),
-        logits)
-
-
 def test_lovasz_grad_matches_jax():
     fg = (np.random.default_rng(2).random(50) > 0.6).astype(np.float32)
     ref = np.asarray(jl._lovasz_grad(jnp.asarray(fg)))
-    got = tl._lovasz_grad(torch.from_numpy(fg)[:, None])[:, 0].numpy()
+    got = lv.lovasz_grad(torch.from_numpy(fg)[:, None])[:, 0].numpy()
     assert rel_err(got, ref) <= _TOL
     empty = np.zeros(5, np.float32)                    # union clamp at 1
     np.testing.assert_allclose(
-        tl._lovasz_grad(torch.from_numpy(empty)[:, None])[:, 0].numpy(),
+        lv.lovasz_grad(torch.from_numpy(empty)[:, None])[:, 0].numpy(),
         np.asarray(jl._lovasz_grad(jnp.asarray(empty))), atol=1e-7)
 
 

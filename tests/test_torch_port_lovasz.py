@@ -1,14 +1,16 @@
 """The Lovász-softmax's class-major scan (``ops/lovasz.py``,
-``csrc/lovasz.cu``).
+``csrc/lovasz.cu``) and the loss built on it (``models/losses.py``).
 
-On the CPU: the plain model of the kernel's tiles
-(``lovasz_scan_tiled_plain``) gives ``_lovasz_grad``'s weights bit for bit
-on inputs that exercise the tile edges, and the class-major loss gives the
-plain path's loss and logit gradient.  On the card (marker ``card``; they
-skip without CUDA): the kernel's weights bit for bit, its products within
-1e-6 relative, the logits' gradient through the new function against the
-plain path's autograd, and one launch a call.  The file imports no JAX, so
-that the card's machine runs it as it is::
+The reference of this file is the row-major formula: ``lovasz_grad`` along
+dim 0 of the ``[N, C]`` errors sorted per column, one column a class
+(:func:`_row_major_lovasz`).  On the CPU: the plain model of the kernel's
+tiles (``lovasz_scan_tiled_plain``) gives its weights bit for bit on inputs
+that exercise the tile edges, and the loss gives the row-major loss and
+logit gradient.  On the card (marker ``card``; they skip without CUDA): the
+kernel's weights bit for bit, its products within 1e-6 relative, the
+logits' gradient against the row-major formula's autograd, and one launch a
+call.  The file imports no JAX, so that the card's machine runs it as it
+is::
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_port_lovasz.py -q -m card
@@ -21,19 +23,12 @@ import torch
 from deepviewagg_tpu_torch.models import losses as tl
 from deepviewagg_tpu_torch.ops import lovasz as lv
 from deepviewagg_tpu_torch.utils import trace
+from torch_port_util import card  # noqa: F401
 
 T = lv.TILE_ROWS
 _TOL = 1e-6
 # the PTv3 cell's level 0: 12 crops of 102,400 points, 13 classes
 CELL_ROWS, CELL_CLASSES = 1_228_800, 13
-
-
-@pytest.fixture
-def card():
-    """The CUDA device, decided when the test runs (never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: CUDA is not available here")
-    return torch.device("cuda")
 
 
 def _sorted_case(n, fg_rows, seed, levels=None):
@@ -90,8 +85,28 @@ IDS = [c[0] for c in CASES]
 
 
 def _plain_grad(fg_s):
-    """``models/losses.py::_lovasz_grad`` along each class's row."""
-    return tl._lovasz_grad(fg_s.t().to(torch.float32)).t()
+    """The row-major ``lovasz_grad`` (along dim 0 of ``[N, C]``) of each
+    class's row."""
+    return lv.lovasz_grad(fg_s.t().to(torch.float32)).t()
+
+
+def _row_major_lovasz(logits, labels, valid=None):
+    """The Lovász-softmax by the row-major formula: the ``[N, C]`` errors
+    sorted per column (stable), ``lovasz_grad`` along dim 0, the mean over
+    the classes present."""
+    mask = labels != tl.IGNORE_LABEL
+    if valid is not None:
+        mask = mask & valid
+    probs = torch.softmax(logits, dim=-1)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    fg = ((labels[:, None] == classes) & mask[:, None]).to(torch.float32)
+    err = torch.where(mask[:, None], torch.abs(fg - probs), 0.0)
+    err_s, order = torch.sort(err, dim=0, descending=True, stable=True)
+    loss_c = torch.sum(err_s * lv.lovasz_grad(torch.gather(fg, 0, order)),
+                       dim=0)
+    present = torch.sum(fg, dim=0) > 0
+    return torch.sum(torch.where(present, loss_c, 0.0)) / torch.clamp(
+        torch.sum(present.to(torch.float32)), min=1.0)
 
 
 def _rel(a, b):
@@ -176,38 +191,38 @@ def test_class_major_loss_matches_the_plain_path_on_the_cpu(masked):
     logits, labels, valid = _logits_case()
     valid = {"some": valid, "none": None,
              "all": torch.zeros_like(valid)}[masked]
-    ref, ref_g = _loss_and_grad(tl._lovasz_softmax_plain, logits, labels,
-                                valid)
-    got, got_g = _loss_and_grad(tl.lovasz_softmax_class_major, logits,
-                                labels, valid)
+    ref, ref_g = _loss_and_grad(_row_major_lovasz, logits, labels, valid)
+    got, got_g = _loss_and_grad(tl.lovasz_softmax, logits, labels, valid)
     assert abs(got - ref) <= _TOL * max(abs(ref), 1.0), (got, ref)
     assert float((got_g - ref_g).norm()) <= _TOL * max(
         float(ref_g.norm()), 1e-30)
 
 
 def _traced(fn):
-    """``fn()``'s counters and span names kept under a profiler."""
+    """``fn()``'s spans kept under a profiler."""
     trace.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         fn()
-    snap = trace.snapshot()
+    spans = trace.snapshot()["spans"]
     trace.reset()
-    return snap["counters"], snap["spans"]
+    return spans
 
 
 def test_a_cpu_call_counts_one_plain_lovasz_and_its_span():
+    """On the CPU: one ``loss.lovasz`` span a call, no kernel launch, and
+    no span at weight 0."""
     logits, labels, valid = _logits_case(n=200)
-    counters, spans = _traced(lambda: [
+    before = dict(lv.LAUNCHES)
+    spans = _traced(lambda: [
         tl.segmentation_loss(logits, labels, valid, lovasz_weight=1.0)
         for _ in range(3)])
-    assert counters.get("loss.lovasz_plain") == 3
-    assert "loss.lovasz_kernel" not in counters
     assert len(spans["loss.lovasz"]["id"]) == 3
+    assert lv.LAUNCHES == before
     # the recipes' weight 0 never calls it
-    counters, spans = _traced(lambda: tl.segmentation_loss(
+    spans = _traced(lambda: tl.segmentation_loss(
         logits, labels, valid, lovasz_weight=0.0))
-    assert "loss.lovasz_plain" not in counters and "loss.lovasz" not in spans
+    assert "loss.lovasz" not in spans
 
 
 # --- on the card ------------------------------------------------------------
@@ -258,8 +273,7 @@ def test_card_logit_gradient_matches_the_plain_autograd(card):
     labels = torch.randint(-1, CELL_CLASSES - 1, (CELL_ROWS,), generator=g,
                            device=card)               # one class absent
     valid = torch.rand(CELL_ROWS, generator=g, device=card) > 0.05
-    ref, ref_g = _loss_and_grad(tl._lovasz_softmax_plain, logits, labels,
-                                valid)
+    ref, ref_g = _loss_and_grad(_row_major_lovasz, logits, labels, valid)
     before = lv.LAUNCHES["lovasz"]
     got, got_g = _loss_and_grad(tl.lovasz_softmax, logits, labels, valid)
     assert lv.LAUNCHES["lovasz"] == before + 1
@@ -269,13 +283,14 @@ def test_card_logit_gradient_matches_the_plain_autograd(card):
 
 @pytest.mark.card
 def test_card_call_counts_one_kernel_lovasz_and_one_launch(card):
+    """On the card: one kernel launch and one ``loss.lovasz`` span with
+    device time a call."""
     logits, labels, valid = (t.to(card) for t in _logits_case(n=5000))
     before = lv.LAUNCHES["lovasz"]
-    counters, spans = _traced(lambda: [
+    spans = _traced(lambda: [
         tl.segmentation_loss(logits, labels, valid, lovasz_weight=1.0)
         for _ in range(2)])
     assert lv.LAUNCHES["lovasz"] == before + 2
-    assert counters.get("loss.lovasz_kernel") == 2
-    assert "loss.lovasz_plain" not in counters
+    assert len(spans["loss.lovasz"]["id"]) == 2
     assert all(ms is not None and ms > 0
                for ms in spans["loss.lovasz"]["device_ms"])

@@ -1,5 +1,7 @@
 """Shared helpers of the ``test_torch_port_*`` parity tests: the same numpy
-inputs go through the JAX package and the PyTorch port on the CPU."""
+inputs go through the JAX package and the PyTorch port on the CPU.  The
+module imports JAX only inside the helpers that need it, so that the
+``card`` tests import it on a machine without JAX."""
 
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import pytest
 import torch
 
 from deepviewagg_tpu_torch.data.collate import batch_to_torch
+from deepviewagg_tpu_torch.models.losses import segmentation_loss
+from deepviewagg_tpu_torch.ops import segment as seg
 
 TINY_SPEC = dict(backbone="Res16UNetTest", tower="resnet18_l1", num_groups=2)
 TINY_BATCH = dict(n_samples=1, density=25.0, image_size=(64, 32), n_cameras=1)
@@ -23,6 +27,15 @@ def _torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, decided when the test runs (never at import): the
+    fixture of the ``card``-marked tests, which skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA is not available here")
+    return torch.device("cuda")
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,6 +167,90 @@ def segment_case(seed, e=700, s=120, c=16, one_d=False, empty_tail=False):
     return x, ids, valid, ptr, s
 
 
+# --- the sorted-segment kernels against their plain versions (the card
+# tests and chip_smoke.py) ---------------------------------------------------
+
+SUM_RTOL = 1e-5                    # kernel vs plain: only summation order
+# the benchmark request (bench.py's forward batch): 4 samples, density 260,
+# 12 images of 256 x 128
+SERVE_REQUEST = dict(n_samples=4, density=260.0, image_size=(256, 128),
+                     n_cameras=3)
+# sorted-segment launches of the flagship: atomic max, set-encoder max, one
+# count, one compatibility max, softmax sum, weighted sum; the count has no
+# gradient
+FORWARD_LAUNCHES, BACKWARD_LAUNCHES = 6, 5
+
+
+def check_call(x, ptr, valid, reduce) -> float:
+    """Forward kernel against plain on one input: max bit for bit, sum
+    within ``SUM_RTOL``, the same bits on two runs, or it raises; returns
+    the largest absolute difference."""
+    got = seg.segment_csr(x, ptr, valid, reduce)
+    if not torch.equal(got, seg.segment_csr(x, ptr, valid, reduce)):
+        raise AssertionError("segment_csr: two runs gave different bits")
+    ref = seg.segment_csr_plain(x, ptr, valid, reduce)
+    if got.shape != ref.shape:
+        raise AssertionError(f"segment_csr shape {tuple(got.shape)}")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if reduce == "max":
+        if not torch.equal(got, ref):
+            raise AssertionError(f"segment_csr max differs: {err}")
+    elif got.numel() and rel_err(got, ref) > SUM_RTOL:
+        raise AssertionError(f"segment_csr sum differs: {rel_err(got, ref)}")
+    return err
+
+
+def check_bwd_call(g, x, out, ptr, valid, reduce, num_rows) -> float:
+    """Backward kernel against plain on one input: bit for bit or it
+    raises; returns the largest absolute difference (0.0)."""
+    got = seg.segment_csr_bwd(g, x, out, ptr, valid, reduce, num_rows)
+    ref = seg.segment_csr_bwd_plain(g, x, out, ptr, valid, reduce, num_rows)
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"segment_csr_bwd {reduce} differs: {err}")
+    return err
+
+
+def record_segment_calls(model, batch) -> list:
+    """Every ``segment_csr`` call of one forward without gradient: ``(x,
+    ptr, valid, reduce)``, cloned."""
+    calls, inner = [], seg.segment_csr
+
+    def recorder(x, ptr, valid, reduce):
+        calls.append((x.clone(), ptr.clone(),
+                      None if valid is None else valid.clone(), reduce))
+        return inner(x, ptr, valid, reduce)
+
+    seg.segment_csr = recorder
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        seg.segment_csr = inner
+    return calls
+
+
+def record_backward_calls(model, batch) -> list:
+    """Every ``segment_csr_bwd`` call of one forward and backward of the
+    segmentation loss: ``(g, x, out, ptr, valid, reduce, num_rows)`` as the
+    autograd function hands them over (the cotangent cloned)."""
+    calls, inner = [], seg.segment_csr_bwd
+
+    def recorder(g, x, out, ptr, valid, reduce, num_rows=None):
+        calls.append((g.clone(), x, out, ptr, valid, reduce, num_rows))
+        return inner(g, x, out, ptr, valid, reduce, num_rows)
+
+    seg.segment_csr_bwd = recorder
+    try:
+        out = model(batch)
+        segmentation_loss(out["logits"], batch["labels"],
+                          batch["graph"]["levels"][0]["valid"]).backward()
+    finally:
+        seg.segment_csr_bwd = inner
+    model.zero_grad(set_to_none=True)
+    return calls
+
+
 def backward_node_names(t):
     """Type names of every node in the autograd graph below tensor ``t``."""
     seen, stack, names = set(), [t.grad_fn], []
@@ -203,7 +300,11 @@ def assert_identical(a, b, path=""):
 
 
 def rel_err(a, b) -> float:
-    """Largest absolute difference over the largest magnitude of ``b``."""
+    """Largest absolute difference over the largest magnitude of ``b``
+    (numpy arrays, or two tensors on any device)."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
