@@ -17,7 +17,8 @@ Here all of it happens host-side, once per batch:
 
 A ``Bucket`` pins every static dimension, so batches of one bucket family
 share every array shape (SURVEY.md §7 design move 1).
-:func:`batch_to_torch` moves a collated batch onto the device.
+:func:`batch_to_torch` moves a collated batch onto the device (to a card,
+through :func:`stage`'s page-locked buffer).
 """
 
 from __future__ import annotations
@@ -33,7 +34,12 @@ from ..ops import sparse_graph as sg
 from ..utils import trace
 from .mapping import MultiViewMapping, concatenate_mappings
 
-__all__ = ["Sample", "Bucket", "collate", "device_view", "batch_to_torch"]
+__all__ = ["Sample", "Bucket", "collate", "device_view", "stage",
+           "batch_to_torch"]
+
+# byte alignment of each leaf in :func:`stage`'s buffer (every dtype's size
+# divides it)
+STAGE_ALIGN = 512
 
 
 def device_view(batch: Dict) -> Dict:
@@ -297,26 +303,77 @@ def _collate_ptv3(samples, bucket, coords, feats, labels,
     return batch
 
 
+def _map_arrays(node, fn):
+    """``node`` with each numpy array leaf replaced by ``fn(leaf)``, in a
+    fixed walk order: dicts and lists (tuples) rebuilt, ``meta`` and other
+    non-array leaves kept as they are."""
+    if isinstance(node, dict):
+        return {k: v if k == "meta" else _map_arrays(v, fn)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_arrays(v, fn) for v in node)
+    if isinstance(node, np.ndarray):
+        return fn(node)
+    return node
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // STAGE_ALIGN) * STAGE_ALIGN
+
+
+def stage(batch: Dict, pin_memory: bool = False, then=None) -> Dict:
+    """``batch`` with each numpy array leaf copied into one host buffer
+    (page-locked where ``pin_memory``: the caching host allocator's) and
+    replaced by ``then(view)``, ``view`` being the leaf's contiguous slice
+    of the buffer as a tensor of its dtype and shape, at a multiple of
+    :data:`STAGE_ALIGN` bytes from the buffer's start (``then`` ``None``:
+    the view itself).  Nesting, ``meta`` and non-array leaves as in
+    :func:`batch_to_torch`.  The copies are done when this returns, so the
+    caller may rewrite its arrays at once."""
+    sizes = []
+    _map_arrays(batch, lambda a: sizes.append(a.nbytes))
+    buf = torch.empty(sum(map(_aligned, sizes)), dtype=torch.uint8,
+                      pin_memory=pin_memory)
+    offset = 0
+
+    def put(a):
+        nonlocal offset
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        view = buf[offset:offset + src.nbytes].view(src.dtype).view(src.shape)
+        view.copy_(src)
+        offset += _aligned(src.nbytes)
+        return view if then is None else then(view)
+
+    return _map_arrays(batch, put)
+
+
 def batch_to_torch(batch: Dict, device="cuda") -> Dict:
     """Move the numpy leaves of a collated batch onto ``device`` as tensors
     (dtypes kept: int32 ids and CSR pointers, bool masks, float32 values, as
     the segment kernels' wrapper takes them); the nesting of a crop-ladder
     batch (``mappings[level]["buckets"][b]``, the ``bucket_images`` list) is
-    kept; ``meta`` and other non-array leaves stay as they are.  Traced:
-    the ``to_device`` span, and the bytes a card receives in the
-    ``h2d_bytes`` counter."""
-    h2d = torch.device(device).type != "cpu" and trace.enabled()
+    kept; ``meta`` and other non-array leaves stay as they are.  To a CUDA
+    device the leaves go through :func:`stage`'s page-locked buffer, each
+    by a non-blocking copy on the current stream: the host neither waits
+    for the stream's queued work nor for the copies (the allocator keeps
+    the buffer until they have landed).  Traced: the ``to_device`` span,
+    the bytes a card receives in the ``h2d_bytes`` counter and those sent
+    from page-locked staging in ``h2d_staged_bytes``."""
+    device = torch.device(device)
+    h2d = device.type != "cpu" and trace.enabled()
 
-    def move(node):
-        if isinstance(node, dict):
-            return {k: v if k == "meta" else move(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(move(v) for v in node)
-        if isinstance(node, np.ndarray):
-            if h2d:
-                trace.count("h2d_bytes", node.nbytes)
-            return torch.from_numpy(np.ascontiguousarray(node)).to(device)
-        return node
+    def send(view):
+        if h2d:
+            trace.count("h2d_bytes", view.nbytes)
+            trace.count("h2d_staged_bytes", view.nbytes)
+        return view.to(device, non_blocking=True)
+
+    def move(a):
+        if h2d:
+            trace.count("h2d_bytes", a.nbytes)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     with trace.span("to_device"):
-        return move(batch)
+        if device.type == "cuda":
+            return stage(batch, pin_memory=True, then=send)
+        return _map_arrays(batch, move)
