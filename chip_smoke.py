@@ -18,8 +18,9 @@ and which also run alone (``pytest --noconftest -m card <files>``).  Phases:
               masked and all-masked segments, forced ties and the tile
               edges; the Lovasz scan's weights bit for bit and its
               products within 1e-6 at the PTv3 cell's [13, 1,228,800],
-              the loss's gradient against the row-major formula); every
-              selected test passes and none skips
+              the loss's gradient against the row-major formula; the kNN
+              kernel's tables equal to the brute force's, ties included);
+              every selected test passes and none skips
   3. serving  the flagship model (Res16UNet34 + ResNet18-PPM branch, random
               weights from a seed) answers three requests of the benchmark's
               shape (4 samples, density 260, 12 images of 256 x 128), each
@@ -329,7 +330,8 @@ from torch_port_util import (  # noqa: E402
 
 # the hand-written kernels' card tests (phase 2)
 CARD_TESTS = ("tests/test_torch_port_segment_card.py",
-              "tests/test_torch_port_lovasz.py")
+              "tests/test_torch_port_lovasz.py",
+              "tests/test_torch_port_knn_card.py")
 # the graft-entry request (the benchmark one is SERVE_REQUEST)
 CHECK_REQUEST = dict(n_samples=2, density=120.0, image_size=(128, 64),
                      n_cameras=2)

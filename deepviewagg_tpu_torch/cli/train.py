@@ -358,8 +358,8 @@ def _train(cfg, device):
             "tower_deep_stem", spec.branches[0][1].tower_deep_stem)
     branch_levels = sorted(dict(spec.branches))
     bucket = auto_bucket(cfg, train_ds, branch_levels)
-    graph = "ptv3" if spec.family == "ptv3" else "unet"
-    if graph == "ptv3":
+    graph = spec.family if spec.family in ("ptv3", "ptv2") else "unet"
+    if graph != "unet":
         bucket = dataclasses.replace(bucket, view_cap=0, pix_cap=0,
                                      image_cap=0)
     print(f"bucket: levels={list(bucket.level_caps)} views={bucket.view_cap} "

@@ -122,6 +122,10 @@ _NAMED = {
 # names hold "block" train at a tenth of the learning rate
 _NAMED["PTv3-m1-base"] = dict(family="ptv3", backbone="PTv3-m1-base",
                               stem_kernel=5, lr_keywords={"block": 0.1})
+# Point Transformer V2 (Wu et al., NeurIPS 2022): Pointcept's S3DIS
+# semseg-pt-v2m2-0-base, 3D-only over the "ptv2" collate route; the
+# backbone names a preset of nn/ptv2.py (PTv2Test: the narrow test net)
+_NAMED["PTv2-m2-base"] = dict(family="ptv2", backbone="PTv2-m2-base")
 
 _POOLS = {"max": ("max", 1), "mean": ("mean", 1), "heuristic": ("heuristic", 1),
           "qkv": ("qkv", 1)}

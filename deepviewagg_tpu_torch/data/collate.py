@@ -194,7 +194,8 @@ def collate(
     moves it to the device).  ``graph``: the batch's point structure, the
     UNet's voxel levels and strided convolution maps (``"unet"``) or Point
     Transformer V3's pyramid of serialized pooling clusters (``"ptv3"``,
-    3D-only)."""
+    3D-only), or Point Transformer V2's positions and per-sample offsets
+    alone (``"ptv2"``, 3D-only)."""
     assert len(samples) <= bucket.num_batches
     coords, feats, labels, batch_idx = [], [], [], []
     for b, s in enumerate(samples):
@@ -216,6 +217,8 @@ def collate(
     if graph == "ptv3":
         return _collate_ptv3(samples, bucket, coords, feats, labels,
                              conv0_kernel)
+    if graph == "ptv2":
+        return _collate_ptv2(samples, bucket, coords, feats, labels)
     with trace.span("collate.graph"):
         graph = sg.build_unet_graph(
             coords,
@@ -226,15 +229,7 @@ def collate(
         )
         dev_graph = sg.graph_to_device(graph)
 
-    batch = {
-        "feats": pad_to(feats, cap0),
-        "labels": pad_to(labels, cap0, fill=-1),
-        "graph": dev_graph,
-    }
-    if all(s.pos is not None for s in samples):
-        pos = np.concatenate([np.asarray(s.pos, np.float32) for s in samples])
-        batch["pos"] = pad_to(pos, cap0, fill=1e6)  # pads far away
-
+    batch = _points(samples, feats, labels, dev_graph, cap0)
     if branch_levels:
         with trace.span("collate.images"):
             imgs = np.concatenate([s.images for s in samples]).astype(
@@ -256,15 +251,35 @@ def collate(
                 batch["images"] = pad_to(imgs, bucket.image_cap)
 
     # host-side metadata (never moved to the device)
-    batch["meta"] = {
+    batch["meta"] = _meta(samples, n_total)
+    return batch
+
+
+def _points(samples, feats, labels, graph, cap0: int) -> Dict:
+    """The per-point part every route shares: features, labels (-1 on
+    padding), the route's ``graph``, and the raw positions where every
+    sample has them (padding far away), each padded to ``cap0`` rows."""
+    batch = {
+        "feats": pad_to(feats, cap0),
+        "labels": pad_to(labels, cap0, fill=-1),
+        "graph": graph,
+    }
+    if all(s.pos is not None for s in samples):
+        pos = np.concatenate([np.asarray(s.pos, np.float32) for s in samples])
+        batch["pos"] = pad_to(pos, cap0, fill=1e6)  # pads far away
+    return batch
+
+
+def _meta(samples, n_total: int) -> Dict:
+    """The host-side metadata (never moved to the device): counts and the
+    voting support (SaveOriginalPosId semantics, SURVEY.md §A.9)."""
+    return {
         "num_valid": n_total,
         "num_samples": len(samples),
         "sizes": [len(s.coords) for s in samples],
-        # voting support (SaveOriginalPosId semantics, SURVEY.md §A.9)
         "clouds": [s.cloud for s in samples],
         "origin_ids": [s.origin_id for s in samples],
     }
-    return batch
 
 
 def _collate_ptv3(samples, bucket, coords, feats, labels,
@@ -280,26 +295,40 @@ def _collate_ptv3(samples, bucket, coords, feats, labels,
     for b in range(len(samples)):
         part = grid[start[b]:start[b + 1], 1:]
         part -= part.min(axis=0)
-    cap0 = bucket.level_caps[0]
     with trace.span("collate.graph"):
         graph = sg.build_ptv3_graph(grid, len(bucket.level_caps),
                                     bucket.num_batches,
                                     list(bucket.level_caps), stem_kernel)
-    batch = {
-        "feats": pad_to(feats, cap0),
-        "labels": pad_to(labels, cap0, fill=-1),
-        "graph": graph,
+    batch = _points(samples, feats, labels, graph, bucket.level_caps[0])
+    batch["meta"] = _meta(samples, len(coords))
+    return batch
+
+
+def _collate_ptv2(samples, bucket, coords, feats, labels) -> Dict:
+    """A Point Transformer V2 batch: no images and no structure, which the
+    model builds on the device; the level-0 rows' sample (``batch_idx``,
+    0 on padding) and validity, the per-sample offsets (int32
+    ``[num_batches + 1]``, empty samples at the end) and counts (``counts
+    [0]``, a host list)."""
+    if bucket.image_cap or any(s.images is not None for s in samples):
+        raise ValueError("the PTv2 route takes 3D-only samples")
+    if any(s.pos is None for s in samples):
+        raise ValueError("the PTv2 route takes samples with positions")
+    cap0 = bucket.level_caps[0]
+    n = len(coords)
+    sizes = [len(s.coords) for s in samples]
+    sizes += [0] * (bucket.num_batches - len(sizes))
+    valid = np.zeros(cap0, bool)
+    valid[:n] = True
+    graph = {
+        "levels": [{"valid": valid,
+                    "batch_idx": pad_to(coords[:, 0].astype(np.int32),
+                                        cap0)}],
+        "offset": np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+        "counts": [sizes],
     }
-    if all(s.pos is not None for s in samples):
-        pos = np.concatenate([np.asarray(s.pos, np.float32) for s in samples])
-        batch["pos"] = pad_to(pos, cap0, fill=1e6)
-    batch["meta"] = {
-        "num_valid": len(coords),
-        "num_samples": len(samples),
-        "sizes": [len(s.coords) for s in samples],
-        "clouds": [s.cloud for s in samples],
-        "origin_ids": [s.origin_id for s in samples],
-    }
+    batch = _points(samples, feats, labels, graph, cap0)
+    batch["meta"] = _meta(samples, n)
     return batch
 
 

@@ -542,7 +542,8 @@ def _family_branch_name(k: int) -> str:
 def build_model(spec: ModelSpec, device="cuda",
                 seed: Optional[int] = 0) -> nn.Module:
     """The model of a spec (JAX ``build_model``): a PTv3 for the family
-    ``ptv3`` (the port's own, :mod:`..nn.ptv3`), ``SparseConv3dSeg``
+    ``ptv3`` and a PTv2 for ``ptv2`` (the port's own, :mod:`..nn.ptv3`,
+    :mod:`..nn.ptv2`), ``SparseConv3dSeg``
     without branches, else by family ``No3DSeg`` (``no3d``),
     ``LateFusionSeg`` (``late_feature`` / ``late_logit``) or
     ``MultimodalSeg``."""
@@ -550,6 +551,12 @@ def build_model(spec: ModelSpec, device="cuda",
         from ..nn.ptv3 import PTV3_PRESETS, PointTransformerV3Seg
 
         return PointTransformerV3Seg(PTV3_PRESETS[spec.backbone],
+                                     spec.in_channels, spec.num_classes,
+                                     device=device, seed=seed)
+    if spec.family == "ptv2":
+        from ..nn.ptv2 import PTV2_PRESETS, PointTransformerV2Seg
+
+        return PointTransformerV2Seg(PTV2_PRESETS[spec.backbone],
                                      spec.in_channels, spec.num_classes,
                                      device=device, seed=seed)
     if not spec.branches:

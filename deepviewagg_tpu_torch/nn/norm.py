@@ -9,6 +9,11 @@ mode the layer applies its running statistics (``running_mean`` /
 eps 1e-5 in float32.  Under :func:`bn_process_group` the statistics are
 summed over the ranks of a process group (sync BN, the JAX
 ``bn_axis_name``).
+
+``PointBatchNorm`` is Pointcept's: ``torch.nn.BatchNorm1d`` over the rows
+of ``[N, C]`` or the ``N x S`` rows of ``[N, S, C]`` (Point Transformer
+V2's neighbour tensors), through ``F.batch_norm``, which keeps only its
+input for the backward pass.
 """
 
 from __future__ import annotations
@@ -17,11 +22,13 @@ import contextlib
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_reduce_sum
 
-__all__ = ["MaskedBatchNorm", "bn_momentum", "bn_process_group"]
+__all__ = ["MaskedBatchNorm", "PointBatchNorm", "bn_momentum",
+           "bn_process_group"]
 
 # Step-scoped process group for cross-device (sync) batch norm: set by the
 # parallel step wrappers (parallel/mesh.py) so that every MaskedBatchNorm of
@@ -109,3 +116,31 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias
+
+
+class PointBatchNorm(nn.Module):
+    """``torch.nn.BatchNorm1d`` (eps 1e-5, momentum 0.1, the unbiased
+    variance in the running statistics) over every row of ``x [..., C]``:
+    the ``N x S`` rows of ``[N, S, C]`` as Pointcept's ``PointBatchNorm``
+    takes them.  The statistics are float32 whatever ``x``'s type; the
+    output comes out in ``x``'s type (a bfloat16 ``x`` gives a bfloat16
+    output, rounded once from the float32 result), or in ``dtype`` where
+    given.  Every row counts: the caller leaves padding rows out."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        if dtype is not None and dtype != x.dtype:
+            x = x.to(dtype)
+        c = x.shape[-1]
+        y = F.batch_norm(x.reshape(-1, c), self.running_mean,
+                         self.running_var, self.weight, self.bias,
+                         self.training, 0.1, 1e-5)
+        return y.view(x.shape)

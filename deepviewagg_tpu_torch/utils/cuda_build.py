@@ -42,6 +42,10 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         "lovasz_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _P), _I),
         "lovasz_tile_rows": ((), _I),
     },
+    "knn": {
+        "knn_keys_f32": ((_P, _P, _P, _P, _P, _P, _I, _P), _I),
+        "knn_search_f32": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
+    },
 }
 HOST: Dict[str, Dict[str, tuple]] = {
     "kernelmap": {
